@@ -1,0 +1,467 @@
+// One decode token step through the whole Transformer-XL layer stack with
+// int8 weights and an int8 slot-major KV ring ("slab_w8").
+//
+// Replaces the TPU kernel deepmusicgeneration_tpu/ops/fused_decode.py::
+// fused_slab_core (pallas_call built by _make_slab_kernel) in the mode
+// score_mode="bf16", weights_int8=True, and computes the same function:
+//
+//   per layer l, per batch row b
+//     qkv   = bf16(h) . bf16(W_qkv_int8 * col_scale)           (f32 accumulate)
+//     score = ((q+u) . K_int8[slot] * k_scale[slot] + roll((q+v) . wkr, ptr)[slot])
+//             * scale, slots masked by `blocked`; self term from the fresh
+//             unquantized k1 at distance 0; softmax over M + 1 keys
+//     attn  = (sum_slot bf16(p * v_scale) . V_int8 + p_self * v1) / denom
+//     the fresh k1/v1 rows are quantized (scale = max(|x|, 1e-6) / 127,
+//     round half to even, clip +-127) and written into slot `ptr` only,
+//     after the layer's attention has read the old slot
+//     h1 = LN(h + bf16(attn) . W_out);  h = LN(h1 + W_ff2 . gelu_tanh(W_ff1 . h1 + b1) + b2)
+//
+// The Pallas kernel walks a sequential (layer, row-group) grid and carries h
+// in VMEM across layers. Hopper blocks cannot carry state across a grid, so
+// each layer is a short chain of kernels on one stream; the hidden state
+// stays in device memory between them (it is a few KB).
+//
+// Bound. At batch 1 on the 41M flagship (8 layers, d 512, d_inner 3072,
+// 12 x 64 heads, mem_len 512) one step must read ~51 MB: 37.7 MB of int8
+// weights, 6.3 MB of bf16 wkr and 6.3 MB of int8 K/V; at 3.35 TB/s that is
+// ~15 us. The arithmetic (~2 FLOP per weight byte) is far below the card's
+// ridge, so the step is bound by bytes. Design for that bound: weights stay
+// int8 in memory and are dequantized in registers; the GEMV splits the
+// reduction dimension over blocks (partials summed in a fixed order, so the
+// result is deterministic) to have enough loads in flight; attention reads
+// each wkr and K/V slot row once, a whole row per thread in 16-byte loads.
+// This version is simple, not tuned: it launches 10 kernels per layer.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;                       // every kernel's block size
+constexpr int kCols = 64;                           // GEMV output columns per block
+constexpr int kColThreads = kCols / 4;              // 16 threads x 4 columns
+constexpr int kKSlices = kThreads / kColThreads;    // 16 interleaved K slices
+constexpr int kKChunk = 64;                         // K rows per GEMV block
+constexpr int kRows = 8;                            // batch rows per GEMV block
+
+enum Act { kNone = 0, kGeluTanh = 1, kRelu = 2 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide sum / max; every thread gets the result. Warp partials are
+// combined in warp order, so the result does not depend on scheduling.
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // a previous call's readers are done with `red`
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += red[i];
+  return t;
+}
+
+__device__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = -INFINITY;
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t = fmaxf(t, red[i]);
+  return t;
+}
+
+__device__ __forceinline__ float activate(float x, int act) {
+  if (act == kGeluTanh) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
+  }
+  if (act == kRelu) return fmaxf(x, 0.f);
+  return x;
+}
+
+// partial[kb][b][n] = sum over k in chunk kb of bf16(x[b][k]) * bf16(W[k][n] * s[n]).
+// grid (ceil(N / kCols), ceil(K / kKChunk), ceil(B / kRows)); W is (K, N) int8.
+__global__ void __launch_bounds__(kThreads)
+gemv_w8_partial(const float* __restrict__ x, int B, int K, int N,
+                const int8_t* __restrict__ W, const float* __restrict__ s,
+                float* __restrict__ partial) {
+  __shared__ float red[kKSlices][kRows][kCols];
+  const int tx = threadIdx.x % kColThreads;
+  const int ty = threadIdx.x / kColThreads;
+  const int n0 = blockIdx.x * kCols + tx * 4;
+  const int kb = blockIdx.y;
+  const int b0 = blockIdx.z * kRows;
+  const int nb = min(kRows, B - b0);
+  const int k_end = min(K, (kb + 1) * kKChunk);
+  float acc[kRows][4];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  if (n0 < N) {
+    const float s0 = s[n0], s1 = s[n0 + 1], s2 = s[n0 + 2], s3 = s[n0 + 3];
+#pragma unroll 4
+    for (int k = kb * kKChunk + ty; k < k_end; k += kKSlices) {
+      const char4 w4 = *reinterpret_cast<const char4*>(W + (size_t)k * N + n0);
+      const float w[4] = {bf16_round((float)w4.x * s0), bf16_round((float)w4.y * s1),
+                          bf16_round((float)w4.z * s2), bf16_round((float)w4.w * s3)};
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < nb) {
+          const float xv = bf16_round(x[(size_t)(b0 + r) * K + k]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(xv, w[j], acc[r][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty][r][tx * 4 + j] = acc[r][j];
+  __syncthreads();
+  for (int o = threadIdx.x; o < kRows * kCols; o += kThreads) {
+    const int r = o / kCols, c = o % kCols;
+    const int n = blockIdx.x * kCols + c;
+    if (r < nb && n < N) {
+      float t = 0.f;
+      for (int i = 0; i < kKSlices; ++i) t += red[i][r][c];
+      partial[((size_t)kb * B + b0 + r) * N + n] = t;
+    }
+  }
+}
+
+// y[b][n] = act(sum_kb partial[kb][b][n] + bias[n]); bias may be null.
+__global__ void __launch_bounds__(kThreads)
+gemv_finish(const float* __restrict__ partial, int KB, int B, int N,
+            const __nv_bfloat16* __restrict__ bias, int act, float* __restrict__ y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * N) return;
+  float t = 0.f;
+  for (int kb = 0; kb < KB; ++kb) t += partial[(size_t)kb * B * N + i];
+  if (bias != nullptr) t += __bfloat162float(bias[i % N]);
+  y[i] = activate(t, act);
+}
+
+// out[b] = LN(resid[b] + (sum_kb partial[kb][b] + bias)) * g + beta, one block
+// per row. `out` may alias `resid`: the row is read into shared memory first.
+__global__ void __launch_bounds__(kThreads)
+add_layer_norm(const float* resid, const float* __restrict__ partial, int KB, int B,
+               int N, const __nv_bfloat16* __restrict__ bias,
+               const float* __restrict__ g, const float* __restrict__ beta, float* out) {
+  extern __shared__ float xs[];  // N floats
+  __shared__ float red[32];
+  const int b = blockIdx.x;
+  float sum = 0.f;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float t = 0.f;
+    for (int kb = 0; kb < KB; ++kb) t += partial[((size_t)kb * B + b) * N + n];
+    if (bias != nullptr) t += __bfloat162float(bias[n]);
+    const float v = resid[(size_t)b * N + n] + t;
+    xs[n] = v;
+    sum += v;
+  }
+  const float mu = block_sum(sum, red) / (float)N;
+  float sq = 0.f;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float d = xs[n] - mu;
+    sq += d * d;
+  }
+  const float var = block_sum(sq, red) / (float)N;
+  const float rs = rsqrtf(var + 1e-5f);
+  for (int n = threadIdx.x; n < N; n += blockDim.x)
+    out[(size_t)b * N + n] = (xs[n] - mu) * rs * g[n] + beta[n];
+}
+
+// Slab attention, one block per (row b, head h), for one layer.
+// qkv (B, 3HD) f32; wkr (M+1, HD) bf16, row m <-> distance M-m; kt/vc
+// (B, M, HD) int8; ks/vs (B, M) f32; blocked (B, M) int32; attn (B, HD) f32.
+// Each thread owns whole slot rows for the score dot products (16-byte
+// loads, no cross-lane reduction, several rows in flight per block); for
+// P.V each thread owns 4 output columns of one slot group.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+slab_attention(const float* __restrict__ qkv, int H, int M,
+               const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ vb,
+               const __nv_bfloat16* __restrict__ wkr, const int8_t* __restrict__ kt,
+               const float* __restrict__ ks, const int8_t* __restrict__ vc,
+               const float* __restrict__ vs, const int32_t* __restrict__ blocked,
+               int ptr, float scale, float* __restrict__ attn) {
+  constexpr int kColGroups = DH / 4;                 // 4 output columns each
+  constexpr int kSlotGroups = kThreads / kColGroups;
+  extern __shared__ float sm[];
+  float* qu = sm;            // DH: bf16(bf16(q) + u)
+  float* qv = qu + DH;       // DH: bf16(bf16(q) + v)
+  float* sd = qv + DH;       // M + 1 distance-space relative scores
+  float* sc = sd + M + 1;    // M + 1 scores, then probabilities (slot M = self)
+  float* pv = sc + M + 1;    // kSlotGroups x DH partial P.V sums
+  __shared__ float red[32];
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int HD = H * DH;
+  const float* q = qkv + (size_t)b * 3 * HD + h * DH;
+  const float* k1 = q + HD;
+  const float* v1 = q + 2 * HD;
+  for (int d = threadIdx.x; d < DH; d += blockDim.x) {
+    const float qb = bf16_round(q[d]);
+    qu[d] = bf16_round(qb + __bfloat162float(u[h * DH + d]));
+    qv[d] = bf16_round(qb + __bfloat162float(vb[h * DH + d]));
+  }
+  __syncthreads();
+  for (int m = threadIdx.x; m <= M; m += blockDim.x) {
+    const uint4* w = reinterpret_cast<const uint4*>(wkr + (size_t)m * HD + h * DH);
+    uint4 w8[DH / 8];
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) w8[c] = w[c];
+    float t = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w8[c]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(p2[j]);
+        t = fmaf(f.x, qv[c * 8 + 2 * j], t);
+        t = fmaf(f.y, qv[c * 8 + 2 * j + 1], t);
+      }
+    }
+    sd[m] = t;
+  }
+  __syncthreads();
+  const int8_t* krow = kt + (size_t)b * M * HD + h * DH;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    const int4* kr = reinterpret_cast<const int4*>(krow + (size_t)m * HD);
+    int4 k16[DH / 16];
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) k16[c] = kr[c];
+    float t = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&k16[c]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) t = fmaf((float)kb[j], qu[c * 16 + j], t);
+    }
+    const int src = (m - ptr < 0) ? m - ptr + M : m - ptr;  // roll by ptr
+    const float s = (t * ks[(size_t)b * M + m] + sd[src]) * scale;
+    sc[m] = blocked[(size_t)b * M + m] ? -1e9f : s;
+  }
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int d = 0; d < DH; ++d) t = fmaf(qu[d], k1[d], t);
+    sc[M] = (t + sd[M]) * scale;
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int m = threadIdx.x; m <= M; m += blockDim.x) mx = fmaxf(mx, sc[m]);
+  mx = block_max(mx, red);
+  float den = 0.f;
+  for (int m = threadIdx.x; m <= M; m += blockDim.x) {
+    const float e = expf(sc[m] - mx);
+    sc[m] = e;
+    den += e;
+  }
+  den = block_sum(den, red);  // its barriers also publish sc
+  const int c = threadIdx.x % kColGroups, grp = threadIdx.x / kColGroups;
+  const int8_t* vcol = vc + (size_t)b * M * HD + h * DH + 4 * c;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+  for (int m = grp; m < M; m += kSlotGroups) {
+    const float ew = bf16_round(sc[m] * vs[(size_t)b * M + m]);
+    const char4 v4 = *reinterpret_cast<const char4*>(vcol + (size_t)m * HD);
+    a0 = fmaf(ew, (float)v4.x, a0);
+    a1 = fmaf(ew, (float)v4.y, a1);
+    a2 = fmaf(ew, (float)v4.z, a2);
+    a3 = fmaf(ew, (float)v4.w, a3);
+  }
+  float* mine = pv + grp * DH + 4 * c;
+  mine[0] = a0;
+  mine[1] = a1;
+  mine[2] = a2;
+  mine[3] = a3;
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    float t = 0.f;
+    for (int g = 0; g < kSlotGroups; ++g) t += pv[g * DH + threadIdx.x];
+    attn[(size_t)b * HD + h * DH + threadIdx.x] = (t + sc[M] * v1[threadIdx.x]) / den;
+  }
+}
+
+// Quantize the fresh k1/v1 rows of qkv and write them into slot `ptr` of the
+// layer's slot-major caches; one block per batch row.
+__global__ void __launch_bounds__(kThreads)
+kv_slot_write(const float* __restrict__ qkv, int HD, int M, int ptr,
+              int8_t* __restrict__ kt, float* __restrict__ ks,
+              int8_t* __restrict__ vc, float* __restrict__ vs) {
+  __shared__ float red[32];
+  const int b = blockIdx.x;
+  const float* k1 = qkv + (size_t)b * 3 * HD + HD;
+  const float* v1 = k1 + HD;
+  float ka = 0.f, va = 0.f;
+  for (int j = threadIdx.x; j < HD; j += blockDim.x) {
+    ka = fmaxf(ka, fabsf(k1[j]));
+    va = fmaxf(va, fabsf(v1[j]));
+  }
+  ka = block_max(ka, red);
+  va = block_max(va, red);
+  const float inv127 = (float)(1.0 / 127.0);
+  const float k_scale = fmaxf(ka, 1e-6f) * inv127;
+  const float v_scale = fmaxf(va, 1e-6f) * inv127;
+  const size_t slot = (size_t)b * M + ptr;
+  for (int j = threadIdx.x; j < HD; j += blockDim.x) {
+    kt[slot * HD + j] = (int8_t)fminf(fmaxf(rintf(k1[j] / k_scale), -127.f), 127.f);
+    vc[slot * HD + j] = (int8_t)fminf(fmaxf(rintf(v1[j] / v_scale), -127.f), 127.f);
+  }
+  if (threadIdx.x == 0) {
+    ks[slot] = k_scale;
+    vs[slot] = v_scale;
+  }
+}
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+inline size_t max_partial(int B, int D, int Dff, int HD) {
+  size_t p = (size_t)ceil_div(D, kKChunk) * 3 * HD;
+  p = p > (size_t)ceil_div(HD, kKChunk) * D ? p : (size_t)ceil_div(HD, kKChunk) * D;
+  p = p > (size_t)ceil_div(D, kKChunk) * Dff ? p : (size_t)ceil_div(D, kKChunk) * Dff;
+  p = p > (size_t)ceil_div(Dff, kKChunk) * D ? p : (size_t)ceil_div(Dff, kKChunk) * D;
+  return p * B;
+}
+
+cudaError_t gemv(const float* x, int B, int K, int N, const int8_t* W, const float* s,
+                 float* partial, cudaStream_t st) {
+  dim3 grid(ceil_div(N, kCols), ceil_div(K, kKChunk), ceil_div(B, kRows));
+  gemv_w8_partial<<<grid, kThreads, 0, st>>>(x, B, K, N, W, s, partial);
+  return cudaGetLastError();
+}
+
+template <int DH, typename... Args>
+cudaError_t attention_dh(int blocks, size_t smem, cudaStream_t st, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        slab_attention<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  slab_attention<DH><<<blocks, kThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename... Args>
+cudaError_t attention(int Dh, int blocks, size_t smem, cudaStream_t st, Args... args) {
+  switch (Dh) {
+    case 16: return attention_dh<16>(blocks, smem, st, args...);
+    case 32: return attention_dh<32>(blocks, smem, st, args...);
+    case 64: return attention_dh<64>(blocks, smem, st, args...);
+    case 128: return attention_dh<128>(blocks, smem, st, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Float32 scratch elements slab_w8_step needs for these sizes.
+size_t slab_w8_scratch_floats(int B, int D, int Dff, int HD) {
+  return (size_t)B * (3 * HD + HD + D + Dff) + max_partial(B, D, Dff, HD);
+}
+
+// Kernel launches slab_w8_step makes per call (for the launch accounting).
+int slab_w8_kernels_per_step(int L) { return 10 * L; }
+
+const char* slab_w8_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// One token step for all B rows through all L layers. Pointers are device
+// pointers into contiguous tensors with the layouts of fused_slab_core:
+// qkv_w (L,D,3HD) out_w (L,HD,D) ff1_w (L,D,Dff) ff2_w (L,Dff,D) int8;
+// w_scales (L,8,smax) f32 (rows 0..3: qkv, out, ff1, ff2 column scales);
+// ff1_b (L,Dff) ff2_b (L,D) bf16; ln1_g/ln1_b/ln2_g/ln2_b (L,D) f32;
+// wkr (L,M+1,HD) bf16; u, v (HD) bf16; kt, vc (L,B,M,HD) int8 and ks, vs
+// (L,B,M) f32, updated in slot ptr only; h_in (B,D) f32; blocked (B,M) int32;
+// h_out (B,D) f32; scratch of slab_w8_scratch_floats(...) floats.
+// Returns the first CUDA error (0 = cudaSuccess). Does not synchronize.
+int slab_w8_step(const int8_t* qkv_w, const int8_t* out_w, const int8_t* ff1_w,
+                 const int8_t* ff2_w, const float* w_scales,
+                 const __nv_bfloat16* ff1_b, const __nv_bfloat16* ff2_b,
+                 const float* ln1_g, const float* ln1_b, const float* ln2_g,
+                 const float* ln2_b, const __nv_bfloat16* wkr,
+                 const __nv_bfloat16* u, const __nv_bfloat16* v,
+                 int8_t* kt, float* ks, int8_t* vc, float* vs,
+                 const float* h_in, const int32_t* blocked, float* h_out,
+                 float* scratch, int L, int B, int D, int Dff, int H, int Dh,
+                 int M, int smax, int ptr, float scale, int act, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int HD = H * Dh;
+  float* qkv = scratch;
+  float* attn = qkv + (size_t)B * 3 * HD;
+  float* h1 = attn + (size_t)B * HD;
+  float* ffx = h1 + (size_t)B * D;
+  float* part = ffx + (size_t)B * Dff;
+  const size_t attn_smem = (size_t)(2 * Dh + 2 * (M + 1) + 4 * kThreads) * sizeof(float);
+  const size_t ln_smem = (size_t)D * sizeof(float);
+  cudaError_t err;
+  if (ln_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(add_layer_norm, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)ln_smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaMemcpyAsync(h_out, h_in, (size_t)B * D * sizeof(float),
+                        cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return err;
+  for (int l = 0; l < L; ++l) {
+    const float* sc = w_scales + (size_t)l * 8 * smax;
+    const size_t kv_off = (size_t)l * B * M;
+    // qkv projection
+    if ((err = gemv(h_out, B, D, 3 * HD, qkv_w + (size_t)l * D * 3 * HD, sc, part, st)))
+      return err;
+    gemv_finish<<<ceil_div(B * 3 * HD, kThreads), kThreads, 0, st>>>(
+        part, ceil_div(D, kKChunk), B, 3 * HD, nullptr, kNone, qkv);
+    if ((err = cudaGetLastError())) return err;
+    // attention over the old cache + self, then the fresh slot write
+    if ((err = attention(Dh, B * H, attn_smem, st, qkv, H, M, u, v,
+                         wkr + (size_t)l * (M + 1) * HD, kt + kv_off * HD, ks + kv_off,
+                         vc + kv_off * HD, vs + kv_off, blocked, ptr, scale, attn)))
+      return err;
+    kv_slot_write<<<B, kThreads, 0, st>>>(qkv, HD, M, ptr, kt + kv_off * HD, ks + kv_off,
+                                          vc + kv_off * HD, vs + kv_off);
+    if ((err = cudaGetLastError())) return err;
+    // out projection + residual + post-LN
+    if ((err = gemv(attn, B, HD, D, out_w + (size_t)l * HD * D, sc + smax, part, st)))
+      return err;
+    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h_out, part, ceil_div(HD, kKChunk), B, D,
+                                                 nullptr, ln1_g + (size_t)l * D,
+                                                 ln1_b + (size_t)l * D, h1);
+    if ((err = cudaGetLastError())) return err;
+    // feed-forward + residual + post-LN
+    if ((err = gemv(h1, B, D, Dff, ff1_w + (size_t)l * D * Dff, sc + 2 * smax, part, st)))
+      return err;
+    gemv_finish<<<ceil_div(B * Dff, kThreads), kThreads, 0, st>>>(
+        part, ceil_div(D, kKChunk), B, Dff, ff1_b + (size_t)l * Dff, act, ffx);
+    if ((err = cudaGetLastError())) return err;
+    if ((err = gemv(ffx, B, Dff, D, ff2_w + (size_t)l * Dff * D, sc + 3 * smax, part, st)))
+      return err;
+    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h1, part, ceil_div(Dff, kKChunk), B, D,
+                                                 ff2_b + (size_t)l * D,
+                                                 ln2_g + (size_t)l * D,
+                                                 ln2_b + (size_t)l * D, h_out);
+    if ((err = cudaGetLastError())) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // extern "C"

@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Where the single-stream decode step's time goes on the card.
+
+    python3 profile_decode.py [--steps 20]
+
+Loads the 41M flagship checkpoint with the port, runs ``--steps`` slab_w8
+decode steps (``fused_slab_core`` at B = 1, mem_len 512, full ring) and then
+one ``predict_nw_genre`` call of ``--steps`` tokens, each under
+``torch.profiler``, and prints for each: the CUDA kernels by total device
+time, the device-busy share of the window, and the card's name and power
+limit. Imports only the port; needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke
+from deepmusicgeneration_tpu_torch.models import txl
+from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
+from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
+from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
+
+
+def report(title: str, prof, wall_s: float, top: int = 12) -> None:
+    """Print device kernels by their own device time, and the busy share."""
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"{title}: window {wall_s * 1e3:.3f} ms host, device busy "
+          f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall_s:.1f}%)", flush=True)
+    for e in events[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_decode: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    learner = MusicLearner.load(str(chip_smoke.CKPT))
+    engine = learner.engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    stacked, w_scales = engine.stacked_q()
+    wkr_mt = txl.precompute_wkr(engine.params, cfg, M).permute(0, 2, 1, 3) \
+        .reshape(cfg.n_layers, M + 1, -1).to(torch.bfloat16).contiguous()
+    kv, blocked = chip_smoke.ring_inputs(cfg, 1, M, 100, True,
+                                         np.random.default_rng(0), dev)
+    h_in = engine.params["embed"].float()[torch.tensor([60], device=dev)]
+
+    def step():
+        fd.fused_slab_core(stacked, cfg, h_in, wkr_mt, *kv, blocked, 100, M,
+                           rows_per_cell=1, weights_int8=True, w_scales=w_scales)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(f"slab_w8 step x{args.steps}", prof, wall)
+
+    midi = chip_smoke.prompt_midi(0, learner.vocab)
+    predict_nw_genre(learner, midi, genre="jazz", max_len=8)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predict_nw_genre(learner, midi, genre="jazz", max_len=args.steps)
+        wall = time.perf_counter() - t0
+    report(f"predict_nw_genre {args.steps} steps", prof, wall)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
