@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py [--seed 0] [--n-words 256]
 
-Phases, one line each (a failing phase raises and the script exits non-zero
-without printing a result):
+Phases, one or more lines each (a failing phase raises and the script exits
+non-zero without printing a result):
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build  — nvcc builds every kernel source of the slice, in parallel.
 3. load   — the 41M flagship checkpoint through the port's msgpack reader.
 4. kernel — ``fused_slab_core`` (slab_w8) on the card against its plain
    PyTorch version on the same inputs, at flagship widths, B in {1, 4},
-   ptr in {0, 31, 32, M - 1 = 511}, a partly full and a full ring.
-5. timing — CUDA-event medians of the kernel and of the plain version at the
-   main path's shapes (B = 1), beside the bound from the bytes it must move.
+   ptr in {0, 31, 32, M - 1 = 511}, a partly full and a full ring; then
+   ``fused_slab_allrows_core`` (slab_ar_w8) the same way at B in {8, 64};
+   then ``flash_prefill_attention`` on three left-padded windows
+   (B = 16, W = 512; B = 2, W = 4096; B = 1, W = 128) against the float32
+   plain version; then ``txl.prefill`` through the flash kernel against its
+   materialized branch on the 16 service prompts (logits and cache).
+5. timing — CUDA-event medians of each kernel and of its plain version at
+   the main paths' shapes, beside the bound from the bytes it must move and
+   the operations it must do; both slab steps at B in {1, 4, 8, 16, 64}.
 6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel on a seeded
-   prompt MIDI built with the port's codec; the kernel's launch count must
+   prompt MIDI built with the port's codec; the slab_w8 launch count must
    equal the number of token steps; the output MIDI is re-parsed and checked.
+7. batch  — 16 requests through ``GenerationService(max_batch=16)``: one
+   batch of 16 rows, W = 512, prefilled through the flash kernel (one launch
+   per layer) and decoded through slab_ar_w8 (one launch per step); then
+   one ``generate_batch`` of 64 prompts. Every result is re-parsed and
+   checked.
 
-Then one JSON line per kernel, and the last line
+Then one JSON line with every kernel, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -40,15 +51,18 @@ from deepmusicgeneration_tpu_torch.codec.encode import chordarr2npenc, notes2cho
 from deepmusicgeneration_tpu_torch.codec.grammar import grammar_violations
 from deepmusicgeneration_tpu_torch.codec.item import MusicItem
 from deepmusicgeneration_tpu_torch.codec.validate import is_valid_npenc, roundtrip_ok
+from deepmusicgeneration_tpu_torch.decode.engine import _bucket
 from deepmusicgeneration_tpu_torch.models import txl
 from deepmusicgeneration_tpu_torch.ops import _build
+from deepmusicgeneration_tpu_torch.ops import flash_prefill as fp
 from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
 from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
+from deepmusicgeneration_tpu_torch.tasks.serve import GenerationService
 from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
 from deepmusicgeneration_tpu_torch.vocab import SAMPLE_FREQ
 
 CKPT = Path(__file__).resolve().parent / "checkpoints" / "synth_genre_model"
-KERNEL_SOURCES = ("slab_decode",)   # every csrc/*.cu the slice runs
+KERNEL_SOURCES = ("slab_decode", "flash_prefill")   # every csrc/*.cu the slice runs
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 
@@ -63,6 +77,32 @@ BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 H_ATOL = 5e-2
 SLOT_MAX_STEP = 1          # a written int8 entry may differ by one step
 SCALE_RTOL = 1e-2          # fresh-slot scales: max|x| / 127 of the drifted x
+# Flash prefill against its plain version (the materialized rel_attention)
+# run in float32 on the same bf16 values. flash_inputs makes q and the u, v
+# biases multiples of 1/8 below 32 in magnitude, so bf16(q + u) and
+# bf16(q + v) are exact: the float32 plain version then computes the
+# kernel's function with no rounding at all, and the kernel differs from it
+# only in its float32 summation order (scores, online-softmax rescaling,
+# P.V: ~1e-5 here) and its bf16 output, which is within half an ulp,
+# 2^-8 |out|. So every entry of a real query row must satisfy
+# |d| <= FLASH_RTOL |ref| + FLASH_ATOL. Padded query rows (all their keys
+# masked) are only required to be finite (see csrc/flash_prefill.cu).
+FLASH_RTOL = 2.0 ** -8
+FLASH_ATOL = 1e-4
+# txl.prefill through the flash kernel against its materialized branch on
+# the card, at the model's full depth. Logits: the bounds JAX's tests hold
+# its own flash prefill to against the materialized one
+# (tests/test_fused_decode.py), atol 0.15 rtol 0.05, and the same argmax.
+# Cache: the branches differ by bf16 roundings (the materialized one rounds
+# the probabilities, each rounds its attention output), each at most 2^-8 of
+# the value, so layer l's input and the K/V it projects differ by about
+# l * 2^-8 in relative (Frobenius) norm over the valid slots; layer 0's are
+# identical. An elementwise bound does not hold at 8 layers: one flip of a
+# large bf16 value (its ulp is 2^-5 at |x| >= 4), carried through 6 layers,
+# moved single entries by up to 0.09 between the kernel's route and one whose
+# attention is exact (PERF.md, Findings; tests/test_torch_cuda.py).
+PREFILL_LOGITS_ATOL, PREFILL_LOGITS_RTOL = 0.15, 0.05
+PREFILL_LAYER_RTOL = 2.0 ** -8
 
 
 def say(line: str) -> None:
@@ -113,48 +153,172 @@ def ring_inputs(cfg, B, M, ptr, full, rng, dev):
     return [kq, ks, vq, vs], torch.from_numpy(blocked).to(dev)
 
 
-def kernel_phase(engine, rng, dev):
+def wkr_table(engine):
     cfg, M = engine.cfg, engine.cfg.mem_len
-    stacked, w_scales = engine.stacked_q()
-    wkr_mt = txl.precompute_wkr(engine.params, cfg, M).permute(0, 2, 1, 3) \
+    return txl.precompute_wkr(engine.params, cfg, M).permute(0, 2, 1, 3) \
         .reshape(cfg.n_layers, M + 1, -1).to(torch.bfloat16).contiguous()
+
+
+def kernel_cases(engine, rng, dev, batches):
+    """The kernel phase's cases at each B of ``batches``: ptr in
+    {0, 31, 32, M - 1}, a partly full and a full ring. Yields
+    (B, ptr, full, [kt, ks, vc, vs], blocked, h_in)."""
+    cfg, M = engine.cfg, engine.cfg.mem_len
     embed32 = engine.params["embed"].float()
-    worst = 0.0
-    for B in (1, 4):
+    for B in batches:
         for ptr in (0, 31, 32, M - 1):
             for full in (False, True):
                 kv, blocked = ring_inputs(cfg, B, M, ptr, full, rng, dev)
                 h_in = embed32[torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
-                ref = fd.slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt,
-                                       *[t.clone() for t in kv], blocked, ptr)
-                got = fd.fused_slab_core(stacked, cfg, h_in, wkr_mt,
-                                         *[t.clone() for t in kv], blocked, ptr, M,
-                                         rows_per_cell=1, weights_int8=True,
-                                         w_scales=w_scales)
-                torch.cuda.synchronize()
-                dh = (got[0] - ref[0]).abs().max().item()
-                other = torch.ones(M, dtype=torch.bool, device=dev)
-                other[ptr] = False
-                untouched = all(torch.equal(g[:, :, other], t[:, :, other])
-                                for g, t in zip(got[1:], kv))
-                slot_diff, slot_share, scale_rel = 0, 0.0, 0.0
-                for i in (0, 2):   # int8 K and V slots
-                    d = (got[1 + i][:, :, ptr].int() - ref[1 + i][:, :, ptr].int()).abs()
-                    slot_diff = max(slot_diff, d.max().item())
-                    slot_share = max(slot_share, (d > 0).float().mean().item())
-                for i in (1, 3):   # their scales
-                    r = ((got[1 + i][:, :, ptr] - ref[1 + i][:, :, ptr]).abs()
-                         / ref[1 + i][:, :, ptr]).max().item()
-                    scale_rel = max(scale_rel, r)
-                say(f"kernel: B={B} ptr={ptr:3d} ring={'full' if full else 'part'} "
-                    f"max|dh_out|={dh:.3e} slot_int8_max_step={slot_diff} "
-                    f"slot_int8_differ={slot_share:.4f} scale_rel={scale_rel:.2e} "
-                    f"other_slots_identical={untouched}")
-                if not (dh <= H_ATOL and slot_diff <= SLOT_MAX_STEP
-                        and scale_rel <= SCALE_RTOL and untouched):
-                    raise AssertionError("slab_w8 kernel disagrees with its plain version")
-                worst = max(worst, dh)
-    return worst, wkr_mt
+                yield B, ptr, full, kv, blocked, h_in
+
+
+def step_diff(got, ref, kv, ptr):
+    """One slab step's result ``got`` against ``ref`` (both (h_out, kt, ks,
+    vc, vs), from the caches ``kv``): max |dh_out|, the largest step between
+    written int8 entries and the share of entries that differ, the largest
+    relative difference of the written scales, and whether every other slot
+    of ``got`` is byte-identical to ``kv``."""
+    M = kv[0].shape[2]
+    other = torch.arange(M, device=kv[0].device) != ptr
+    untouched = all(torch.equal(g[:, :, other], t[:, :, other])
+                    for g, t in zip(got[1:], kv))
+    dh = (got[0].double() - ref[0].double()).abs().max().item()
+    step, share, scale_rel = 0, 0.0, 0.0
+    for i in (1, 3):   # int8 K and V slots, then their scales
+        d = (got[i][:, :, ptr].int() - ref[i][:, :, ptr].int()).abs()
+        step = max(step, d.max().item())
+        share = max(share, (d > 0).float().mean().item())
+        s_got, s_ref = got[i + 1][:, :, ptr], ref[i + 1][:, :, ptr]
+        scale_rel = max(scale_rel, ((s_got - s_ref).abs() / s_ref).max().item())
+    return dh, step, share, scale_rel, untouched
+
+
+def kernel_phase(engine, wkr_mt, rng, dev, core, name, batches):
+    """``core`` on the card against ``slab_w8_plain`` in every case of
+    ``kernel_cases``; returns the largest |dh_out|."""
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    stacked, w_scales = engine.stacked_q()
+    worst = 0.0
+    for B, ptr, full, kv, blocked, h_in in kernel_cases(engine, rng, dev, batches):
+        ref = fd.slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt,
+                               *[t.clone() for t in kv], blocked, ptr)
+        got = core(stacked, cfg, h_in, wkr_mt, *[t.clone() for t in kv],
+                   blocked, ptr, M, rows_per_cell=min(B, 8),
+                   weights_int8=True, w_scales=w_scales)
+        torch.cuda.synchronize()
+        dh, step, share, scale_rel, untouched = step_diff(got, ref, kv, ptr)
+        say(f"kernel: {name} B={B} ptr={ptr:3d} ring={'full' if full else 'part'} "
+            f"max|dh_out|={dh:.3e} slot_int8_max_step={step} "
+            f"slot_int8_differ={share:.4f} scale_rel={scale_rel:.2e} "
+            f"other_slots_identical={untouched}")
+        if not (dh <= H_ATOL and step <= SLOT_MAX_STEP and scale_rel <= SCALE_RTOL
+                and untouched):
+            raise AssertionError(f"{name} kernel disagrees with its plain version")
+        worst = max(worst, dh)
+    return worst
+
+
+def flash_inputs(B, W, pads, H, Dh, dev, seed):
+    """bf16 q, k, v (B, W, H * Dh), wkr (W, H * Dh), u and v biases (H, Dh),
+    and a pad mask whose row b is left-padded by pads[b % len(pads)].
+
+    q, k and wkr have std 1.3, so the scores have std ~2.5 and a query's
+    softmax peaks on a few keys: a wrong skew, mask, skipped tile or rescale
+    moves its output by about |v| (std 1). q and the biases are multiples of
+    1/8 with |8 q| <= 200 and |8 u| <= 50, so q + u is exact in bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    HD = H * Dh
+    randn = lambda std, *s: torch.randn(*s, generator=g, device=dev) * std
+    eighths = lambda std, lim, *s: (torch.round(randn(8 * std, *s)).clamp(-lim, lim)
+                                    / 8).to(torch.bfloat16)
+    bf = lambda std, *s: randn(std, *s).to(torch.bfloat16)
+    pad = torch.zeros((B, W), dtype=torch.bool, device=dev)
+    for b in range(B):
+        pad[b, :pads[b % len(pads)]] = True
+    return (eighths(1.3, 200, B, W, HD), bf(1.3, B, W, HD), bf(1.0, B, W, HD),
+            bf(1.3, W, HD), eighths(0.5, 50, H, Dh), eighths(0.5, 50, H, Dh), pad)
+
+
+def flash_check(args, H):
+    """The kernel on ``args`` (from flash_inputs) against the float32 plain
+    version on the same values. Returns (max |d| on real query rows, the
+    largest |d| / (FLASH_RTOL |ref| + FLASH_ATOL) there, every row finite)."""
+    pad = args[-1]
+    ref = fp.flash_prefill_attention_plain(*[t.float() for t in args[:-1]], pad, H)
+    got = fp.flash_prefill_attention(*args, H)
+    torch.cuda.synchronize()
+    d = (got.float() - ref).abs()[~pad]
+    ratio = (d / (FLASH_RTOL * ref.abs()[~pad] + FLASH_ATOL)).max().item()
+    return d.max().item(), ratio, bool(torch.isfinite(got.float()).all())
+
+
+def flash_phase(cfg, dev, seed):
+    """The flash prefill kernel against its plain version; returns the
+    largest error on a real query row and the largest error over its bound."""
+    worst, worst_ratio = 0.0, 0.0
+    for B, W, pads in ((16, 512, (0, 17, 300)), (2, 4096, (0, 1000)), (1, 128, (0,))):
+        args = flash_inputs(B, W, pads, cfg.n_heads, cfg.d_head, dev, seed + B)
+        err, ratio, finite = flash_check(args, cfg.n_heads)
+        say(f"kernel: flash_prefill B={B} W={W} pads={pads} real rows: max|d| "
+            f"{err:.3e}, max |d| / ({FLASH_RTOL:.3e} |ref| + {FLASH_ATOL}) = "
+            f"{ratio:.3f} (must be <= 1); all rows finite={finite}")
+        if not (ratio <= 1.0 and finite):
+            raise AssertionError("flash prefill kernel disagrees with its plain version")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    return worst, worst_ratio
+
+
+def window(items, pad_idx, W, dev):
+    """The prompts of ``items`` left-padded into a (B, W) window, as the
+    engine packs them: (tokens, pad mask)."""
+    toks = np.full((len(items), W), pad_idx, dtype=np.int64)
+    pad = np.ones((len(items), W), dtype=bool)
+    for i, it in enumerate(items):
+        toks[i, W - len(it.data):] = it.data
+        pad[i, W - len(it.data):] = False
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(pad).to(dev)
+
+
+def cache_diff_by_layer(cache, ref_cache, valid):
+    """|d| / |ref| (Frobenius, K and V together) of each layer's cache over
+    the valid slots, and the largest |d|."""
+    rel, worst = [], 0.0
+    for l in range(ref_cache.k.shape[0]):
+        got = torch.stack([cache.k[l], cache.v[l]]).float()[:, valid]
+        ref = torch.stack([ref_cache.k[l], ref_cache.v[l]]).float()[:, valid]
+        rel.append(((got - ref).norm() / ref.norm()).item())
+        worst = max(worst, (got - ref).abs().max().item())
+    return rel, worst
+
+
+def prefill_phase(learner, items, dev):
+    """``txl.prefill`` with the flash kernel against its materialized branch
+    on the service's prompts at the flagship's full depth."""
+    engine = learner.engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    W = _bucket(max(len(it.data) for it in items))
+    x, pad = window(items, learner.vocab.pad_idx, W, dev)
+    ref_logits, ref_cache = txl.prefill(engine.params, cfg, x, pad, flash=False)
+    logits, cache = txl.prefill(engine.params, cfg, x, pad, flash=True)
+    torch.cuda.synchronize()
+    ref_logits, logits = ref_logits.float(), logits.float()
+    logit_ok = bool((logits - ref_logits).abs().le(
+        PREFILL_LOGITS_ATOL + PREFILL_LOGITS_RTOL * ref_logits.abs()).all())
+    same_argmax = bool(torch.equal(logits.argmax(-1), ref_logits.argmax(-1)))
+    rel, cache_err = cache_diff_by_layer(cache, ref_cache, ~pad[:, -M:])
+    cache_ok = all(r <= l * PREFILL_LAYER_RTOL for l, r in enumerate(rel))
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (logits, cache.k, cache.v))
+    same_valid = torch.equal(cache.valid, ref_cache.valid)
+    say(f"prefill: txl.prefill flash vs materialized, {len(items)} prompts, W={W}, "
+        f"{cfg.n_layers} layers: max|d logits| {(logits - ref_logits).abs().max().item():.3e} "
+        f"within atol {PREFILL_LOGITS_ATOL} rtol {PREFILL_LOGITS_RTOL}={logit_ok}, same "
+        f"argmax={same_argmax}; cache K/V on valid slots, |d| / |ref| by layer "
+        f"{' '.join(f'{r:.2e}' for r in rel)} within l * {PREFILL_LAYER_RTOL:.3e}="
+        f"{cache_ok} (max|d| {cache_err:.3e}); finite={finite}; valid equal={same_valid}")
+    if not (logit_ok and same_argmax and cache_ok and finite and same_valid):
+        raise AssertionError("txl.prefill through the flash kernel disagrees with "
+                             "its materialized branch")
 
 
 def step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B):
@@ -188,27 +352,31 @@ def time_ms(fn, n: int, flush=None) -> float:
     return float(np.median(times))
 
 
-def timing_phase(engine, wkr_mt, rng, dev):
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the bf16 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def slab_timing(engine, wkr_mt, rng, dev, core, name, B, flush):
     cfg, M = engine.cfg, engine.cfg.mem_len
     stacked, w_scales = engine.stacked_q()
-    kv, blocked = ring_inputs(cfg, 1, M, 100, True, rng, dev)
-    h_in = engine.params["embed"].float()[torch.tensor([60], device=dev)]
+    kv, blocked = ring_inputs(cfg, B, M, 100, True, rng, dev)
+    h_in = engine.params["embed"].float()[
+        torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
     args = (stacked, cfg, h_in, wkr_mt, *kv, blocked, 100, M)
-    kernel = lambda: fd.fused_slab_core(*args, rows_per_cell=1, weights_int8=True,
-                                        w_scales=w_scales)
+    kernel = lambda: core(*args, rows_per_cell=min(B, 8), weights_int8=True,
+                          w_scales=w_scales)
     plain = lambda: fd.slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, *kv,
                                      blocked, 100)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    launches0 = fd.fused_slab_core.launches
     ms = time_ms(kernel, 100)
     ms_cold = time_ms(kernel, 50, flush)
-    plain_ms = time_ms(plain, 50)
+    plain_ms = time_ms(plain, 20)
     ms_again = time_ms(kernel, 100)
-    fd.fused_slab_core.launches = launches0   # timing launches are not the main path's
-    nbytes, flops = step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, 1)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"
-    say(f"timing: slab_w8 B=1 M={M} kernel median {ms:.4f} ms (again {ms_again:.4f}, "
+    nbytes, flops = step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B)
+    bound_ms, bound_by = bound(nbytes, flops)
+    say(f"timing: {name} B={B} M={M} kernel median {ms:.4f} ms (again {ms_again:.4f}, "
         f"L2 flushed {ms_cold:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP, by {bound_by}); "
         f"1 wrapper launch = {fd.kernels_per_step(cfg.n_layers)} CUDA kernels per step")
@@ -216,14 +384,58 @@ def timing_phase(engine, wkr_mt, rng, dev):
                 bound_by=bound_by)
 
 
-def prompt_midi(seed: int, vocab) -> bytes:
-    """A few bars of melody over block chords in a random major key."""
+def flash_timing(cfg, dev, B, W, seed):
+    """The flash prefill at (B, W) without padding: every causal pair is
+    work the data needs."""
+    q, k, v, wkr, u, vb, pad = flash_inputs(B, W, (0,), cfg.n_heads, cfg.d_head,
+                                            dev, seed)
+    H, HD = cfg.n_heads, cfg.n_heads * cfg.d_head
+    kernel = lambda: fp.flash_prefill_attention(q, k, v, wkr, u, vb, pad, H)
+    plain = lambda: fp.flash_prefill_attention_plain(q, k, v, wkr, u, vb, pad, H)
+    ms = time_ms(kernel, 100)
+    plain_ms = time_ms(plain, 20)
+    ms_again = time_ms(kernel, 100)
+    nbytes = 2 * (4 * B * W * HD + W * HD + 2 * HD) + B * W   # q k v out, wkr, u v, pad
+    pairs = B * H * W * (W + 1) // 2                              # causal pairs j <= i
+    flops = 3 * 2 * pairs * cfg.d_head                            # AC, BD and P.V products
+    bound_ms, bound_by = bound(nbytes, flops)
+    say(f"timing: flash_prefill B={B} W={W} kernel median {ms:.4f} ms (again "
+        f"{ms_again:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, by {bound_by})")
+    return dict(ms=min(ms, ms_again), plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def timing_phase(engine, wkr_mt, rng, dev, seed):
+    """Kernel timings at the main paths' shapes, and both slab steps at
+    every B of the crossover between their weight products (the row-tiled
+    GEMV of slab_w8, the all-rows GEMM of slab_ar_w8); the launches made here
+    do not count as the main paths'. Returns the timings of the JSON line:
+    slab_w8 at B = 1, slab_ar_w8 and the flash prefill at B = 16, W = 512
+    (the service's batch)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    counts = (fd.fused_slab_core.launches, fd.fused_slab_allrows_core.launches,
+              fp.flash_prefill_attention.launches)
+    single, allrows = {}, {}
+    for B in (1, 4, 8, 16, 64):
+        single[B] = slab_timing(engine, wkr_mt, rng, dev, fd.fused_slab_core,
+                                "slab_w8", B, flush)
+        allrows[B] = slab_timing(engine, wkr_mt, rng, dev, fd.fused_slab_allrows_core,
+                                 "slab_ar_w8", B, flush)
+    flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}
+    (fd.fused_slab_core.launches, fd.fused_slab_allrows_core.launches,
+     fp.flash_prefill_attention.launches) = counts
+    return {"slab_w8": single[1], "slab_ar_w8": allrows[16], "flash": flash[16]}
+
+
+def prompt_midi(seed: int, vocab, bars: int = 8) -> bytes:
+    """``bars`` bars of melody over block chords in a random major key."""
     rng = np.random.default_rng(seed)
     root = 60 + int(rng.integers(-5, 6))
     scale = np.array([0, 2, 4, 5, 7, 9, 11])
     melody, chords = [], []
     bar = 4 * SAMPLE_FREQ
-    for b in range(8):
+    for b in range(bars):
         deg = int(rng.choice([0, 3, 4, 5]))
         for off in (0, 2, 3):   # triad in the octave below
             chords.append([root - 12 + scale[(deg + 2 * (off // 2) + off % 2) % 7], b * bar, bar])
@@ -237,6 +449,33 @@ def prompt_midi(seed: int, vocab) -> bytes:
     return MusicItem.from_npenc(npenc, vocab).to_midi_bytes()
 
 
+def reset_launches() -> None:
+    fd.fused_slab_core.launches = 0
+    fd.fused_slab_allrows_core.launches = 0
+    fp.flash_prefill_attention.launches = 0
+
+
+def launches() -> dict:
+    return {"slab_w8": fd.fused_slab_core.launches,
+            "slab_ar_w8": fd.fused_slab_allrows_core.launches,
+            "flash_prefill": fp.flash_prefill_attention.launches}
+
+
+def check_continuation(seed_item, pred, vocab) -> dict:
+    """The continuation ``pred`` of ``seed_item`` decodes to a MIDI that
+    re-parses, with no grammar violation; raises otherwise."""
+    full = seed_item.append(MusicItem(np.asarray(pred), vocab))
+    back = MusicItem.from_file(full.to_midi_bytes(), vocab)
+    viol = grammar_violations(pred, vocab, prev_idx=int(seed_item.data[-1]))
+    checks = dict(tokens=len(pred), reparsed_tokens=len(back.data),
+                  grammar_violations=viol, roundtrip=roundtrip_ok(back.data, vocab),
+                  valid_npenc=is_valid_npenc(back.to_npenc(), min_notes=1))
+    if not (len(pred) > 0 and back.data[0] == vocab.bos_idx and viol == 0
+            and checks["roundtrip"] and checks["valid_npenc"]):
+        raise AssertionError(f"generated MIDI failed its checks: {checks}")
+    return checks
+
+
 def main_path_phase(learner, seed: int, n_words: int):
     vocab = learner.vocab
     midi = prompt_midi(seed, vocab)
@@ -245,29 +484,94 @@ def main_path_phase(learner, seed: int, n_words: int):
         raise AssertionError(f"auto kernel at B=1 is {kernel!r}, expected 'slab_w8'")
     predict_nw_genre(learner, midi, genre="jazz", max_len=8, seed=seed)  # warm-up
     torch.cuda.synchronize()
-    fd.fused_slab_core.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     full = predict_nw_genre(learner, midi, genre="jazz", max_len=n_words, seed=seed)
     secs = time.perf_counter() - t0
-    launches = fd.fused_slab_core.launches
-    if launches != n_words:
-        raise AssertionError(f"slab_w8 launched {launches} times for {n_words} steps")
+    counts = launches()
+    if counts != {"slab_w8": n_words, "slab_ar_w8": 0, "flash_prefill": 0}:
+        raise AssertionError(f"B=1 path launched {counts} for {n_words} steps")
     seed_item = MusicItem.from_file(midi, vocab).trim_to_beat(32)
     seed_item = seed_item.set_genre("jazz").remove_eos()
     pred = full.data[len(seed_item.data):]
-    back = MusicItem.from_file(full.to_midi_bytes(), vocab)
-    npenc = back.to_npenc()
-    viol = grammar_violations(pred, vocab, prev_idx=int(seed_item.data[-1]))
-    checks = dict(tokens=len(pred), reparsed_tokens=len(back.data),
-                  grammar_violations=viol, roundtrip=roundtrip_ok(back.data, vocab),
-                  valid_npenc=is_valid_npenc(npenc, min_notes=1))
+    checks = check_continuation(seed_item, pred, vocab)
     say(f"main: predict_nw_genre B=1 kernel={kernel} n_words={n_words} "
-        f"slab_w8 launches={launches} {checks} {len(pred) / secs:.1f} emitted "
+        f"launches={counts} {checks} {len(pred) / secs:.1f} emitted "
         f"tok/s, {n_words / secs:.1f} steps/s ({secs:.3f} s incl. prefill)")
-    if not (len(pred) > 0 and back.data[0] == vocab.bos_idx and viol == 0
-            and checks["roundtrip"] and checks["valid_npenc"]):
-        raise AssertionError(f"generated MIDI failed its checks: {checks}")
-    return launches
+    return counts["slab_w8"]
+
+
+GENRES = ("jazz", "pop", "rock", "folk", "funk", "electronic")
+# the sampling settings predict_nw_genre hands the engine
+GEN_KW = dict(temperatures=(1.8, 1.8, 1.0), top_k=30, top_p=0.65, min_bars=12)
+
+
+def batch_prompts(vocab, seed: int, n: int):
+    """n genre-prefixed prompts of 300-512 tokens (so W = 512): nine bars."""
+    items = []
+    for i in range(n):
+        item = MusicItem.from_file(prompt_midi(seed + 1 + i, vocab, bars=9), vocab)
+        item = item.set_genre(GENRES[i % len(GENRES)]).remove_eos()
+        if not 300 <= len(item.data) <= 512:
+            raise AssertionError(f"prompt {i} has {len(item.data)} tokens")
+        items.append(item)
+    return items
+
+
+def batched_phase(learner, items, seed: int, n_words: int):
+    """The first 16 of ``items`` as requests to the service, then one
+    generate_batch of all 64."""
+    vocab, engine = learner.vocab, learner.engine
+    M = engine.cfg.mem_len
+    if (engine.resolve_kernel(16), engine.resolve_kernel(64)) != ("slab_ar_w8",) * 2:
+        raise AssertionError("the auto kernel at B = 16 / 64 is not slab_ar_w8")
+    W = min(_bucket(max(len(it.data) for it in items)), max(engine.cfg.ctx_len, M))
+    engine.generate_batch([it.data for it in items[:16]], n_words=8, seed=seed,
+                          **GEN_KW)                                # warm-up
+    torch.cuda.synchronize()
+
+    service = GenerationService(learner, max_batch=16, max_wait_s=1.0)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        futs = [service.submit(it.data, n_words=n_words, seed=seed, **GEN_KW)
+                for it in items[:16]]
+        preds = [f.result(timeout=600) for f in futs]
+        secs = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        service.close()
+    if service.batch_sizes != [(16, 16)]:
+        raise AssertionError(f"service batches {service.batch_sizes}, expected one of 16")
+    want = {"slab_w8": 0, "slab_ar_w8": n_words, "flash_prefill": engine.cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"service batch launched {counts}, expected {want}")
+    checks = [check_continuation(it, p, vocab) for it, p in zip(items, preds)]
+    emitted = sum(len(p) for p in preds)
+    say(f"batch: GenerationService 16 requests -> batches {service.batch_sizes} W={W} "
+        f"M={M} n_words={n_words} launches={counts}; all 16 re-parse, grammar "
+        f"violations {sum(c['grammar_violations'] for c in checks)}, emitted "
+        f"{emitted} tokens: {emitted / secs:.1f} emitted tok/s, "
+        f"{n_words / secs:.1f} steps/s ({secs:.3f} s incl. prefill)")
+    service_counts = counts
+
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, lengths = engine.generate_batch([it.data for it in items], n_words=n_words,
+                                          seed=seed, **GEN_KW)
+    secs = time.perf_counter() - t0
+    counts = launches()
+    if counts != want:
+        raise AssertionError(f"generate_batch B=64 launched {counts}, expected {want}")
+    checks = [check_continuation(it, toks[i][: lengths[i]], vocab)
+              for i, it in enumerate(items)]
+    emitted = int(lengths.sum())
+    say(f"batch: generate_batch B=64 W={W} n_words={n_words} launches={counts}; all "
+        f"64 re-parse, grammar violations "
+        f"{sum(c['grammar_violations'] for c in checks)}, emitted {emitted} tokens: "
+        f"{emitted / secs:.1f} emitted tok/s, {n_words / secs:.1f} steps/s "
+        f"({secs:.3f} s incl. prefill)")
+    return service_counts
 
 
 def main(argv=None) -> int:
@@ -280,6 +584,7 @@ def main(argv=None) -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' f32 products
     device_phase()
     build_phase()
     t0 = time.perf_counter()
@@ -289,16 +594,41 @@ def main(argv=None) -> int:
         f"ff{engine.cfg.d_inner} {engine.cfg.n_heads}x{engine.cfg.d_head} "
         f"mem {engine.cfg.mem_len} in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(args.seed)
-    max_err, wkr_mt = kernel_phase(engine, rng, dev)
-    timing = timing_phase(engine, wkr_mt, rng, dev)
-    launches = main_path_phase(learner, args.seed, args.n_words)
+    wkr_mt = wkr_table(engine)
+    err = {"slab_w8": kernel_phase(engine, wkr_mt, rng, dev, fd.fused_slab_core,
+                                   "slab_w8", (1, 4)),
+           "slab_ar_w8": kernel_phase(engine, wkr_mt, rng, dev,
+                                      fd.fused_slab_allrows_core, "slab_ar_w8", (8, 64)),
+           "flash": flash_phase(engine.cfg, dev, args.seed)}
+    # each kernel's largest error over its bound (h_out's for the slab steps)
+    over = {"slab_w8": err["slab_w8"] / H_ATOL, "slab_ar_w8": err["slab_ar_w8"] / H_ATOL,
+            "flash": err["flash"][1]}
+    items = batch_prompts(learner.vocab, args.seed, 64)
+    prefill_phase(learner, items[:16], dev)
+    timing = timing_phase(engine, wkr_mt, rng, dev, args.seed)
+    n_single = main_path_phase(learner, args.seed, args.n_words)
+    batched = batched_phase(learner, items, args.seed, args.n_words)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [{
-        "name": "fused_slab_core[slab_w8]", "route": "cuda",
-        "source": "deepmusicgeneration_tpu_torch/ops/csrc/slab_decode.cu",
-        "replaces": "deepmusicgeneration_tpu/ops/fused_decode.py:1163",
-        "launches": launches, "max_abs_err": max_err, **timing,
-        "library_ms": None}]}))
+    csrc = "deepmusicgeneration_tpu_torch/ops/csrc/"
+    say(json.dumps({"kernels": [
+        {"name": "fused_slab_core[slab_w8]", "route": "cuda",
+         "source": csrc + "slab_decode.cu",
+         "replaces": "deepmusicgeneration_tpu/ops/fused_decode.py:1163",
+         "launches": n_single, "max_abs_err": err["slab_w8"],
+         "max_err_over_bound": over["slab_w8"], **timing["slab_w8"],
+         "library_ms": None},
+        {"name": "fused_slab_allrows_core[slab_ar_w8]", "route": "cuda",
+         "source": csrc + "slab_decode.cu",
+         "replaces": "deepmusicgeneration_tpu/ops/fused_decode.py:1589",
+         "launches": batched["slab_ar_w8"], "max_abs_err": err["slab_ar_w8"],
+         "max_err_over_bound": over["slab_ar_w8"],
+         **timing["slab_ar_w8"], "library_ms": None},
+        {"name": "flash_prefill_attention", "route": "cuda",
+         "source": csrc + "flash_prefill.cu",
+         "replaces": "deepmusicgeneration_tpu/ops/flash_prefill.py:292",
+         "launches": batched["flash_prefill"], "max_abs_err": err["flash"][0],
+         "max_err_over_bound": over["flash"],
+         **timing["flash"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,8 +16,14 @@ Parity contract with the reference engine:
   multiple of 4, or when BOS is sampled,
 * greedy mode is argmax over the same filtered logits.
 
-Two decode paths: ``xla`` (the exact ring step, ``models.txl``) and
-``slab_w8`` (``ops.fused_decode.fused_slab_core``: int8 weights, int8 KV).
+Three decode paths: ``xla`` (the exact ring step, ``models.txl``),
+``slab_w8`` (``ops.fused_decode.fused_slab_core``: int8 weights, int8 KV) and
+``slab_ar_w8`` (``ops.fused_decode.fused_slab_allrows_core``: the same step,
+each layer's weights read once for all rows). On the card the auto rule
+(:meth:`GenerationEngine.resolve_kernel`) takes ``slab_w8`` for B < 8,
+``slab_ar_w8`` for B % 8 == 0 and ``xla`` otherwise; the prompt prefill takes
+the flash attention kernel for bf16 configs at B >= 8 (W <= 2048) or
+2048 < W <= 8192 (``models.txl.prefill``).
 """
 
 from __future__ import annotations
@@ -34,14 +40,15 @@ from ..device import resolve_device
 from ..models import txl
 from ..models.config import TXLConfig
 from ..models.precision import cast_params_for_inference
-from ..ops.fused_decode import (fused_slab_core, quantize_kv_slot_major,
-                                quantize_stacked_weights, stack_txl_layers)
+from ..ops.fused_decode import (fused_slab_allrows_core, fused_slab_core,
+                                quantize_kv_slot_major, quantize_stacked_weights,
+                                stack_txl_layers)
 from ..ops.sampling import FILTER_VALUE, filter_sample_sorted
 from ..vocab import SAMPLE_FREQ, MusicVocab
 
 I32 = torch.int32
 
-KERNELS = ("xla", "slab_w8")
+KERNELS = ("xla", "slab_w8", "slab_ar_w8")
 
 
 @dataclass(frozen=True)
@@ -206,7 +213,7 @@ def generate_compiled(
     settings: SamplerSettings,
     mem_len: int,
     kernel: str = "xla",
-    stacked_q=None,               # (int8 StackedTXL, w_scales) for slab_w8
+    stacked_q=None,               # (int8 StackedTXL, w_scales) for the slab kernels
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + fixed-length sampling loop.
 
@@ -254,6 +261,8 @@ def generate_compiled(
     wkr_mt = txl.precompute_wkr(params, cfg, M).permute(0, 2, 1, 3) \
         .reshape(L, M + 1, HD).to(torch.bfloat16).contiguous()
     stacked, w_scales = stacked_q
+    core = fused_slab_allrows_core if kernel == "slab_ar_w8" else fused_slab_core
+    rows_per_cell = next(r for r in (8, 4, 2, 1) if B % r == 0)   # as the JAX engine
     embed32 = params["embed"].to(torch.float32)
     head_b = params.get("head_b")
     g, ptr, g_cur = ring.g, ring.ptr, ring.g_cur
@@ -262,9 +271,9 @@ def generate_compiled(
         toks[i] = idx
         dist = g_cur - g
         blocked = ((dist < 1) | (dist > M)).to(I32)
-        h_out, *kv = fused_slab_core(
+        h_out, *kv = core(
             stacked, cfg, embed32[idx.long()], wkr_mt, *kv, blocked, ptr, M,
-            rows_per_cell=1, weights_int8=True, w_scales=w_scales)
+            rows_per_cell=rows_per_cell, weights_int8=True, w_scales=w_scales)
         logits = h_out @ embed32.T
         if head_b is not None:
             logits = logits + head_b
@@ -303,7 +312,7 @@ class GenerationEngine:
         self._stacked_q = None
 
     def _slab_ok(self, mem_len: int) -> bool:
-        """The slab_w8 path applies to a bf16, bias-free config without beat
+        """The slab paths apply to a bf16, bias-free config without beat
         embeddings (the genre flagship shape) with mem_len % 32 == 0, the
         TPU kernel's slab tile, kept so both packages pick alike."""
         return (self.cfg.dtype == "bfloat16" and not self.cfg.bias
@@ -311,23 +320,29 @@ class GenerationEngine:
 
     def resolve_kernel(self, batch: int, mem_len: Optional[int] = None,
                        decode_kernel: Optional[str] = None) -> str:
-        """The kernel ``generate_batch(decode_kernel=None)`` picks.
+        """The kernel ``generate_batch(decode_kernel=None)`` picks: the JAX
+        package's rule, read on the card.
 
-        The JAX package's rule for small batches: B < 8 → 'slab_w8' (decode
-        is weight-read-bound there, and int8 weights nearly halve the bytes
-        per step). For B >= 8 the JAX package picks 'slab_ar_w8' when
-        B % 8 == 0; that kernel is not ported yet (ROADMAP.md), so every
-        B >= 8 returns 'xla' for now. On the CPU this returns 'xla', as the
-        JAX package does off the TPU."""
+        - B % 8 == 0 → 'slab_ar_w8': one pass over each layer's weights
+          serves all B rows;
+        - B < 8 → 'slab_w8': decode is weight-read-bound there, and int8
+          weights nearly halve the bytes per step;
+        - any other B → 'xla', the exact ring step.
+
+        The slab kernels also need :meth:`_slab_ok`. On the CPU this returns
+        'xla', as the JAX package does off the TPU."""
         if decode_kernel is not None:
             return decode_kernel
         mem_len = mem_len or self.cfg.mem_len
-        if self.device.type == "cuda" and self._slab_ok(mem_len) and batch < 8:
-            return "slab_w8"
+        if self.device.type == "cuda" and self._slab_ok(mem_len):
+            if batch % 8 == 0:
+                return "slab_ar_w8"
+            if batch < 8:
+                return "slab_w8"
         return "xla"
 
     def stacked_q(self):
-        """(int8-weight StackedTXL, w_scales) for the slab_w8 path."""
+        """(int8-weight StackedTXL, w_scales) for the slab paths."""
         if self._stacked_q is None:
             self._stacked_q = quantize_stacked_weights(stack_txl_layers(self.params))
         return self._stacked_q
@@ -360,9 +375,11 @@ class GenerationEngine:
         (tokens (B, n_words) int32, lengths (B,) int32).
 
         ``decode_kernel``: None = auto (:meth:`resolve_kernel`); 'xla' is the
-        exact bf16/f32 ring step; 'slab_w8' quantizes the KV cache and the
-        weights to int8 (the kernel path; on a CPU device its plain version).
-        ``seed`` seeds the sampling generator on the engine's device."""
+        exact bf16/f32 ring step; 'slab_w8' and 'slab_ar_w8' quantize the KV
+        cache and the weights to int8 (the kernel paths; on a CPU device
+        their plain version). The prompt prefill follows
+        ``models.txl.prefill``'s auto rule. ``seed`` seeds the sampling
+        generator on the engine's device."""
         B = len(seeds)
         mem_len = mem_len or self.cfg.mem_len
         W = _bucket(max(len(s) for s in seeds))
@@ -381,8 +398,8 @@ class GenerationEngine:
             last_pos[i] = p[-1] if len(p) else 0
 
         kernel = self.resolve_kernel(B, mem_len, decode_kernel)
-        if kernel == "slab_w8" and not self._slab_ok(mem_len):
-            raise ValueError("decode_kernel='slab_w8' needs a bf16 bias-free "
+        if kernel in KERNELS[1:] and not self._slab_ok(mem_len):
+            raise ValueError(f"decode_kernel={kernel!r} needs a bf16 bias-free "
                              "config without beat embeddings and mem_len % 32 "
                              f"== 0; got mem_len={mem_len}")
         settings = SamplerSettings(n_words=n_words, top_k=top_k, greedy=greedy)
@@ -398,7 +415,7 @@ class GenerationEngine:
             torch.tensor(temperatures, dtype=torch.float32, device=dev),
             float(top_p), int(min_bars), ins_mask, generator, settings,
             mem_len=mem_len, kernel=kernel,
-            stacked_q=self.stacked_q() if kernel == "slab_w8" else None)
+            stacked_q=None if kernel == "xla" else self.stacked_q())
         return out.cpu().numpy(), lengths.cpu().numpy()
 
 

@@ -21,6 +21,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.flash_prefill import flash_prefill_attention
 from ..ops.rel_attention import (
     NEG_INF,
     backwards_pos_enc,
@@ -106,6 +107,16 @@ def init_kv_cache(cfg: TXLConfig, batch: int, mem_len: Optional[int] = None,
                    valid=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+def _flash_auto(cfg: TXLConfig, x: torch.Tensor) -> bool:
+    """The JAX package's rule for the flash prefill kernel, read on the
+    port's device: a CUDA tensor, a bf16 config and W <= 2048 with B >= 8
+    (the per-row work amortizes the kernel's fixed cost) or 2048 < W <= 8192
+    (the materialized scores grow quadratically)."""
+    B, W = x.shape
+    return (x.device.type == "cuda" and cfg.act_dtype == torch.bfloat16
+            and ((W <= 2048 and B >= 8) or 2048 < W <= 8192))
+
+
 def prefill(
     params: Dict,
     cfg: TXLConfig,
@@ -113,35 +124,51 @@ def prefill(
     pad_mask: torch.Tensor,     # (B, W) True where x is left-padding
     pos: Optional[torch.Tensor] = None,
     mem_len: Optional[int] = None,
+    flash: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Process a fixed-width prompt window, returning last-token logits and a
     KV cache holding the window's keys/values (right-aligned by construction).
 
-    This is the JAX package's XLA prefill branch: it materializes the
-    (B, H, W, W) scores. Padded columns are masked out of attention, so the
-    cache validity is the true prompt length.
+    ``flash``: attention through ``ops.flash_prefill.flash_prefill_attention``
+    (the hand-written kernel on the card, its plain version on the CPU)
+    instead of the branch that materializes the (B, H, W, W) scores; None
+    picks it by :func:`_flash_auto`, which never picks it on the CPU. Padded
+    columns are masked out of attention either way, so the cache validity is
+    the true prompt length.
     """
     _check_supported(cfg)
     B, W = x.shape
     dt = cfg.act_dtype
     dev = x.device
     M = cfg.mem_len if mem_len is None else mem_len
+    if flash is None:
+        flash = _flash_auto(cfg, x)
     h = params["embed"][x].to(dt)
     r = backwards_pos_enc(W, cfg.d_model, dtype=dt, device=dev)
-    mask = causal_window_mask(W, 0, 1, 1, device=dev)
-    mask = mask | pad_mask[:, None, None, :]
+    if not flash:
+        mask = causal_window_mask(W, 0, 1, 1, device=dev)
+        mask = mask | pad_mask[:, None, None, :]
 
     H, Dh = cfg.n_heads, cfg.d_head
     u_b, v_b = params["u"].to(dt), params["v"].to(dt)
     ks, vs = [], []
     for lp in params["layers"]:
-        q, k, vv = _qkv(lp, h, H, Dh)
-        ks.append(k.transpose(1, 2)[:, -M:])    # (B, min(W, M), H, Dh)
-        vs.append(vv.transpose(1, 2)[:, -M:])
-        wkr = _wkr(lp, r, H, Dh)
-        attn = rel_attention(q, k, vv, wkr, u_b, v_b, mask=mask,
-                             scale=cfg.scale, shift=True)
-        attn = attn.transpose(1, 2).reshape(B, W, H * Dh)
+        if flash:
+            y = _linear(h, lp["qkv_w"], lp["qkv_b"])
+            q_f, k_f, v_f = (t.contiguous() for t in torch.chunk(y, 3, dim=-1))
+            ks.append(k_f.reshape(B, W, H, Dh)[:, -M:])
+            vs.append(v_f.reshape(B, W, H, Dh)[:, -M:])
+            wkr_flat = _linear(r, lp["r_w"], lp["r_b"])           # (W, HD)
+            attn = flash_prefill_attention(q_f, k_f, v_f, wkr_flat, u_b, v_b,
+                                           pad_mask, H, scale=cfg.scale)
+        else:
+            q, k, vv = _qkv(lp, h, H, Dh)
+            ks.append(k.transpose(1, 2)[:, -M:])    # (B, min(W, M), H, Dh)
+            vs.append(vv.transpose(1, 2)[:, -M:])
+            wkr = _wkr(lp, r, H, Dh)
+            attn = rel_attention(q, k, vv, wkr, u_b, v_b, mask=mask,
+                                 scale=cfg.scale, shift=True)
+            attn = attn.transpose(1, 2).reshape(B, W, H * Dh)
         h = _block_tail(lp, cfg, h, attn)
 
     logits = _logits(params, h[:, -1])

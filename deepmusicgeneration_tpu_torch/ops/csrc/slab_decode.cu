@@ -31,6 +31,30 @@
 // result is deterministic) to have enough loads in flight; attention reads
 // each wkr and K/V slot row once, a whole row per thread in 16-byte loads.
 // This version is simple, not tuned: it launches 10 kernels per layer.
+//
+// The same file holds the all-rows step ("slab_ar_w8"), which replaces
+// fused_decode.py::fused_slab_allrows_core (pallas_call built by
+// _make_slab_allrows_kernel) with weights_int8=True. It computes the same
+// function; what defines that TPU kernel is that each layer's weights are read
+// once for all B rows. Here the four weight products go through
+// gemm_w8_partial, a skinny int8-weight GEMM: one block owns a
+// (128 K rows x 64 columns) weight slice, holds it dequantized in shared
+// memory, and applies up to 64 batch rows to it, so the weights leave device
+// memory once per step for B <= 64 (the row-tiled GEMV above reads them
+// B / 8 times). The GEMM's larger blocks (a 64 KB slice in shared memory)
+// cost more per launch than the GEMV's, so at small B the GEMV step is the
+// faster one; chip_smoke.py times both steps across B and PERF.md records
+// where each wins. Attention, the fresh-slot write and the
+// residual + LayerNorm kernels are shared with slab_w8. At B = 64, M = 512 on
+// the flagship one step must read ~449 MB (37.7 MB int8 weights, 6.3 MB wkr,
+// 402.7 MB int8 K/V, ~2.1 MB scales): ~134 us at 3.35 TB/s, bound by bytes.
+//
+// Order contract of both steps: attention reads the OLD slot `ptr` of every
+// row (on a full ring that slot holds the oldest token, at distance exactly
+// M, which is visible), and the fresh-slot write is a separate kernel
+// launched after it on the same stream. The TPU all-rows kernel overlaps its
+// slot-write DMA with later row groups' reads of that slot; that race is not
+// carried over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,6 +69,13 @@ constexpr int kColThreads = kCols / 4;              // 16 threads x 4 columns
 constexpr int kKSlices = kThreads / kColThreads;    // 16 interleaved K slices
 constexpr int kKChunk = 64;                         // K rows per GEMV block
 constexpr int kRows = 8;                            // batch rows per GEMV block
+constexpr int kARChunk = 128;                       // K rows per all-rows GEMM block
+constexpr int kARRowGroups = kThreads / kColThreads;  // 16
+constexpr int kARRows = 64;                         // batch rows per all-rows GEMM block
+constexpr int kARRowsPerThread = kARRows / kARRowGroups;  // 4
+constexpr int kARWordsPerThread = kARChunk / kARRowGroups;  // 8 char4 of the slice
+// dynamic shared memory of gemm_w8_partial: the dequantized slice and x chunk
+constexpr size_t kARSmem = (size_t)kARChunk * kCols * 4 + (size_t)kARRows * (kARChunk + 1) * 4;
 
 enum Act { kNone = 0, kGeluTanh = 1, kRelu = 2 };
 
@@ -143,6 +174,87 @@ gemv_w8_partial(const float* __restrict__ x, int B, int K, int N,
       float t = 0.f;
       for (int i = 0; i < kKSlices; ++i) t += red[i][r][c];
       partial[((size_t)kb * B + b0 + r) * N + n] = t;
+    }
+  }
+}
+
+// All-rows variant of gemv_w8_partial: the same partial sums, but one block
+// reads its weight slice (kARChunk K rows x kCols columns) once and applies
+// every batch row of its kARRows-row group to it. Every load of the slice and
+// of the rows' x chunk is issued before the one barrier, so a block waits on
+// memory once; each thread then accumulates 4 columns for kARRowsPerThread
+// rows over k in ascending order, one accumulator per output.
+// grid (ceil(N / kCols), ceil(K / kARChunk), ceil(B / kARRows)), kARSmem
+// bytes of dynamic shared memory.
+__global__ void __launch_bounds__(kThreads)
+gemm_w8_partial(const float* __restrict__ x, int B, int K, int N,
+                const int8_t* __restrict__ W, const float* __restrict__ s,
+                float* __restrict__ partial) {
+  extern __shared__ float4 ar_smem[];
+  float4 (*ws)[kColThreads] = reinterpret_cast<float4 (*)[kColThreads]>(ar_smem);
+  float (*xs)[kARChunk + 1] =
+      reinterpret_cast<float (*)[kARChunk + 1]>(ar_smem + kARChunk * kColThreads);
+  const int cg = threadIdx.x % kColThreads;
+  const int rg = threadIdx.x / kColThreads;
+  const int n = blockIdx.x * kCols + 4 * cg;
+  const int kb = blockIdx.y;
+  const int k0 = kb * kARChunk;
+  const int kn = min(kARChunk, K - k0);
+  const int b0 = blockIdx.z * kARRows;
+  const int nb = min(kARRows, B - b0);
+  // this thread's part of the slice: rows rg + kARRowGroups * j, columns n .. n + 3;
+  // rows past K and columns past N are zeros, which add nothing below
+  char4 w4[kARWordsPerThread];
+#pragma unroll
+  for (int j = 0; j < kARWordsPerThread; ++j) {
+    const int kk = rg + kARRowGroups * j;
+    w4[j] = (kk < kn && n < N)
+                ? *reinterpret_cast<const char4*>(W + (size_t)(k0 + kk) * N + n)
+                : make_char4(0, 0, 0, 0);
+  }
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (n < N) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[j] = s[n + j];
+  }
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nb * kARChunk; i += kThreads) {
+    const int r = i / kARChunk, kk = i % kARChunk;
+    xs[r][kk] = kk < kn ? bf16_round(x[(size_t)(b0 + r) * K + k0 + kk]) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kARWordsPerThread; ++j)
+    ws[rg + kARRowGroups * j][cg] =
+        make_float4(bf16_round((float)w4[j].x * sc[0]), bf16_round((float)w4[j].y * sc[1]),
+                    bf16_round((float)w4[j].z * sc[2]), bf16_round((float)w4[j].w * sc[3]));
+  __syncthreads();
+  float acc[kARRowsPerThread][4];
+#pragma unroll
+  for (int a = 0; a < kARRowsPerThread; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+#pragma unroll 8
+  for (int kk = 0; kk < kARChunk; ++kk) {
+    const float4 w = ws[kk][cg];
+#pragma unroll
+    for (int a = 0; a < kARRowsPerThread; ++a) {
+      const int r = rg + kARRowGroups * a;
+      if (r < nb) {
+        const float xv = xs[r][kk];
+        acc[a][0] = fmaf(xv, w.x, acc[a][0]);
+        acc[a][1] = fmaf(xv, w.y, acc[a][1]);
+        acc[a][2] = fmaf(xv, w.z, acc[a][2]);
+        acc[a][3] = fmaf(xv, w.w, acc[a][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kARRowsPerThread; ++a) {
+    const int r = rg + kARRowGroups * a;
+    if (r < nb) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) partial[((size_t)kb * B + b0 + r) * N + n + j] = acc[a][j];
     }
   }
 }
@@ -333,18 +445,28 @@ kv_slot_write(const float* __restrict__ qkv, int HD, int M, int ptr,
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-inline size_t max_partial(int B, int D, int Dff, int HD) {
-  size_t p = (size_t)ceil_div(D, kKChunk) * 3 * HD;
-  p = p > (size_t)ceil_div(HD, kKChunk) * D ? p : (size_t)ceil_div(HD, kKChunk) * D;
-  p = p > (size_t)ceil_div(D, kKChunk) * Dff ? p : (size_t)ceil_div(D, kKChunk) * Dff;
-  p = p > (size_t)ceil_div(Dff, kKChunk) * D ? p : (size_t)ceil_div(Dff, kKChunk) * D;
+// K rows per split-K slice of the weight products of each step variant.
+inline int k_chunk(bool allrows) { return allrows ? kARChunk : kKChunk; }
+
+inline size_t max_partial(int B, int D, int Dff, int HD, int ch) {
+  size_t p = (size_t)ceil_div(D, ch) * 3 * HD;
+  p = p > (size_t)ceil_div(HD, ch) * D ? p : (size_t)ceil_div(HD, ch) * D;
+  p = p > (size_t)ceil_div(D, ch) * Dff ? p : (size_t)ceil_div(D, ch) * Dff;
+  p = p > (size_t)ceil_div(Dff, ch) * D ? p : (size_t)ceil_div(Dff, ch) * D;
   return p * B;
 }
 
-cudaError_t gemv(const float* x, int B, int K, int N, const int8_t* W, const float* s,
-                 float* partial, cudaStream_t st) {
-  dim3 grid(ceil_div(N, kCols), ceil_div(K, kKChunk), ceil_div(B, kRows));
-  gemv_w8_partial<<<grid, kThreads, 0, st>>>(x, B, K, N, W, s, partial);
+// Split-K partial sums of bf16(x) . bf16(W * s) for all B rows into
+// partial[ceil_div(K, k_chunk(allrows))][B][N].
+cudaError_t gemv(bool allrows, const float* x, int B, int K, int N, const int8_t* W,
+                 const float* s, float* partial, cudaStream_t st) {
+  if (allrows) {
+    dim3 grid(ceil_div(N, kCols), ceil_div(K, kARChunk), ceil_div(B, kARRows));
+    gemm_w8_partial<<<grid, kThreads, kARSmem, st>>>(x, B, K, N, W, s, partial);
+  } else {
+    dim3 grid(ceil_div(N, kCols), ceil_div(K, kKChunk), ceil_div(B, kRows));
+    gemv_w8_partial<<<grid, kThreads, 0, st>>>(x, B, K, N, W, s, partial);
+  }
   return cudaGetLastError();
 }
 
@@ -370,16 +492,91 @@ cudaError_t attention(int Dh, int blocks, size_t smem, cudaStream_t st, Args... 
   }
 }
 
+// One token step for all B rows through all L layers (see slab_w8_step).
+int step(bool allrows, const int8_t* qkv_w, const int8_t* out_w, const int8_t* ff1_w,
+         const int8_t* ff2_w, const float* w_scales, const __nv_bfloat16* ff1_b,
+         const __nv_bfloat16* ff2_b, const float* ln1_g, const float* ln1_b,
+         const float* ln2_g, const float* ln2_b, const __nv_bfloat16* wkr,
+         const __nv_bfloat16* u, const __nv_bfloat16* v, int8_t* kt, float* ks,
+         int8_t* vc, float* vs, const float* h_in, const int32_t* blocked, float* h_out,
+         float* scratch, int L, int B, int D, int Dff, int H, int Dh, int M, int smax,
+         int ptr, float scale, int act, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int HD = H * Dh;
+  float* qkv = scratch;
+  float* attn = qkv + (size_t)B * 3 * HD;
+  float* h1 = attn + (size_t)B * HD;
+  float* ffx = h1 + (size_t)B * D;
+  float* part = ffx + (size_t)B * Dff;
+  const size_t attn_smem = (size_t)(2 * Dh + 2 * (M + 1) + 4 * kThreads) * sizeof(float);
+  const size_t ln_smem = (size_t)D * sizeof(float);
+  const int ch = k_chunk(allrows);
+  cudaError_t err;
+  if (ln_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(add_layer_norm, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)ln_smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (allrows) {
+    err = cudaFuncSetAttribute(gemm_w8_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kARSmem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaMemcpyAsync(h_out, h_in, (size_t)B * D * sizeof(float),
+                        cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return err;
+  for (int l = 0; l < L; ++l) {
+    const float* sc = w_scales + (size_t)l * 8 * smax;
+    const size_t kv_off = (size_t)l * B * M;
+    // qkv projection
+    if ((err = gemv(allrows, h_out, B, D, 3 * HD, qkv_w + (size_t)l * D * 3 * HD, sc, part, st)))
+      return err;
+    gemv_finish<<<ceil_div(B * 3 * HD, kThreads), kThreads, 0, st>>>(
+        part, ceil_div(D, ch), B, 3 * HD, nullptr, kNone, qkv);
+    if ((err = cudaGetLastError())) return err;
+    // attention over the old cache + self, then the fresh slot write
+    if ((err = attention(Dh, B * H, attn_smem, st, qkv, H, M, u, v,
+                         wkr + (size_t)l * (M + 1) * HD, kt + kv_off * HD, ks + kv_off,
+                         vc + kv_off * HD, vs + kv_off, blocked, ptr, scale, attn)))
+      return err;
+    kv_slot_write<<<B, kThreads, 0, st>>>(qkv, HD, M, ptr, kt + kv_off * HD, ks + kv_off,
+                                          vc + kv_off * HD, vs + kv_off);
+    if ((err = cudaGetLastError())) return err;
+    // out projection + residual + post-LN
+    if ((err = gemv(allrows, attn, B, HD, D, out_w + (size_t)l * HD * D, sc + smax, part, st)))
+      return err;
+    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h_out, part, ceil_div(HD, ch), B, D,
+                                                 nullptr, ln1_g + (size_t)l * D,
+                                                 ln1_b + (size_t)l * D, h1);
+    if ((err = cudaGetLastError())) return err;
+    // feed-forward + residual + post-LN
+    if ((err = gemv(allrows, h1, B, D, Dff, ff1_w + (size_t)l * D * Dff, sc + 2 * smax, part, st)))
+      return err;
+    gemv_finish<<<ceil_div(B * Dff, kThreads), kThreads, 0, st>>>(
+        part, ceil_div(D, ch), B, Dff, ff1_b + (size_t)l * Dff, act, ffx);
+    if ((err = cudaGetLastError())) return err;
+    if ((err = gemv(allrows, ffx, B, Dff, D, ff2_w + (size_t)l * Dff * D, sc + 3 * smax, part, st)))
+      return err;
+    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h1, part, ceil_div(Dff, ch), B, D,
+                                                 ff2_b + (size_t)l * D,
+                                                 ln2_g + (size_t)l * D,
+                                                 ln2_b + (size_t)l * D, h_out);
+    if ((err = cudaGetLastError())) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Float32 scratch elements slab_w8_step needs for these sizes.
+// Float32 scratch elements slab_w8_step / slab_ar_w8_step need for these
+// sizes (the all-rows step's larger K slices need fewer partial sums).
 size_t slab_w8_scratch_floats(int B, int D, int Dff, int HD) {
-  return (size_t)B * (3 * HD + HD + D + Dff) + max_partial(B, D, Dff, HD);
+  return (size_t)B * (3 * HD + HD + D + Dff) + max_partial(B, D, Dff, HD, k_chunk(false));
 }
 
-// Kernel launches slab_w8_step makes per call (for the launch accounting).
+// Kernel launches either step makes per call (for the launch accounting).
 int slab_w8_kernels_per_step(int L) { return 10 * L; }
 
 const char* slab_w8_error_string(int err) {
@@ -395,73 +592,24 @@ const char* slab_w8_error_string(int err) {
 // (L,B,M) f32, updated in slot ptr only; h_in (B,D) f32; blocked (B,M) int32;
 // h_out (B,D) f32; scratch of slab_w8_scratch_floats(...) floats.
 // Returns the first CUDA error (0 = cudaSuccess). Does not synchronize.
-int slab_w8_step(const int8_t* qkv_w, const int8_t* out_w, const int8_t* ff1_w,
-                 const int8_t* ff2_w, const float* w_scales,
-                 const __nv_bfloat16* ff1_b, const __nv_bfloat16* ff2_b,
-                 const float* ln1_g, const float* ln1_b, const float* ln2_g,
-                 const float* ln2_b, const __nv_bfloat16* wkr,
-                 const __nv_bfloat16* u, const __nv_bfloat16* v,
-                 int8_t* kt, float* ks, int8_t* vc, float* vs,
-                 const float* h_in, const int32_t* blocked, float* h_out,
-                 float* scratch, int L, int B, int D, int Dff, int H, int Dh,
-                 int M, int smax, int ptr, float scale, int act, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int HD = H * Dh;
-  float* qkv = scratch;
-  float* attn = qkv + (size_t)B * 3 * HD;
-  float* h1 = attn + (size_t)B * HD;
-  float* ffx = h1 + (size_t)B * D;
-  float* part = ffx + (size_t)B * Dff;
-  const size_t attn_smem = (size_t)(2 * Dh + 2 * (M + 1) + 4 * kThreads) * sizeof(float);
-  const size_t ln_smem = (size_t)D * sizeof(float);
-  cudaError_t err;
-  if (ln_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(add_layer_norm, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)ln_smem);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaMemcpyAsync(h_out, h_in, (size_t)B * D * sizeof(float),
-                        cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return err;
-  for (int l = 0; l < L; ++l) {
-    const float* sc = w_scales + (size_t)l * 8 * smax;
-    const size_t kv_off = (size_t)l * B * M;
-    // qkv projection
-    if ((err = gemv(h_out, B, D, 3 * HD, qkv_w + (size_t)l * D * 3 * HD, sc, part, st)))
-      return err;
-    gemv_finish<<<ceil_div(B * 3 * HD, kThreads), kThreads, 0, st>>>(
-        part, ceil_div(D, kKChunk), B, 3 * HD, nullptr, kNone, qkv);
-    if ((err = cudaGetLastError())) return err;
-    // attention over the old cache + self, then the fresh slot write
-    if ((err = attention(Dh, B * H, attn_smem, st, qkv, H, M, u, v,
-                         wkr + (size_t)l * (M + 1) * HD, kt + kv_off * HD, ks + kv_off,
-                         vc + kv_off * HD, vs + kv_off, blocked, ptr, scale, attn)))
-      return err;
-    kv_slot_write<<<B, kThreads, 0, st>>>(qkv, HD, M, ptr, kt + kv_off * HD, ks + kv_off,
-                                          vc + kv_off * HD, vs + kv_off);
-    if ((err = cudaGetLastError())) return err;
-    // out projection + residual + post-LN
-    if ((err = gemv(attn, B, HD, D, out_w + (size_t)l * HD * D, sc + smax, part, st)))
-      return err;
-    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h_out, part, ceil_div(HD, kKChunk), B, D,
-                                                 nullptr, ln1_g + (size_t)l * D,
-                                                 ln1_b + (size_t)l * D, h1);
-    if ((err = cudaGetLastError())) return err;
-    // feed-forward + residual + post-LN
-    if ((err = gemv(h1, B, D, Dff, ff1_w + (size_t)l * D * Dff, sc + 2 * smax, part, st)))
-      return err;
-    gemv_finish<<<ceil_div(B * Dff, kThreads), kThreads, 0, st>>>(
-        part, ceil_div(D, kKChunk), B, Dff, ff1_b + (size_t)l * Dff, act, ffx);
-    if ((err = cudaGetLastError())) return err;
-    if ((err = gemv(ffx, B, Dff, D, ff2_w + (size_t)l * Dff * D, sc + 3 * smax, part, st)))
-      return err;
-    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h1, part, ceil_div(Dff, kKChunk), B, D,
-                                                 ff2_b + (size_t)l * D,
-                                                 ln2_g + (size_t)l * D,
-                                                 ln2_b + (size_t)l * D, h_out);
-    if ((err = cudaGetLastError())) return err;
-  }
-  return cudaSuccess;
-}
+#define SLAB_STEP_ARGS                                                                  \
+  const int8_t *qkv_w, const int8_t *out_w, const int8_t *ff1_w, const int8_t *ff2_w,  \
+      const float *w_scales, const __nv_bfloat16 *ff1_b, const __nv_bfloat16 *ff2_b,   \
+      const float *ln1_g, const float *ln1_b, const float *ln2_g, const float *ln2_b,  \
+      const __nv_bfloat16 *wkr, const __nv_bfloat16 *u, const __nv_bfloat16 *v,       \
+      int8_t *kt, float *ks, int8_t *vc, float *vs, const float *h_in,                 \
+      const int32_t *blocked, float *h_out, float *scratch, int L, int B, int D,       \
+      int Dff, int H, int Dh, int M, int smax, int ptr, float scale, int act,          \
+      void *stream
+#define SLAB_STEP_PASS                                                                  \
+  qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, \
+      u, v, kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M,     \
+      smax, ptr, scale, act, stream
+
+int slab_w8_step(SLAB_STEP_ARGS) { return step(false, SLAB_STEP_PASS); }
+
+// The all-rows step: the same arguments, scratch and result, weight products
+// through gemm_w8_partial.
+int slab_ar_w8_step(SLAB_STEP_ARGS) { return step(true, SLAB_STEP_PASS); }
 
 }  // extern "C"

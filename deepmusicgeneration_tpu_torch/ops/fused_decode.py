@@ -1,19 +1,25 @@
-"""Fused single-token decode step through the whole layer stack (``slab_w8``).
+"""Fused single-token decode step through the whole layer stack.
 
-``fused_slab_core`` advances every batch row by one token through all L
-layers: int8-weight matvecs, attention over an int8 slot-major KV ring with
-the relative-position term rolled by the ring pointer, the in-place write of
-the fresh token's quantized K/V into slot ``ptr``, and the post-norm block
-tail with tanh GELU. It replaces the TPU kernel of the same name in
-``deepmusicgeneration_tpu/ops/fused_decode.py`` for ``score_mode="bf16"``
-with ``weights_int8=True``; the other modes are still to port.
+``fused_slab_core`` (``slab_w8``) advances every batch row by one token
+through all L layers: int8-weight matvecs, attention over an int8 slot-major
+KV ring with the relative-position term rolled by the ring pointer, the
+in-place write of the fresh token's quantized K/V into slot ``ptr``, and the
+post-norm block tail with tanh GELU. It replaces the TPU kernel of the same
+name in ``deepmusicgeneration_tpu/ops/fused_decode.py`` for
+``score_mode="bf16"`` with ``weights_int8=True``; the other modes are still
+to port.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
+``fused_slab_allrows_core`` (``slab_ar_w8``) computes the same step, with
+the same cache layout and result; it replaces the TPU kernel of that name
+with ``weights_int8=True``. Its CUDA version reads each layer's weights once
+for all B rows (the batched path, B % 8 == 0).
+
+On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` (built with nvcc on first use, bound with ctypes) or
 raises; on a CPU tensor it runs :func:`slab_w8_plain`, the same arithmetic in
-plain PyTorch. Unlike the JAX function, whose cache operands are donated and
-aliased, the port updates ``kt``/``ks``/``vc``/``vs`` in place and returns
-them.
+plain PyTorch. Unlike the JAX functions, whose cache operands are donated
+and aliased, the port updates ``kt``/``ks``/``vc``/``vs`` in place and
+returns them.
 """
 
 from __future__ import annotations
@@ -123,34 +129,38 @@ def _act_tanh(x, act: str):
     return torch.relu(x)
 
 
-def _bf(x):
-    """Round float32 values to bfloat16 and back (the kernel's cast points)."""
-    return x.to(BF16).to(F32)
+def _bf(x, acc=F32):
+    """Round values to bfloat16 and back to ``acc`` (the kernel's cast points)."""
+    return x.to(BF16).to(acc)
 
 
 def slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
-                  blocked, ptr: int):
+                  blocked, ptr: int, acc: torch.dtype = F32):
     """Plain PyTorch version of the ``slab_w8`` step (same arithmetic and
-    rounding points as the kernel); updates the caches in place."""
+    rounding points as the kernel); updates the caches in place.
+
+    ``acc`` is the dtype of everything between the bf16 cast points: float32,
+    as in the kernel, or float64 for a reference of how far a float32
+    summation order can drift."""
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
     HD = H * Dh
     B, M = blocked.shape
     scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
-    h = h_in.to(F32)
+    h = h_in.to(acc)
     masked = blocked[:, None, :] != 0
     for l in range(L):
-        deq = lambda w, row, n: _bf(w[l].to(F32) * w_scales[l, row:row + 1, :n])
+        deq = lambda w, row, n: _bf(w[l].to(acc) * w_scales[l, row:row + 1, :n], acc)
         W_qkv, W_out = deq(stacked.qkv_w, 0, 3 * HD), deq(stacked.out_w, 1, D)
         W_ff1, W_ff2 = deq(stacked.ff1_w, 2, Dff), deq(stacked.ff2_w, 3, D)
-        qkv = _bf(h) @ W_qkv
+        qkv = _bf(h, acc) @ W_qkv
         q, k1, v1 = qkv[:, :HD], qkv[:, HD:2 * HD], qkv[:, 2 * HD:]
 
         qb = q.to(BF16)
-        qu = (qb + stacked.u).to(F32).reshape(B, H, Dh)
-        qv = (qb + stacked.v).to(F32).reshape(B, H, Dh)
-        sd = torch.einsum("mhd,bhd->bhm", wkr_mt[l].to(F32).reshape(M + 1, H, Dh), qv)
-        ac = torch.einsum("bmhd,bhd->bhm", kt[l].to(F32).reshape(B, M, H, Dh), qu)
+        qu = (qb + stacked.u).to(acc).reshape(B, H, Dh)
+        qv = (qb + stacked.v).to(acc).reshape(B, H, Dh)
+        sd = torch.einsum("mhd,bhd->bhm", wkr_mt[l].to(acc).reshape(M + 1, H, Dh), qv)
+        ac = torch.einsum("bmhd,bhd->bhm", kt[l].to(acc).reshape(B, M, H, Dh), qu)
         ac = ac * ks[l][:, None, :, 0]
         score = (ac + torch.roll(sd[..., :M], ptr, dims=-1)) * scale
         score = torch.where(masked, NEG_INF, score)
@@ -159,8 +169,8 @@ def slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
         e = torch.exp(score - mx[..., None])
         e_self = torch.exp(self_score - mx)
         denom = e.sum(-1) + e_self
-        pv = torch.einsum("bhm,bmhd->bhd", _bf(e * vs[l][:, None, :, 0]),
-                          vc[l].to(F32).reshape(B, M, H, Dh))
+        pv = torch.einsum("bhm,bmhd->bhd", _bf(e * vs[l][:, None, :, 0], acc),
+                          vc[l].to(acc).reshape(B, M, H, Dh))
         attn = (pv + e_self[..., None] * v1.reshape(B, H, Dh)) / denom[..., None]
 
         for cache, scales, x in ((kt, ks, k1), (vc, vs, v1)):
@@ -168,9 +178,10 @@ def slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
             cache[l, :, ptr] = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
             scales[l, :, ptr] = s
 
-        h1 = _ln(h + _bf(attn.reshape(B, HD)) @ W_out, stacked.ln1_g[l], stacked.ln1_b[l])
-        ffx = _act_tanh(_bf(h1) @ W_ff1 + stacked.ff1_b[l].to(F32), cfg.act)
-        ffy = _bf(ffx) @ W_ff2 + stacked.ff2_b[l].to(F32)
+        h1 = _ln(h + _bf(attn.reshape(B, HD), acc) @ W_out, stacked.ln1_g[l],
+                 stacked.ln1_b[l])
+        ffx = _act_tanh(_bf(h1, acc) @ W_ff1 + stacked.ff1_b[l].to(acc), cfg.act)
+        ffy = _bf(ffx, acc) @ W_ff2 + stacked.ff2_b[l].to(acc)
         h = _ln(h1 + ffy, stacked.ln2_g[l], stacked.ln2_b[l])
     return h, kt, ks, vc, vs
 
@@ -195,8 +206,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _slab_lib() -> ctypes.CDLL:
     lib = _build.load("slab_decode")
-    lib.slab_w8_step.restype = ctypes.c_int
-    lib.slab_w8_step.argtypes = [_P] * 22 + [_I] * 9 + [ctypes.c_float, _I, _P]
+    for step in (lib.slab_w8_step, lib.slab_ar_w8_step):
+        step.restype = ctypes.c_int
+        step.argtypes = [_P] * 22 + [_I] * 9 + [ctypes.c_float, _I, _P]
     lib.slab_w8_scratch_floats.restype = ctypes.c_size_t
     lib.slab_w8_scratch_floats.argtypes = [_I] * 4
     lib.slab_w8_kernels_per_step.restype = ctypes.c_int
@@ -207,12 +219,14 @@ def _slab_lib() -> ctypes.CDLL:
 
 
 def kernels_per_step(n_layers: int) -> int:
-    """CUDA kernel launches inside one ``fused_slab_core`` launch."""
+    """CUDA kernel launches inside one ``fused_slab_core`` or
+    ``fused_slab_allrows_core`` launch."""
     return _slab_lib().slab_w8_kernels_per_step(n_layers)
 
 
-def _launch_slab_w8(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
-                    blocked, ptr: int):
+def _launch_slab(prefix: str, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks,
+                 vc, vs, blocked, ptr: int):
+    """Run ``csrc/slab_decode.cu``'s ``<prefix>_step`` (slab_w8 / slab_ar_w8)."""
     lib = _slab_lib()
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
@@ -228,14 +242,62 @@ def _launch_slab_w8(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
             kt, ks, vc, vs, h_in, blocked, h_out, scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.slab_w8_step(
+        err = getattr(lib, f"{prefix}_step")(
             *[t.data_ptr() for t in ptrs],
             L, B, D, Dff, H, Dh, M, w_scales.shape[2], ptr,
             scale, _ACT_CODES[cfg.act], stream)
     if err != 0:
-        raise RuntimeError(f"slab_w8 kernel failed: CUDA error {err} "
+        raise RuntimeError(f"{prefix} kernel failed: CUDA error {err} "
                            f"({lib.slab_w8_error_string(err).decode()})")
     return h_out, kt, ks, vc, vs
+
+
+def _check_step_inputs(stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked,
+                       ptr: int, mem_len: int, rows_per_cell: int, w_scales):
+    """Validate the operands of either slab step; returns the device."""
+    if w_scales is None:
+        raise ValueError("weights_int8=True requires w_scales (from "
+                         "quantize_stacked_weights)")
+    L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
+    H, Dh, M = cfg.n_heads, cfg.d_head, mem_len
+    HD = H * Dh
+    B = h_in.shape[0]
+    if B % rows_per_cell:
+        raise ValueError(f"rows_per_cell={rows_per_cell} must divide batch {B}")
+    if not 0 <= ptr < M:
+        raise ValueError(f"ptr={ptr} outside [0, {M})")
+    if cfg.act not in _ACT_CODES:
+        raise ValueError(f"unsupported activation {cfg.act!r}")
+    dev = h_in.device
+    smax = max(3 * HD, D, Dff)
+    for name, t, dtype, shape in (
+            ("qkv_w", stacked.qkv_w, torch.int8, (L, D, 3 * HD)),
+            ("out_w", stacked.out_w, torch.int8, (L, HD, D)),
+            ("ff1_w", stacked.ff1_w, torch.int8, (L, D, Dff)),
+            ("ff2_w", stacked.ff2_w, torch.int8, (L, Dff, D)),
+            ("ff1_b", stacked.ff1_b, BF16, (L, 1, Dff)),
+            ("ff2_b", stacked.ff2_b, BF16, (L, 1, D)),
+            ("ln1_g", stacked.ln1_g, F32, (L, 1, D)),
+            ("ln1_b", stacked.ln1_b, F32, (L, 1, D)),
+            ("ln2_g", stacked.ln2_g, F32, (L, 1, D)),
+            ("ln2_b", stacked.ln2_b, F32, (L, 1, D)),
+            ("u", stacked.u, BF16, (1, HD)),
+            ("v", stacked.v, BF16, (1, HD)),
+            ("w_scales", w_scales, F32, (L, 8, smax)),
+            ("h_in", h_in, F32, (B, D)),
+            ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
+            ("kt", kt, torch.int8, (L, B, M, HD)),
+            ("ks", ks, F32, (L, B, M, 1)),
+            ("vc", vc, torch.int8, (L, B, M, HD)),
+            ("vs", vs, F32, (L, B, M, 1)),
+            ("blocked", blocked, torch.int32, (B, M))):
+        _check(name, t, dtype, shape, dev)
+    if dev.type == "cuda" and (Dh not in (16, 32, 64, 128) or D % 4 or Dff % 4):
+        raise ValueError("the slab kernels need d_head in {16, 32, 64, 128} "
+                         "and widths that are multiples of 4")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def fused_slab_core(
@@ -268,56 +330,59 @@ def fused_slab_core(
             "only the slab_w8 mode (score_mode='bf16', weights_int8=True, "
             "kv_int4=False) is ported; the other slab modes are still to port "
             "(ROADMAP.md)")
-    if w_scales is None:
-        raise ValueError("weights_int8=True requires w_scales (from "
-                         "quantize_stacked_weights)")
-    L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
-    H, Dh, M = cfg.n_heads, cfg.d_head, mem_len
-    HD = H * Dh
-    B = h_in.shape[0]
     ptr = int(ptr)
-    if B % rows_per_cell:
-        raise ValueError(f"rows_per_cell={rows_per_cell} must divide batch {B}")
-    if not 0 <= ptr < M:
-        raise ValueError(f"ptr={ptr} outside [0, {M})")
-    if cfg.act not in _ACT_CODES:
-        raise ValueError(f"unsupported activation {cfg.act!r}")
-    dev = h_in.device
-    smax = max(3 * HD, D, Dff)
-    for name, t, dtype, shape in (
-            ("qkv_w", stacked.qkv_w, torch.int8, (L, D, 3 * HD)),
-            ("out_w", stacked.out_w, torch.int8, (L, HD, D)),
-            ("ff1_w", stacked.ff1_w, torch.int8, (L, D, Dff)),
-            ("ff2_w", stacked.ff2_w, torch.int8, (L, Dff, D)),
-            ("ff1_b", stacked.ff1_b, BF16, (L, 1, Dff)),
-            ("ff2_b", stacked.ff2_b, BF16, (L, 1, D)),
-            ("ln1_g", stacked.ln1_g, F32, (L, 1, D)),
-            ("ln1_b", stacked.ln1_b, F32, (L, 1, D)),
-            ("ln2_g", stacked.ln2_g, F32, (L, 1, D)),
-            ("ln2_b", stacked.ln2_b, F32, (L, 1, D)),
-            ("u", stacked.u, BF16, (1, HD)),
-            ("v", stacked.v, BF16, (1, HD)),
-            ("w_scales", w_scales, F32, (L, 8, smax)),
-            ("h_in", h_in, F32, (B, D)),
-            ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
-            ("kt", kt, torch.int8, (L, B, M, HD)),
-            ("ks", ks, F32, (L, B, M, 1)),
-            ("vc", vc, torch.int8, (L, B, M, HD)),
-            ("vs", vs, F32, (L, B, M, 1)),
-            ("blocked", blocked, torch.int32, (B, M))):
-        _check(name, t, dtype, shape, dev)
+    args = (stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked, ptr)
+    dev = _check_step_inputs(*args, mem_len, rows_per_cell, w_scales)
     if dev.type == "cpu":
         return slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
                              vs, blocked, ptr)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_slab_core: unsupported device {dev}")
-    if Dh not in (16, 32, 64, 128) or D % 4 or Dff % 4:
-        raise ValueError("the slab_w8 kernel needs d_head in {16, 32, 64, 128} "
-                         "and widths that are multiples of 4")
-    out = _launch_slab_w8(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
-                          vs, blocked, ptr)
+    out = _launch_slab("slab_w8", stacked, w_scales, *args[1:])
     fused_slab_core.launches += 1
     return out
 
 
 fused_slab_core.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def fused_slab_allrows_core(
+    stacked: StackedTXL,
+    cfg,
+    h_in: torch.Tensor,       # (B, D) fp32
+    wkr_mt: torch.Tensor,     # (L, M+1, HD) bf16
+    kt: torch.Tensor,         # (L, B, M, HD) int8 (slot-major)
+    ks: torch.Tensor,         # (L, B, M, 1) fp32
+    vc: torch.Tensor,         # (L, B, M, HD) int8
+    vs: torch.Tensor,         # (L, B, M, 1) fp32
+    blocked: torch.Tensor,    # (B, M) int32
+    ptr: int,                 # ring slot to overwrite, 0 <= ptr < M
+    mem_len: int,
+    rows_per_cell: int = 8,
+    weights_int8: bool = False,
+    w_scales: torch.Tensor = None,   # (L, 8, SMAX) f32
+):
+    """All-rows slab decode core. Returns (h_out, kt, ks, vc, vs), the caches
+    updated in place in slot ``ptr``.
+
+    The same contract and cache layout as :func:`fused_slab_core`; on the
+    card each layer's weights are read once for all B rows. Only
+    ``weights_int8=True`` (``slab_ar_w8``) is ported. ``rows_per_cell`` is
+    the TPU kernel's KV streaming group (``min(rows_per_cell, B)`` rows); it
+    is checked to divide the batch, as there, and does not change the
+    result."""
+    if not weights_int8:
+        raise NotImplementedError(
+            "only slab_ar_w8 (weights_int8=True) is ported; the bf16-weight "
+            "slab_ar mode is still to port (ROADMAP.md)")
+    ptr = int(ptr)
+    args = (stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked, ptr)
+    dev = _check_step_inputs(*args, mem_len, min(rows_per_cell, h_in.shape[0]),
+                             w_scales)
+    if dev.type == "cpu":
+        return slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
+                             vs, blocked, ptr)
+    out = _launch_slab("slab_ar_w8", stacked, w_scales, *args[1:])
+    fused_slab_allrows_core.launches += 1
+    return out
+
+
+fused_slab_allrows_core.launches = 0  # kernel launches (CUDA tensors only)

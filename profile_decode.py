@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the single-stream decode step's time goes on the card.
+"""Where the decode's time goes on the card, single stream and batched.
 
-    python3 profile_decode.py [--steps 20]
+    python3 profile_decode.py [--steps 20] [--batches 16 64]
 
-Loads the 41M flagship checkpoint with the port, runs ``--steps`` slab_w8
-decode steps (``fused_slab_core`` at B = 1, mem_len 512, full ring) and then
-one ``predict_nw_genre`` call of ``--steps`` tokens, each under
-``torch.profiler``, and prints for each: the CUDA kernels by total device
-time, the device-busy share of the window, and the card's name and power
-limit. Imports only the port; needs one CUDA card.
+Loads the 41M flagship checkpoint with the port and, each under
+``torch.profiler``: runs ``--steps`` slab_w8 decode steps (``fused_slab_core``
+at B = 1, mem_len 512, full ring) and one ``predict_nw_genre`` call of
+``--steps`` tokens; then, for each B of ``--batches``, ``--steps``
+slab_ar_w8 steps (``fused_slab_allrows_core``) and one ``generate_batch``
+of B prompts (W = 512, flash prefill) of ``--steps`` tokens. Prints for each
+the CUDA kernels by total device time, the device-busy share of the window,
+and the card's name and power limit. Imports only the port; needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
-from deepmusicgeneration_tpu_torch.models import txl
 from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
 from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
 from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
@@ -44,6 +46,7 @@ def report(title: str, prof, wall_s: float, top: int = 12) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batches", type=int, nargs="*", default=[16, 64])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -56,35 +59,49 @@ def main(argv=None) -> int:
     engine = learner.engine
     cfg, M = engine.cfg, engine.cfg.mem_len
     stacked, w_scales = engine.stacked_q()
-    wkr_mt = txl.precompute_wkr(engine.params, cfg, M).permute(0, 2, 1, 3) \
-        .reshape(cfg.n_layers, M + 1, -1).to(torch.bfloat16).contiguous()
-    kv, blocked = chip_smoke.ring_inputs(cfg, 1, M, 100, True,
-                                         np.random.default_rng(0), dev)
-    h_in = engine.params["embed"].float()[torch.tensor([60], device=dev)]
+    wkr_mt = chip_smoke.wkr_table(engine)
+    rng = np.random.default_rng(0)
 
-    def step():
-        fd.fused_slab_core(stacked, cfg, h_in, wkr_mt, *kv, blocked, 100, M,
-                           rows_per_cell=1, weights_int8=True, w_scales=w_scales)
+    def profile_steps(core, name, B):
+        kv, blocked = chip_smoke.ring_inputs(cfg, B, M, 100, True, rng, dev)
+        h_in = engine.params["embed"].float()[
+            torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
 
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
+        def step():
+            core(stacked, cfg, h_in, wkr_mt, *kv, blocked, 100, M,
+                 rows_per_cell=min(B, 8), weights_int8=True, w_scales=w_scales)
+
+        for _ in range(5):
             step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report(f"slab_w8 step x{args.steps}", prof, wall)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(f"{name} step B={B} x{args.steps}", prof, wall)
 
+    def profile_call(title, fn):
+        fn(8)   # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(args.steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(title, prof, wall)
+
+    profile_steps(fd.fused_slab_core, "slab_w8", 1)
     midi = chip_smoke.prompt_midi(0, learner.vocab)
-    predict_nw_genre(learner, midi, genre="jazz", max_len=8)   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        predict_nw_genre(learner, midi, genre="jazz", max_len=args.steps)
-        wall = time.perf_counter() - t0
-    report(f"predict_nw_genre {args.steps} steps", prof, wall)
+    profile_call(f"predict_nw_genre {args.steps} steps",
+                 lambda n: predict_nw_genre(learner, midi, genre="jazz", max_len=n))
+    for B in args.batches:
+        profile_steps(fd.fused_slab_allrows_core, "slab_ar_w8", B)
+        prompts = [it.data for it in chip_smoke.batch_prompts(learner.vocab, 0, B)]
+        profile_call(f"generate_batch B={B} {args.steps} steps",
+                     lambda n: engine.generate_batch(prompts, n_words=n,
+                                                     **chip_smoke.GEN_KW))
     return 0
 
 

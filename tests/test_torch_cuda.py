@@ -6,11 +6,13 @@ so they also run without this directory's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 Each test decides inside itself whether a card is present and skips
-without one. The kernel is held against its plain PyTorch version on the
-same card; ``chip_smoke.py`` repeats that at the flagship's widths.
+without one. Each kernel is held against its plain PyTorch version on the
+same card at the demo checkpoint's shapes; ``chip_smoke.py`` repeats that at
+the flagship's widths.
 """
 
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -19,8 +21,10 @@ import torch
 from deepmusicgeneration_tpu_torch.codec.grammar import grammar_violations
 from deepmusicgeneration_tpu_torch.codec.item import MusicItem
 from deepmusicgeneration_tpu_torch.models import txl
+from deepmusicgeneration_tpu_torch.ops import flash_prefill as fp
 from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
 from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
+from deepmusicgeneration_tpu_torch.tasks.serve import GenerationService
 from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,14 +42,8 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,ptr", [(1, 5), (1, 32), (3, 31), (3, 255)])
-def test_kernel_matches_plain(B, ptr):
-    dev = _card()
-    learner = MusicLearner.load(DEMO)
-    engine = learner.engine
+def _step_inputs(engine, B, ptr, dev):
     cfg, M = engine.cfg, engine.cfg.mem_len
-    stacked, w_scales = engine.stacked_q()
     L, HD = cfg.n_layers, cfg.n_heads * cfg.d_head
     wkr_mt = txl.precompute_wkr(engine.params, cfg, M).permute(0, 2, 1, 3) \
         .reshape(L, M + 1, HD).to(torch.bfloat16).contiguous()
@@ -59,15 +57,29 @@ def test_kernel_matches_plain(B, ptr):
     g[0, ptr + 1:ptr + 20] = txl.PAD_G
     blocked = torch.from_numpy(((ptr - g < 1) | (ptr - g > M)).astype(np.int32)).to(dev)
     h_in = engine.params["embed"].float()[torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
+    return h_in, wkr_mt, kv, blocked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,ptr", [
+    ("slab_w8", 1, 5), ("slab_w8", 1, 32), ("slab_w8", 3, 31), ("slab_w8", 3, 255),
+    ("slab_ar_w8", 8, 5), ("slab_ar_w8", 16, 255), ("slab_ar_w8", 24, 31)])
+def test_kernel_matches_plain(name, B, ptr):
+    dev = _card()
+    core = fd.fused_slab_allrows_core if name == "slab_ar_w8" else fd.fused_slab_core
+    learner = MusicLearner.load(DEMO)
+    engine = learner.engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    stacked, w_scales = engine.stacked_q()
+    h_in, wkr_mt, kv, blocked = _step_inputs(engine, B, ptr, dev)
 
     ref = fd.slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt,
                            *[t.clone() for t in kv], blocked, ptr)
-    n0 = fd.fused_slab_core.launches
-    got = fd.fused_slab_core(stacked, cfg, h_in, wkr_mt, *[t.clone() for t in kv],
-                             blocked, ptr, M, rows_per_cell=1, weights_int8=True,
-                             w_scales=w_scales)
+    n0 = core.launches
+    got = core(stacked, cfg, h_in, wkr_mt, *[t.clone() for t in kv], blocked, ptr,
+               M, rows_per_cell=1, weights_int8=True, w_scales=w_scales)
     torch.cuda.synchronize()
-    assert fd.fused_slab_core.launches == n0 + 1
+    assert core.launches == n0 + 1
     assert (got[0] - ref[0]).abs().max().item() <= H_ATOL
     other = torch.arange(M, device=dev) != ptr
     for g_t, before in zip(got[1:], kv):   # only slot ptr was written
@@ -75,6 +87,124 @@ def test_kernel_matches_plain(B, ptr):
     for i in (1, 3):   # written int8 rows: at most one quantization step apart
         d = (got[i][:, :, ptr].int() - ref[i][:, :, ptr].int()).abs()
         assert d.max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W,pads", [(8, 256, (0, 17, 200)), (2, 4096, (0, 999)),
+                                      (1, 128, (0,))])
+def test_flash_kernel_matches_plain(B, W, pads):
+    """The demo checkpoint's head layout (8 x 32) through the flash prefill
+    kernel, on chip_smoke.py's peaked inputs: every entry of a real query row
+    within FLASH_RTOL |ref| + FLASH_ATOL of the float32 plain version (the
+    bound chip_smoke.py derives), every row finite."""
+    dev = _card()
+    from chip_smoke import flash_check, flash_inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = flash_inputs(B, W, pads, 8, 32, dev, B + W)
+    n0 = fp.flash_prefill_attention.launches
+    _, ratio, finite = flash_check(args, 8)
+    assert fp.flash_prefill_attention.launches == n0 + 1
+    assert finite and ratio <= 1.0
+
+
+@pytest.mark.cuda
+def test_prefill_flash_matches_materialized():
+    """txl.prefill through the flash kernel against its materialized branch
+    on the demo checkpoint, 10 left-padded prompts (chip_smoke.py's bounds)."""
+    dev = _card()
+    import chip_smoke
+    learner = MusicLearner.load(DEMO)
+    items = [MusicItem.from_file(chip_smoke.prompt_midi(s, learner.vocab),
+                                 learner.vocab).set_genre("pop").remove_eos()
+             for s in range(10)]
+    n0 = fp.flash_prefill_attention.launches
+    chip_smoke.prefill_phase(learner, items, dev)   # raises on a disagreement
+    assert fp.flash_prefill_attention.launches == n0 + learner.cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_route_against_exact_attention():
+    """txl.prefill on the flagship and the smoke's 16 service prompts by
+    three routes: the flash kernel, the materialized branch, and the flash
+    branch with its attention computed exactly (the plain version in
+    float64 on the same inputs, rounded to bf16 as the kernel rounds its
+    output). The kernel route differs from the exact one only where a bf16
+    rounding of its float32 output lands elsewhere, so each layer's cache is
+    within chip_smoke.py's l * 2^-8 of it; prints each route's per-layer
+    difference from the exact one."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    learner = MusicLearner.load(str(cs.CKPT))
+    engine = learner.engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    items = cs.batch_prompts(learner.vocab, 0, 16)
+    x, pad = cs.window(items, learner.vocab.pad_idx, 512, dev)
+
+    def exact(q, k, v, wkr, u_bias, v_bias, pad_mask, n_heads, scale=True,
+              block_rows=0):
+        return fp.flash_prefill_attention_plain(
+            *[t.double() for t in (q, k, v, wkr, u_bias, v_bias)], pad_mask, n_heads,
+            scale).to(q.dtype)
+
+    with mock.patch.object(txl, "flash_prefill_attention", exact):
+        ref = txl.prefill(engine.params, cfg, x, pad, flash=True)
+    routes = {"kernel": txl.prefill(engine.params, cfg, x, pad, flash=True),
+              "materialized": txl.prefill(engine.params, cfg, x, pad, flash=False)}
+    torch.cuda.synchronize()
+    rel = {}
+    for name, (logits, cache) in routes.items():
+        rel[name], worst = cs.cache_diff_by_layer(cache, ref[1], ~pad[:, -M:])
+        dl = (logits.float() - ref[0].float()).abs().max().item()
+        print(f"prefill {name} vs exact attention: max|d logits| {dl:.3e}; cache "
+              f"|d| / |ref| by layer {' '.join(f'{r:.2e}' for r in rel[name])}, "
+              f"max|d| {worst:.3e}", flush=True)
+    assert all(r <= l * cs.PREFILL_LAYER_RTOL for l, r in enumerate(rel["kernel"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_slab_kernels_against_float64(seed):
+    """chip_smoke.py's kernel-phase cases at flagship widths (seed 0 is the
+    smoke's own draw), each slab kernel and the float32 plain version held
+    against a float64 run of the plain version (``slab_w8_plain(acc=
+    float64)``, the same bf16 cast points). A float32 sum that lands on the
+    other side of a bf16 cast point moves h, and 8 layers carry that on, so
+    each float32 result may be a quantization step from float64 in its own
+    direction: against float64, h_out within H_ATOL, written int8 entries
+    within two steps, scales within 1e-2, every other slot byte-identical.
+    Prints each case with the smoke's own measure (the kernel against the
+    float32 plain version, whose one-step bound depends on the draw)."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(str(cs.CKPT)).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    stacked, w_scales = engine.stacked_q()
+    wkr_mt = cs.wkr_table(engine)
+    rng = np.random.default_rng(seed)
+    for core, name, batches in ((fd.fused_slab_core, "slab_w8", (1, 4)),
+                                (fd.fused_slab_allrows_core, "slab_ar_w8", (8, 64))):
+        for B, ptr, full, kv, blocked, h_in in cs.kernel_cases(engine, rng, dev, batches):
+            plain = lambda acc: fd.slab_w8_plain(
+                stacked, w_scales, cfg, h_in, wkr_mt, *[t.clone() for t in kv],
+                blocked, ptr, acc=acc)
+            ref, f32 = plain(torch.float64), plain(torch.float32)
+            got = core(stacked, cfg, h_in, wkr_mt, *[t.clone() for t in kv], blocked,
+                       ptr, M, rows_per_cell=min(B, 8), weights_int8=True,
+                       w_scales=w_scales)
+            torch.cuda.synchronize()
+            cells, ok = [], True
+            for what, a, b in ((f"{name} vs f64", got, ref), ("plain_f32 vs f64", f32, ref),
+                               (f"{name} vs plain_f32", got, f32)):
+                dh, step, share, scale_rel, untouched = cs.step_diff(a, b, kv, ptr)
+                cells.append(f"{what}: dh {dh:.2e} step {step} share {share:.4f}")
+                if what == f"{name} vs f64":
+                    ok = (dh <= H_ATOL and step <= 2 and scale_rel <= 1e-2
+                          and untouched)
+            print(f"seed {seed} {name} B={B} ptr={ptr} ring={'full' if full else 'part'}"
+                  f": " + " | ".join(cells), flush=True)
+            assert ok, cells
 
 
 @pytest.mark.cuda
@@ -95,3 +225,34 @@ def test_main_path_goes_through_the_kernel():
     back = MusicItem.from_file(full.to_midi_bytes(), vocab)
     assert len(pred) > 0 and back.data[0] == vocab.bos_idx
     assert grammar_violations(pred, vocab, prev_idx=int(seed_item.data[-1])) == 0
+
+
+@pytest.mark.cuda
+def test_batched_path_goes_through_both_kernels():
+    """Ten requests through the service: one batch of 16 rows, the flash
+    prefill once per layer, slab_ar_w8 once per step, slab_w8 never."""
+    _card()
+    from chip_smoke import prompt_midi
+    learner = MusicLearner.load(DEMO)
+    vocab = learner.vocab
+    items = [MusicItem.from_file(prompt_midi(s, vocab), vocab).set_genre("pop")
+             .remove_eos() for s in range(10)]
+    service = GenerationService(learner, max_batch=16, max_wait_s=1.0)
+    counts0 = (fd.fused_slab_core.launches, fd.fused_slab_allrows_core.launches,
+               fp.flash_prefill_attention.launches)
+    try:
+        futs = [service.submit(it.data, n_words=24, seed=2) for it in items]
+        preds = [f.result(timeout=300) for f in futs]
+    finally:
+        service.close()
+    counts = (fd.fused_slab_core.launches, fd.fused_slab_allrows_core.launches,
+              fp.flash_prefill_attention.launches)
+    assert service.batch_sizes == [(10, 16)]
+    assert [c - c0 for c, c0 in zip(counts, counts0)] == \
+        [0, 24, learner.cfg.n_layers]
+    for it, pred in zip(items, preds):
+        assert len(pred) > 0
+        assert grammar_violations(pred, vocab, prev_idx=int(it.data[-1])) == 0
+        back = MusicItem.from_file(it.append(MusicItem(pred, vocab)).to_midi_bytes(),
+                                   vocab)
+        assert back.data[0] == vocab.bos_idx

@@ -120,7 +120,7 @@ def test_resolve_kernel_policy(vocab):
     assert engine.resolve_kernel(1) == "xla"            # off the card
     engine.device = torch.device("cuda")                # the rule on a card
     assert [engine.resolve_kernel(b) for b in (1, 4, 7, 8, 16)] == \
-        ["slab_w8"] * 3 + ["xla"] * 2
+        ["slab_w8"] * 3 + ["slab_ar_w8"] * 2
     assert engine.resolve_kernel(1, mem_len=100) == "xla"  # not 32-aligned
     assert engine.resolve_kernel(1, decode_kernel="xla") == "xla"
 

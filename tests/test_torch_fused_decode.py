@@ -111,6 +111,31 @@ def test_plain_slab_w8_matches_pallas_interpret(model, R, ptr):
                                    rtol=SCALE_RTOL, atol=0)
 
 
+def test_plain_float64_accumulate(model):
+    """``slab_w8_plain(acc=float64)`` keeps the bf16 cast points and runs the
+    rest in float64: h_out comes back in float64 within H_ATOL of the float32
+    run, only slot ptr is written, its int8 entries at most one step from
+    the float32 run's and its scales stay float32."""
+    jcfg, cfg, _, (tst, tws), wkr_mt = model
+    M, ptr = jcfg.mem_len, 31
+    kv, h_in, blocked = _inputs(jcfg, 2, ptr, seed=7)
+    wkr_t = torch.from_numpy(np.array(wkr_mt.astype(jnp.float32))).bfloat16()
+    run = lambda acc: tfd.slab_w8_plain(
+        tst, tws, cfg, torch.from_numpy(h_in), wkr_t,
+        *[torch.from_numpy(t.copy()) for t in kv], torch.from_numpy(blocked), ptr,
+        acc=acc)
+    f32, f64 = run(torch.float32), run(torch.float64)
+    assert f64[0].dtype == torch.float64 and f64[2].dtype == torch.float32
+    np.testing.assert_allclose(f64[0].numpy(), f32[0].numpy().astype(np.float64),
+                               atol=H_ATOL, rtol=0)
+    other = np.arange(M) != ptr
+    for g, before in zip(f64[1:], kv):
+        np.testing.assert_array_equal(g.numpy()[:, :, other], before[:, :, other])
+    for i in (1, 3):
+        d = (f64[i][:, :, ptr].int() - f32[i][:, :, ptr].int()).abs()
+        assert d.max().item() <= 1
+
+
 def test_unported_modes_raise(model):
     jcfg, cfg, _, (tst, tws), _ = model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
