@@ -9,17 +9,23 @@ non-zero without printing a result):
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build  — nvcc builds every kernel source of the slice, in parallel.
 3. load   — the 41M flagship checkpoint through the port's msgpack reader.
-4. kernel — ``fused_slab_core`` (slab_w8) on the card against its plain
-   PyTorch version on the same inputs, at flagship widths, B in {1, 4},
-   ptr in {0, 31, 32, M - 1 = 511}, a partly full and a full ring; then
-   ``fused_slab_allrows_core`` (slab_ar_w8) the same way at B in {8, 64};
-   then ``flash_prefill_attention`` on three left-padded windows
-   (B = 16, W = 512; B = 2, W = 4096; B = 1, W = 128) against the float32
-   plain version; then ``txl.prefill`` through the flash kernel against its
-   materialized branch on the 16 service prompts (logits and cache).
+4. kernel — each slab step on the card against a float64 run of its plain
+   PyTorch version (``slab_plain(acc=float64)``) on the same inputs, at
+   flagship widths, ptr in {0, 31, 32, M - 1 = 511}, a partly full and a
+   full ring: ``fused_slab_core`` in its modes slab_w8 (B in {1, 4}) and
+   slab (bf16 weights, B in {1, 16}), ``fused_slab_allrows_core`` in its
+   modes slab_ar_w8 and slab_ar (B in {8, 64}, then 16), so every B a main
+   path gives a kernel is among them; then
+   ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
+   W = 512, the batched paths' shapes; B = 2, W = 4096; B = 1, W = 128;
+   B = 8, W = 96, a tail tile) against the
+   float32 plain version; then ``txl.prefill`` through the flash kernel
+   against its materialized branch on the 16 service prompts (logits and
+   cache).
 5. timing — CUDA-event medians of each kernel and of its plain version at
    the main paths' shapes, beside the bound from the bytes it must move and
-   the operations it must do; both slab steps at B in {1, 4, 8, 16, 64}.
+   the operations it must do; slab_w8 and slab_ar_w8 at B in
+   {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}.
 6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel on a seeded
    prompt MIDI built with the port's codec; the slab_w8 launch count must
    equal the number of token steps; the output MIDI is re-parsed and checked.
@@ -28,8 +34,20 @@ non-zero without printing a result):
    per layer) and decoded through slab_ar_w8 (one launch per step); then
    one ``generate_batch`` of 64 prompts. Every result is re-parsed and
    checked.
+8. continuous — 32 requests in four waves through
+   ``ContinuousGenerationService`` (16 slots, chunks of 32 steps, the auto
+   kernel, which must be slab), with mixed budgets and sampling settings;
+   one greedy and one sampled request that joined mid-flight are decoded
+   again alone and must equal their in-batch tokens; then a short run with
+   the explicit slab_ar kernel. Each engine is warmed up before its
+   service's worker thread starts. Every output must pass the codec's data
+   gate (piano range, duration cap), except that of a request sampled from
+   the whole distribution (top_k 0 and top_p 0), which is counted.
+9. http   — the HTTP server (``--continuous``) on 127.0.0.1 in a thread:
+   /health, /tokenize, four concurrent /generate, and /remix answering 501.
 
-Then one JSON line with every kernel, and the last line
+A ``time:`` line after each phase says how long it took. Then one JSON line
+with every kernel, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,21 +55,29 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from deepmusicgeneration_tpu_torch.app.server import MusicServer, make_handler
 from deepmusicgeneration_tpu_torch.codec.encode import chordarr2npenc, notes2chordarr
 from deepmusicgeneration_tpu_torch.codec.grammar import grammar_violations
 from deepmusicgeneration_tpu_torch.codec.item import MusicItem
 from deepmusicgeneration_tpu_torch.codec.validate import is_valid_npenc, roundtrip_ok
-from deepmusicgeneration_tpu_torch.decode.engine import _bucket
+from deepmusicgeneration_tpu_torch.decode.continuous import (ContinuousEngine,
+                                                            ContinuousGenerationService)
+from deepmusicgeneration_tpu_torch.decode.engine import INT8_WEIGHT_KERNELS, _bucket
 from deepmusicgeneration_tpu_torch.models import txl
 from deepmusicgeneration_tpu_torch.ops import _build
 from deepmusicgeneration_tpu_torch.ops import flash_prefill as fp
@@ -66,16 +92,25 @@ KERNEL_SOURCES = ("slab_decode", "flash_prefill")   # every csrc/*.cu the slice 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 
-# Tolerances of the kernel against its plain version (same arithmetic, other
-# summation order): float32 sums differ in the last bits, which can flip a
-# value across a bf16 rounding point (2^-8 relative) at the kernel's cast
-# points, and that difference propagates through 8 layers. h_out is
-# post-LayerNorm (entries of order 1). A fresh K/V entry is round(x / scale):
-# a float difference smaller than one quantization step moves it by at most
-# one step; how many entries move follows the drift of h between the two
-# versions, so that share is printed, not bounded.
+# Tolerances of a slab step against a float64 run of its plain version (the
+# same bf16 cast points, everything between them in float64): the kernel's
+# float32 sums differ from exact ones in the last bits, which can flip a
+# value across a bf16 rounding point (2^-8 relative) at a cast point, and
+# that difference propagates through 8 layers. h_out is post-LayerNorm
+# (entries of order 1). A fresh K/V entry is round(x / scale): a float
+# difference smaller than one quantization step moves it by at most one
+# step, and a bf16 flip carried through the layers by two. The share of
+# entries that differ at all follows the drift of h and is printed, not
+# bounded. slab_w8 stayed within one step of float64 in all 128 cases of
+# tests/test_torch_cuda.py::test_slab_kernels_against_float64 (seeds 0-3);
+# the other modes may reach two steps (slab_ar_w8 and the float32 plain
+# version did, PERF.md), in a share of the written entries capped at
+# TWO_STEP_SHARE_CAP: the largest share that test measured over seeds 0-3
+# for any mode, 5.3e-5 (slab_ar_w8, seed 1, B = 64, ptr 511, part ring, on
+# an NVIDIA H100 80GB HBM3 at 700 W), doubled and rounded up (CHANGES.md).
 H_ATOL = 5e-2
-SLOT_MAX_STEP = 1          # a written int8 entry may differ by one step
+SLOT_MAX_STEP = {"slab_w8": 1, "slab_ar_w8": 2, "slab": 2, "slab_ar": 2}
+TWO_STEP_SHARE_CAP = 1.1e-4
 SCALE_RTOL = 1e-2          # fresh-slot scales: max|x| / 127 of the drifted x
 # Flash prefill against its plain version (the materialized rel_attention)
 # run in float32 on the same bf16 values. flash_inputs makes q and the u, v
@@ -109,6 +144,14 @@ def say(line: str) -> None:
     print(line, flush=True)
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, with a line that says how long the phase took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"time: {name} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def device_phase() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -132,15 +175,23 @@ def build_phase() -> None:
     say(f"build: {len(paths)} kernel source(s) in {secs:.2f} s")
 
 
-def ring_inputs(cfg, B, M, ptr, full, rng, dev):
+def ring_inputs(cfg, B, M, ptr, full, rng, dev, on_device=False):
     """Random int8 slot-major caches and the blocked mask of a ring whose
     pointer is ``ptr``: full (every slot valid) or partly full (a prompt of
-    M // 3 tokens plus ptr decoded ones)."""
+    M // 3 tokens plus ptr decoded ones). K and V are drawn by ``rng`` on
+    the host (the kernel phase's draws, on which its bounds were measured),
+    or with ``on_device`` on the card from a generator that ``rng`` seeds
+    (fast; for timing)."""
     L, HD = cfg.n_layers, cfg.n_heads * cfg.d_head
-    k = torch.from_numpy(rng.normal(scale=0.5, size=(L, B, M, HD)).astype(np.float32))
-    v = torch.from_numpy(rng.normal(scale=0.5, size=(L, B, M, HD)).astype(np.float32))
-    kq, ks, vq, vs = fd.quantize_kv_slot_major(k.to(dev, torch.bfloat16),
-                                               v.to(dev, torch.bfloat16))
+    if on_device:
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 63)))
+        k, v = (torch.randn((L, B, M, HD), generator=g, device=dev).mul_(0.5)
+                for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.normal(scale=0.5, size=(L, B, M, HD))
+                                 .astype(np.float32)).to(dev) for _ in range(2))
+    kq, ks, vq, vs = fd.quantize_kv_slot_major(k.to(torch.bfloat16),
+                                               v.to(torch.bfloat16))
     slot = np.arange(M)
     if full:
         g = np.where(slot < ptr, slot, slot - M)          # g_cur = ptr
@@ -176,45 +227,81 @@ def kernel_cases(engine, rng, dev, batches):
 def step_diff(got, ref, kv, ptr):
     """One slab step's result ``got`` against ``ref`` (both (h_out, kt, ks,
     vc, vs), from the caches ``kv``): max |dh_out|, the largest step between
-    written int8 entries and the share of entries that differ, the largest
-    relative difference of the written scales, and whether every other slot
-    of ``got`` is byte-identical to ``kv``."""
+    written int8 entries, the share of those entries that differ and the
+    share that differ by two steps or more, the largest relative difference
+    of the written scales, and whether every other slot of ``got`` is
+    byte-identical to ``kv``."""
     M = kv[0].shape[2]
     other = torch.arange(M, device=kv[0].device) != ptr
     untouched = all(torch.equal(g[:, :, other], t[:, :, other])
                     for g, t in zip(got[1:], kv))
     dh = (got[0].double() - ref[0].double()).abs().max().item()
-    step, share, scale_rel = 0, 0.0, 0.0
+    step, share, share2, scale_rel = 0, 0.0, 0.0, 0.0
     for i in (1, 3):   # int8 K and V slots, then their scales
         d = (got[i][:, :, ptr].int() - ref[i][:, :, ptr].int()).abs()
         step = max(step, d.max().item())
         share = max(share, (d > 0).float().mean().item())
+        share2 = max(share2, (d > 1).float().mean().item())
         s_got, s_ref = got[i + 1][:, :, ptr], ref[i + 1][:, :, ptr]
         scale_rel = max(scale_rel, ((s_got - s_ref).abs() / s_ref).max().item())
-    return dh, step, share, scale_rel, untouched
+    return dh, step, share, share2, scale_rel, untouched
 
 
-def kernel_phase(engine, wkr_mt, rng, dev, core, name, batches):
-    """``core`` on the card against ``slab_w8_plain`` in every case of
-    ``kernel_cases``; returns the largest |dh_out|."""
-    cfg, M = engine.cfg, engine.cfg.mem_len
-    stacked, w_scales = engine.stacked_q()
+def weights(engine, mode):
+    """(StackedTXL, w_scales or None) of a slab mode: int8 panels for the
+    _w8 modes, bf16 for slab and slab_ar."""
+    return engine.stacked_q() if mode in INT8_WEIGHT_KERNELS else engine.stacked()
+
+
+# the kernel phase's modes and batch sizes, in the order they draw from the
+# rng; the all-rows modes' B = 16 (their shape on the service and continuous
+# paths) comes last, so the cases before it keep the draws on which
+# TWO_STEP_SHARE_CAP was measured
+KERNEL_CASE_BATCHES = (("slab_w8", (1, 4)), ("slab_ar_w8", (8, 64)), ("slab", (1, 16)),
+                       ("slab_ar", (8, 64)), ("slab_ar_w8", (16,)), ("slab_ar", (16,)))
+CORES = {"slab_w8": fd.fused_slab_core, "slab": fd.fused_slab_core,
+         "slab_ar_w8": fd.fused_slab_allrows_core, "slab_ar": fd.fused_slab_allrows_core}
+
+
+def run_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr):
+    """One launch of ``mode``'s kernel on copies of the caches ``kv``."""
+    stacked, w_scales = weights(engine, mode)
+    return CORES[mode](stacked, engine.cfg, h_in, wkr_mt, *[t.clone() for t in kv],
+                       blocked, ptr, engine.cfg.mem_len, rows_per_cell=min(len(h_in), 8),
+                       weights_int8=w_scales is not None, w_scales=w_scales)
+
+
+def plain_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr, acc=torch.float64):
+    """``mode``'s plain version on copies of the caches ``kv``."""
+    stacked, w_scales = weights(engine, mode)
+    return fd.slab_plain(stacked, w_scales, engine.cfg, h_in, wkr_mt,
+                         *[t.clone() for t in kv], blocked, ptr, acc=acc)
+
+
+def within_bounds(mode, diff) -> bool:
+    """The kernel phase's check of one step_diff against float64."""
+    dh, step, _, share2, scale_rel, untouched = diff
+    return (dh <= H_ATOL and step <= SLOT_MAX_STEP[mode] and share2 <= TWO_STEP_SHARE_CAP
+            and scale_rel <= SCALE_RTOL and untouched)
+
+
+def kernel_phase(engine, wkr_mt, rng, dev, mode, batches):
+    """``mode``'s kernel on the card against a float64 run of its plain
+    version in every case of ``kernel_cases``; returns the largest
+    |dh_out|."""
     worst = 0.0
     for B, ptr, full, kv, blocked, h_in in kernel_cases(engine, rng, dev, batches):
-        ref = fd.slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt,
-                               *[t.clone() for t in kv], blocked, ptr)
-        got = core(stacked, cfg, h_in, wkr_mt, *[t.clone() for t in kv],
-                   blocked, ptr, M, rows_per_cell=min(B, 8),
-                   weights_int8=True, w_scales=w_scales)
+        ref = plain_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr)
+        got = run_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr)
         torch.cuda.synchronize()
-        dh, step, share, scale_rel, untouched = step_diff(got, ref, kv, ptr)
-        say(f"kernel: {name} B={B} ptr={ptr:3d} ring={'full' if full else 'part'} "
-            f"max|dh_out|={dh:.3e} slot_int8_max_step={step} "
-            f"slot_int8_differ={share:.4f} scale_rel={scale_rel:.2e} "
-            f"other_slots_identical={untouched}")
-        if not (dh <= H_ATOL and step <= SLOT_MAX_STEP and scale_rel <= SCALE_RTOL
-                and untouched):
-            raise AssertionError(f"{name} kernel disagrees with its plain version")
+        diff = step_diff(got, ref, kv, ptr)
+        dh, step, share, share2, scale_rel, untouched = diff
+        say(f"kernel: {mode} vs float64 B={B} ptr={ptr:3d} ring="
+            f"{'full' if full else 'part'} max|dh_out|={dh:.3e} slot_int8_max_step={step} "
+            f"slot_int8_differ={share:.5f} two_steps={share2:.6f} "
+            f"scale_rel={scale_rel:.2e} other_slots_identical={untouched}")
+        if not within_bounds(mode, diff):
+            raise AssertionError(f"{mode} kernel disagrees with its plain version")
         worst = max(worst, dh)
     return worst
 
@@ -257,7 +344,8 @@ def flash_phase(cfg, dev, seed):
     """The flash prefill kernel against its plain version; returns the
     largest error on a real query row and the largest error over its bound."""
     worst, worst_ratio = 0.0, 0.0
-    for B, W, pads in ((16, 512, (0, 17, 300)), (2, 4096, (0, 1000)), (1, 128, (0,))):
+    for B, W, pads in ((16, 512, (0, 17, 300)), (64, 512, (0, 17, 300)),
+                       (2, 4096, (0, 1000)), (1, 128, (0,)), (8, 96, (0, 17, 50))):
         args = flash_inputs(B, W, pads, cfg.n_heads, cfg.d_head, dev, seed + B)
         err, ratio, finite = flash_check(args, cfg.n_heads)
         say(f"kernel: flash_prefill B={B} W={W} pads={pads} real rows: max|d| "
@@ -275,8 +363,9 @@ def window(items, pad_idx, W, dev):
     toks = np.full((len(items), W), pad_idx, dtype=np.int64)
     pad = np.ones((len(items), W), dtype=bool)
     for i, it in enumerate(items):
-        toks[i, W - len(it.data):] = it.data
-        pad[i, W - len(it.data):] = False
+        data = it.data[-W:]
+        toks[i, W - len(data):] = data
+        pad[i, W - len(data):] = False
     return torch.from_numpy(toks).to(dev), torch.from_numpy(pad).to(dev)
 
 
@@ -292,12 +381,13 @@ def cache_diff_by_layer(cache, ref_cache, valid):
     return rel, worst
 
 
-def prefill_phase(learner, items, dev):
+def prefill_phase(learner, items, dev, W=None):
     """``txl.prefill`` with the flash kernel against its materialized branch
-    on the service's prompts at the flagship's full depth."""
+    on the service's prompts at the flagship's full depth (window ``W``,
+    default the engine's bucket)."""
     engine = learner.engine
     cfg, M = engine.cfg, engine.cfg.mem_len
-    W = _bucket(max(len(it.data) for it in items))
+    W = W or _bucket(max(len(it.data) for it in items))
     x, pad = window(items, learner.vocab.pad_idx, W, dev)
     ref_logits, ref_cache = txl.prefill(engine.params, cfg, x, pad, flash=False)
     logits, cache = txl.prefill(engine.params, cfg, x, pad, flash=True)
@@ -326,7 +416,7 @@ def step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B):
     its multiply-adds counted as 2 operations."""
     L, D, Dff, H, Dh = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
     M, HD = blocked.shape[1], H * Dh
-    nbytes = lambda t: t.numel() * t.element_size()
+    nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
     read = (sum(nbytes(t) for t in stacked) + nbytes(w_scales) + nbytes(wkr_mt)
             + sum(nbytes(t) for t in kv) + nbytes(blocked) + B * D * 4)
     written = B * D * 4 + L * B * 2 * (HD + 4)
@@ -359,17 +449,17 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def slab_timing(engine, wkr_mt, rng, dev, core, name, B, flush):
+def slab_timing(engine, wkr_mt, rng, dev, name, B, flush):
     cfg, M = engine.cfg, engine.cfg.mem_len
-    stacked, w_scales = engine.stacked_q()
-    kv, blocked = ring_inputs(cfg, B, M, 100, True, rng, dev)
+    stacked, w_scales = weights(engine, name)
+    kv, blocked = ring_inputs(cfg, B, M, 100, True, rng, dev, on_device=True)
     h_in = engine.params["embed"].float()[
         torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
     args = (stacked, cfg, h_in, wkr_mt, *kv, blocked, 100, M)
-    kernel = lambda: core(*args, rows_per_cell=min(B, 8), weights_int8=True,
-                          w_scales=w_scales)
-    plain = lambda: fd.slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, *kv,
-                                     blocked, 100)
+    kernel = lambda: CORES[name](*args, rows_per_cell=min(B, 8),
+                                 weights_int8=w_scales is not None, w_scales=w_scales)
+    plain = lambda: fd.slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, *kv,
+                                  blocked, 100)
     ms = time_ms(kernel, 100)
     ms_cold = time_ms(kernel, 50, flush)
     plain_ms = time_ms(plain, 20)
@@ -407,25 +497,26 @@ def flash_timing(cfg, dev, B, W, seed):
 
 
 def timing_phase(engine, wkr_mt, rng, dev, seed):
-    """Kernel timings at the main paths' shapes, and both slab steps at
-    every B of the crossover between their weight products (the row-tiled
-    GEMV of slab_w8, the all-rows GEMM of slab_ar_w8); the launches made here
-    do not count as the main paths'. Returns the timings of the JSON line:
-    slab_w8 at B = 1, slab_ar_w8 and the flash prefill at B = 16, W = 512
-    (the service's batch)."""
+    """Kernel timings at the main paths' shapes, the int8-weight slab steps
+    at every B of the crossover between their weight products (the
+    row-tiled GEMV of slab_w8, the all-rows GEMM of slab_ar_w8), and the
+    bf16-weight steps at B = 16 and 64; the launches made here do not count
+    as the main paths'. Returns the timings of the JSON line: slab_w8 at
+    B = 1; slab_ar_w8 and the flash prefill at B = 16, W = 512 (the
+    service's batch); slab and slab_ar at B = 16 (the continuous engine's
+    slots)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    counts = (fd.fused_slab_core.launches, fd.fused_slab_allrows_core.launches,
-              fp.flash_prefill_attention.launches)
-    single, allrows = {}, {}
-    for B in (1, 4, 8, 16, 64):
-        single[B] = slab_timing(engine, wkr_mt, rng, dev, fd.fused_slab_core,
-                                "slab_w8", B, flush)
-        allrows[B] = slab_timing(engine, wkr_mt, rng, dev, fd.fused_slab_allrows_core,
-                                 "slab_ar_w8", B, flush)
+    before = launches()
+    times = {name: {B: slab_timing(engine, wkr_mt, rng, dev, name, B, flush)
+                    for B in batches}
+             for name, batches in (("slab_w8", (1, 4, 8, 16, 64)),
+                                   ("slab_ar_w8", (1, 4, 8, 16, 64)),
+                                   ("slab", (16, 64)), ("slab_ar", (16, 64)))}
     flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}
-    (fd.fused_slab_core.launches, fd.fused_slab_allrows_core.launches,
-     fp.flash_prefill_attention.launches) = counts
-    return {"slab_w8": single[1], "slab_ar_w8": allrows[16], "flash": flash[16]}
+    set_launches(before)
+    return {"slab_w8": times["slab_w8"][1], "slab_ar_w8": times["slab_ar_w8"][16],
+            "slab": times["slab"][16], "slab_ar": times["slab_ar"][16],
+            "flash": flash[16]}
 
 
 def prompt_midi(seed: int, vocab, bars: int = 8) -> bytes:
@@ -449,21 +540,33 @@ def prompt_midi(seed: int, vocab, bars: int = 8) -> bytes:
     return MusicItem.from_npenc(npenc, vocab).to_midi_bytes()
 
 
-def reset_launches() -> None:
-    fd.fused_slab_core.launches = 0
-    fd.fused_slab_allrows_core.launches = 0
-    fp.flash_prefill_attention.launches = 0
-
-
 def launches() -> dict:
-    return {"slab_w8": fd.fused_slab_core.launches,
-            "slab_ar_w8": fd.fused_slab_allrows_core.launches,
+    """Every kernel's launch count: the four slab modes and the flash prefill."""
+    return {**fd.fused_slab_core.launches, **fd.fused_slab_allrows_core.launches,
             "flash_prefill": fp.flash_prefill_attention.launches}
 
 
-def check_continuation(seed_item, pred, vocab) -> dict:
+def set_launches(counts: dict) -> None:
+    for wrapper in (fd.fused_slab_core, fd.fused_slab_allrows_core):
+        for mode in wrapper.launches:
+            wrapper.launches[mode] = counts[mode]
+    fp.flash_prefill_attention.launches = counts["flash_prefill"]
+
+
+def reset_launches() -> None:
+    set_launches(dict.fromkeys(launches(), 0))
+
+
+def only(**nonzero) -> dict:
+    """The launch counts of a path that runs only the given kernels."""
+    return {**dict.fromkeys(launches(), 0), **nonzero}
+
+
+def check_continuation(seed_item, pred, vocab, piano_range: bool = True) -> dict:
     """The continuation ``pred`` of ``seed_item`` decodes to a MIDI that
-    re-parses, with no grammar violation; raises otherwise."""
+    re-parses, with no grammar violation and, with ``piano_range``, whose
+    notes pass the codec's data gate (piano pitch range, duration cap);
+    raises otherwise."""
     full = seed_item.append(MusicItem(np.asarray(pred), vocab))
     back = MusicItem.from_file(full.to_midi_bytes(), vocab)
     viol = grammar_violations(pred, vocab, prev_idx=int(seed_item.data[-1]))
@@ -471,7 +574,7 @@ def check_continuation(seed_item, pred, vocab) -> dict:
                   grammar_violations=viol, roundtrip=roundtrip_ok(back.data, vocab),
                   valid_npenc=is_valid_npenc(back.to_npenc(), min_notes=1))
     if not (len(pred) > 0 and back.data[0] == vocab.bos_idx and viol == 0
-            and checks["roundtrip"] and checks["valid_npenc"]):
+            and checks["roundtrip"] and (checks["valid_npenc"] or not piano_range)):
         raise AssertionError(f"generated MIDI failed its checks: {checks}")
     return checks
 
@@ -489,7 +592,7 @@ def main_path_phase(learner, seed: int, n_words: int):
     full = predict_nw_genre(learner, midi, genre="jazz", max_len=n_words, seed=seed)
     secs = time.perf_counter() - t0
     counts = launches()
-    if counts != {"slab_w8": n_words, "slab_ar_w8": 0, "flash_prefill": 0}:
+    if counts != only(slab_w8=n_words):
         raise AssertionError(f"B=1 path launched {counts} for {n_words} steps")
     seed_item = MusicItem.from_file(midi, vocab).trim_to_beat(32)
     seed_item = seed_item.set_genre("jazz").remove_eos()
@@ -543,7 +646,7 @@ def batched_phase(learner, items, seed: int, n_words: int):
         service.close()
     if service.batch_sizes != [(16, 16)]:
         raise AssertionError(f"service batches {service.batch_sizes}, expected one of 16")
-    want = {"slab_w8": 0, "slab_ar_w8": n_words, "flash_prefill": engine.cfg.n_layers}
+    want = only(slab_ar_w8=n_words, flash_prefill=engine.cfg.n_layers)
     if counts != want:
         raise AssertionError(f"service batch launched {counts}, expected {want}")
     checks = [check_continuation(it, p, vocab) for it, p in zip(items, preds)]
@@ -574,6 +677,162 @@ def batched_phase(learner, items, seed: int, n_words: int):
     return service_counts
 
 
+def continuous_requests(items, seed: int):
+    """32 requests over ``items`` with mixed budgets (64-256 tokens) and
+    sampling settings: greedy and sampled, top_k 30 / 10 / 0 / 50, top_p
+    0.65 / 0.9 / 0.3 / 0 (off), three temperatures or a (note, duration)
+    pair, min_bars 12 or 4."""
+    temps = ((1.8, 1.8, 1.0), (1.2, 1.5), (1.0, 1.0, 1.0), (2.0, 1.4))
+    return [(items[i % len(items)], dict(
+        n_words=(64, 128, 192, 256)[i % 4], greedy=i % 3 == 0,
+        top_k=(30, 10, 0, 50)[i % 4], top_p=(0.65, 0.9, 0.3, 0.0)[i // 4 % 4],
+        temperatures=temps[i // 2 % 4], min_bars=(12, 4)[i % 2], seed=seed + i))
+        for i in range(32)]
+
+
+def continuous_phase(learner, items, seed: int):
+    """The continuous service with the auto kernel (slab) on 16 slots: 32
+    requests in four waves of 8, 0.2 s apart, so later waves join a busy
+    resident batch and queue for slots. Then one greedy and one sampled
+    request of the second wave are decoded alone on a fresh engine and must
+    equal their in-batch tokens. Returns the slab launch count."""
+    vocab = learner.vocab
+    reqs = continuous_requests(items, seed)
+    engine = ContinuousEngine(learner.params, learner.cfg, vocab, n_slots=16, chunk=32)
+    if engine.kernel != "slab":
+        raise AssertionError(f"the continuous auto kernel is {engine.kernel!r}, "
+                             "expected 'slab'")
+    engine.generate(items[0].data, n_words=32, seed=seed)        # warm-up
+    torch.cuda.synchronize()
+    service = ContinuousGenerationService(engine=engine)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        futs = []
+        for wave in range(4):
+            futs += [service.submit(it.data, **kw) for it, kw in reqs[8 * wave:8 * wave + 8]]
+            time.sleep(0.2)
+        preds = [f.result(timeout=600) for f in futs]
+        secs = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        service.close()
+    steps = counts["slab"]
+    if counts != only(slab=steps) or steps == 0:
+        raise AssertionError(f"continuous service launched {counts}")
+    # a draw from the whole distribution (no top-k, no top-p) may leave the
+    # piano range; those requests' notes are counted, all others must pass
+    checks = [check_continuation(it, p, vocab, piano_range=kw["greedy"] or
+                                 kw["top_k"] > 0 or kw["top_p"] > 0)
+              for (it, kw), p in zip(reqs, preds)]
+    emitted = sum(len(p) for p in preds)
+    say(f"continuous: ContinuousGenerationService 16 slots, chunk 32, kernel "
+        f"{engine.kernel}: {len(reqs)} requests in 4 waves (n_words 64-256, "
+        f"{sum(kw['greedy'] for _, kw in reqs)} greedy, mixed top_k/top_p/temperatures) "
+        f"launches={counts}; all re-parse, grammar violations "
+        f"{sum(c['grammar_violations'] for c in checks)}, outside the piano range or "
+        f"duration cap {sum(not c['valid_npenc'] for c in checks)}; {steps} steps in "
+        f"{secs:.3f} s: {steps / secs:.1f} steps/s, {emitted} emitted tokens, "
+        f"{emitted / secs:.1f} emitted tok/s")
+    solo_engine = ContinuousEngine(learner.params, learner.cfg, vocab, n_slots=16, chunk=32)
+    for i in (9, 10):                     # greedy and sampled, second wave
+        it, kw = reqs[i]
+        alone = solo_engine.generate(it.data, **kw)
+        same = np.array_equal(alone, preds[i])
+        say(f"continuous: request {i} ({'greedy' if kw['greedy'] else 'sampled'}, "
+            f"{len(preds[i])} tokens) decoded alone equals its in-batch tokens: {same}")
+        if not same:
+            raise AssertionError(f"request {i} differs when decoded alone")
+    return steps
+
+
+def slab_ar_phase(learner, items, seed: int):
+    """A short continuous run with the explicit all-rows bf16 kernel."""
+    reqs = [(it, dict(kw, n_words=64)) for it, kw in continuous_requests(items, seed)[:8]]
+    engine = ContinuousEngine(learner.params, learner.cfg, learner.vocab, n_slots=16,
+                              chunk=32, decode_kernel="slab_ar")
+    engine.generate(items[0].data, n_words=32, seed=seed)        # warm-up
+    torch.cuda.synchronize()
+    service = ContinuousGenerationService(engine=engine)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        preds = [f.result(timeout=600) for f in
+                 [service.submit(it.data, **kw) for it, kw in reqs]]
+        secs = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        service.close()
+    steps = counts["slab_ar"]
+    if counts != only(slab_ar=steps) or steps == 0:
+        raise AssertionError(f"explicit slab_ar run launched {counts}")
+    checks = [check_continuation(it, p, learner.vocab) for (it, _), p in zip(reqs, preds)]
+    say(f"continuous: explicit slab_ar, 8 requests of 64 tokens, launches={counts}; all "
+        f"re-parse, grammar violations {sum(c['grammar_violations'] for c in checks)}; "
+        f"{steps / secs:.1f} steps/s")
+    return steps
+
+
+def http_phase(learner, seed: int):
+    """The HTTP server with the continuous service, on the loaded learner."""
+    vocab = learner.vocab
+    server = MusicServer(genre_learner=learner, max_batch=16, continuous=True)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        midis = [base64.b64encode(prompt_midi(seed + 100 + i, vocab)).decode()
+                 for i in range(4)]
+        tok_code, tok = post("/tokenize", {"midi_b64": midis[0]})
+        reset_launches()
+        outs = [None] * 4
+
+        def generate(i):
+            outs[i] = post("/generate", {"midi_b64": midis[i], "genre": GENRES[i],
+                                         "n_words": 64, "seed": seed + i,
+                                         "temperatures": [1.8, 1.8, 1.0][: 2 + i % 2]})
+
+        workers = [threading.Thread(target=generate, args=(i,)) for i in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(600)
+        counts = launches()
+        remix = post("/remix", {"midi_b64": midis[0]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    ok = health == {"ok": True} and tok_code == 200 and tok["n_tokens"] > 0
+    ok = ok and remix[0] == 501 and counts["slab"] > 0
+    lengths = []
+    for out in outs:
+        ok = ok and out is not None and out[0] == 200
+        if ok:
+            back = MusicItem.from_file(base64.b64decode(out[1]["midi_b64"]), vocab)
+            ok = back.data[0] == vocab.bos_idx and out[1]["n_tokens"] > 0
+            lengths.append(out[1]["n_tokens"])
+    say(f"http: /health {health}, /tokenize {tok_code} ({tok.get('n_tokens')} tokens), "
+        f"4 concurrent /generate -> {[o[0] if o else None for o in outs]} with "
+        f"{lengths} tokens, each MIDI re-parsed; /remix -> {remix[0]}; "
+        f"launches={counts}")
+    if not ok:
+        raise AssertionError("the HTTP phase failed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -595,40 +854,42 @@ def main(argv=None) -> int:
         f"mem {engine.cfg.mem_len} in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(args.seed)
     wkr_mt = wkr_table(engine)
-    err = {"slab_w8": kernel_phase(engine, wkr_mt, rng, dev, fd.fused_slab_core,
-                                   "slab_w8", (1, 4)),
-           "slab_ar_w8": kernel_phase(engine, wkr_mt, rng, dev,
-                                      fd.fused_slab_allrows_core, "slab_ar_w8", (8, 64)),
-           "flash": flash_phase(engine.cfg, dev, args.seed)}
+    err = {}
+    for mode, batches in KERNEL_CASE_BATCHES:
+        e = timed(f"kernel {mode} B in {batches}", kernel_phase, engine, wkr_mt, rng,
+                  dev, mode, batches)
+        err[mode] = max(err.get(mode, 0.0), e)
+    err["flash"] = timed("kernel flash", flash_phase, engine.cfg, dev, args.seed)
     # each kernel's largest error over its bound (h_out's for the slab steps)
-    over = {"slab_w8": err["slab_w8"] / H_ATOL, "slab_ar_w8": err["slab_ar_w8"] / H_ATOL,
-            "flash": err["flash"][1]}
+    over = {mode: e / H_ATOL for mode, e in err.items() if mode != "flash"}
+    over["flash"] = err["flash"][1]
     items = batch_prompts(learner.vocab, args.seed, 64)
-    prefill_phase(learner, items[:16], dev)
-    timing = timing_phase(engine, wkr_mt, rng, dev, args.seed)
-    n_single = main_path_phase(learner, args.seed, args.n_words)
-    batched = batched_phase(learner, items, args.seed, args.n_words)
+    timed("prefill", prefill_phase, learner, items[:16], dev)
+    timing = timed("timing", timing_phase, engine, wkr_mt, rng, dev, args.seed)
+    n_single = timed("main", main_path_phase, learner, args.seed, args.n_words)
+    batched = timed("batch", batched_phase, learner, items, args.seed, args.n_words)
+    n_slab = timed("continuous", continuous_phase, learner, items[16:48], args.seed)
+    n_slab_ar = timed("slab_ar", slab_ar_phase, learner, items[48:], args.seed)
+    timed("http", http_phase, learner, args.seed)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     csrc = "deepmusicgeneration_tpu_torch/ops/csrc/"
+    src = "deepmusicgeneration_tpu/ops/"
+    entry = lambda name, source, replaces, launched, key, error: {
+        "name": name, "route": "cuda", "source": csrc + source,
+        "replaces": src + replaces, "launches": launched, "max_abs_err": error,
+        "max_err_over_bound": over[key], **timing[key], "library_ms": None}
     say(json.dumps({"kernels": [
-        {"name": "fused_slab_core[slab_w8]", "route": "cuda",
-         "source": csrc + "slab_decode.cu",
-         "replaces": "deepmusicgeneration_tpu/ops/fused_decode.py:1163",
-         "launches": n_single, "max_abs_err": err["slab_w8"],
-         "max_err_over_bound": over["slab_w8"], **timing["slab_w8"],
-         "library_ms": None},
-        {"name": "fused_slab_allrows_core[slab_ar_w8]", "route": "cuda",
-         "source": csrc + "slab_decode.cu",
-         "replaces": "deepmusicgeneration_tpu/ops/fused_decode.py:1589",
-         "launches": batched["slab_ar_w8"], "max_abs_err": err["slab_ar_w8"],
-         "max_err_over_bound": over["slab_ar_w8"],
-         **timing["slab_ar_w8"], "library_ms": None},
-        {"name": "flash_prefill_attention", "route": "cuda",
-         "source": csrc + "flash_prefill.cu",
-         "replaces": "deepmusicgeneration_tpu/ops/flash_prefill.py:292",
-         "launches": batched["flash_prefill"], "max_abs_err": err["flash"][0],
-         "max_err_over_bound": over["flash"],
-         **timing["flash"], "library_ms": None}]}))
+        entry("fused_slab_core[slab_w8]", "slab_decode.cu", "fused_decode.py:1163",
+              n_single, "slab_w8", err["slab_w8"]),
+        entry("fused_slab_allrows_core[slab_ar_w8]", "slab_decode.cu",
+              "fused_decode.py:1589", batched["slab_ar_w8"], "slab_ar_w8",
+              err["slab_ar_w8"]),
+        entry("flash_prefill_attention", "flash_prefill.cu", "flash_prefill.py:292",
+              batched["flash_prefill"], "flash", err["flash"][0]),
+        entry("fused_slab_core[slab]", "slab_decode.cu", "fused_decode.py:1163",
+              n_slab, "slab", err["slab"]),
+        entry("fused_slab_allrows_core[slab_ar]", "slab_decode.cu",
+              "fused_decode.py:1589", n_slab_ar, "slab_ar", err["slab_ar"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,13 @@
 """Command-line interface of the PyTorch port.
 
     python -m deepmusicgeneration_tpu_torch generate --midi in.mid --genre jazz
+    python -m deepmusicgeneration_tpu_torch serve --port 8711 [--continuous]
+    python -m deepmusicgeneration_tpu_torch tokenize --midi in.mid
 
-Only ``generate`` (genre-conditioned continuation) is ported; the other
-subcommands of the JAX package are still to port (ROADMAP.md).
+``generate`` (genre-conditioned continuation), ``serve`` (the HTTP
+endpoint) and ``tokenize`` are ported; the other subcommands of the JAX
+package are still to port (ROADMAP.md). ``--device cpu`` runs on the CPU;
+the default is the CUDA card.
 """
 
 from __future__ import annotations
@@ -24,6 +28,25 @@ def cmd_generate(args):
         output_bpm=args.bpm, seed=args.seed)
     full.write_midi(args.out, bpm=args.bpm)
     print(f"wrote {args.out} ({len(full)} tokens)")
+
+
+def cmd_serve(args):
+    from .app.server import serve
+    serve(args.port, args.host, args.max_batch, continuous=args.continuous,
+          device=args.device)
+
+
+def cmd_tokenize(args):
+    from .codec.item import MusicItem
+    from .vocab import MusicVocab
+    item = MusicItem.from_file(args.midi, MusicVocab.create(), genre=args.genre or None)
+    text = item.to_text()
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        print(f"wrote {args.out} ({len(item)} tokens)")
+    else:
+        print(text)
 
 
 def main(argv=None):
@@ -47,6 +70,23 @@ def main(argv=None):
     g.add_argument("--bpm", type=float, default=120)
     g.add_argument("--seed", type=int, default=0)
     g.set_defaults(fn=cmd_generate)
+
+    sv = sub.add_parser("serve", help="HTTP generation service")
+    sv.add_argument("--port", type=int, default=8711)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--max-batch", type=int, default=16)
+    sv.add_argument("--continuous", action="store_true",
+                    help="serve /generate from the continuous-batching "
+                         "engine (resident device batch, mid-flight joins)")
+    sv.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    sv.set_defaults(fn=cmd_serve)
+
+    t = sub.add_parser("tokenize", help="MIDI → token text")
+    t.add_argument("--midi", required=True)
+    t.add_argument("--genre", default=None)
+    t.add_argument("--out", default=None)
+    t.set_defaults(fn=cmd_tokenize)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -16,14 +16,21 @@ Parity contract with the reference engine:
   multiple of 4, or when BOS is sampled,
 * greedy mode is argmax over the same filtered logits.
 
-Three decode paths: ``xla`` (the exact ring step, ``models.txl``),
-``slab_w8`` (``ops.fused_decode.fused_slab_core``: int8 weights, int8 KV) and
+Five decode paths: ``xla`` (the exact ring step, ``models.txl``),
+``slab_w8`` (``ops.fused_decode.fused_slab_core``: int8 weights, int8 KV),
 ``slab_ar_w8`` (``ops.fused_decode.fused_slab_allrows_core``: the same step,
-each layer's weights read once for all rows). On the card the auto rule
+each layer's weights read once for all rows), and their bf16-weight modes
+``slab`` and ``slab_ar`` (explicit only here; the continuous engine
+auto-picks ``slab``). On the card the auto rule
 (:meth:`GenerationEngine.resolve_kernel`) takes ``slab_w8`` for B < 8,
 ``slab_ar_w8`` for B % 8 == 0 and ``xla`` otherwise; the prompt prefill takes
 the flash attention kernel for bf16 configs at B >= 8 (W <= 2048) or
-2048 < W <= 8192 (``models.txl.prefill``).
+2048 < W <= 8192 (``models.txl.prefill``). Neither rule picks a kernel whose
+widths the CUDA kernels do not take (:func:`slab_ok`).
+
+``prepare_logits`` and ``advance_state`` also take per-row sampling
+parameters ((B, 3) temperatures, (B,) min_bars, a (B, V) instrument mask,
+a (B,) past-80% flag), as the continuous-batching engine passes them.
 """
 
 from __future__ import annotations
@@ -41,14 +48,35 @@ from ..models import txl
 from ..models.config import TXLConfig
 from ..models.precision import cast_params_for_inference
 from ..ops.fused_decode import (fused_slab_allrows_core, fused_slab_core,
-                                quantize_kv_slot_major, quantize_stacked_weights,
-                                stack_txl_layers)
+                                kernel_accepts, quantize_kv_slot_major,
+                                quantize_stacked_weights, stack_txl_layers)
 from ..ops.sampling import FILTER_VALUE, filter_sample_sorted
 from ..vocab import SAMPLE_FREQ, MusicVocab
 
 I32 = torch.int32
 
-KERNELS = ("xla", "slab_w8", "slab_ar_w8")
+KERNELS = ("xla", "slab_w8", "slab_ar_w8", "slab", "slab_ar")
+ALLROWS_KERNELS = ("slab_ar_w8", "slab_ar")
+INT8_WEIGHT_KERNELS = ("slab_w8", "slab_ar_w8")
+
+
+def slab_ok(cfg: TXLConfig, mem_len: int) -> bool:
+    """Whether the slab paths apply: a bf16, bias-free config without beat
+    embeddings (the genre flagship shape) with mem_len % 32 == 0, the TPU
+    kernel's slab tile, kept so both packages pick alike; and widths the
+    CUDA kernels take (``fused_decode.kernel_accepts``)."""
+    return (cfg.dtype == "bfloat16" and not cfg.bias
+            and not cfg.encode_position and mem_len % 32 == 0
+            and kernel_accepts(cfg))
+
+
+def expand_temperatures(temperatures) -> tuple:
+    """A (t_note, t_dur) pair expanded to the three genre slots
+    (t_note, t_dur, t_dur), as the JAX package does; three pass through."""
+    temperatures = tuple(temperatures)
+    if len(temperatures) == 2:
+        return (temperatures[0], temperatures[1], temperatures[1])
+    return temperatures
 
 
 @dataclass(frozen=True)
@@ -100,9 +128,9 @@ def prepare_logits(
     logits: torch.Tensor,          # (B, V) fp32
     st: SampleState,
     tables: DecodeTables,
-    temperatures: torch.Tensor,    # (3,) fp32
-    min_bars: int,
-    allowed_ins: torch.Tensor,     # (V,) bool overlay
+    temperatures: torch.Tensor,    # (B, 3) fp32 per row, or (3,) for all rows
+    min_bars,                      # (B,) int32 per row, or an int for all rows
+    allowed_ins: torch.Tensor,     # (B, V) bool overlay per row, or (V,)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-sampling logit processing: temperature slot + repeat penalty,
     min-bars BOS ban, grammar mask. Returns (masked logits, last_xxsep)."""
@@ -111,7 +139,9 @@ def prepare_logits(
     last_xxsep = torch.where(prev == tables.sep_idx, True,
                              torch.where(prev == tables.ni_idx, False, st.last_xxsep))
     cls = tables.prev_class[prev]                          # (B,)
-    temperature = temperatures[tables.temp_slot[prev]]     # (B,)
+    slot = tables.temp_slot[prev]
+    temperature = torch.gather(temperatures.expand(len(slot), 3), 1,
+                               slot[:, None])[:, 0]        # (B,)
     penalty = torch.clamp_min(
         torch.log((st.repeat_count + 1) / 4.0) / 5.0, 0.0) * temperature
     temperature = temperature + penalty
@@ -124,7 +154,7 @@ def prepare_logits(
     logits = logits.clone()
     logits[:, bos] = torch.where(bars <= min_bars, FILTER_VALUE, logits[:, bos])
 
-    ok = tables.allowed[cls, last_xxsep.long()] & allowed_ins[None, :]  # (B, V)
+    ok = tables.allowed[cls, last_xxsep.long()] & allowed_ins   # (B, V)
     return torch.where(ok, logits, FILTER_VALUE), last_xxsep
 
 
@@ -134,7 +164,8 @@ def advance_state(
     st: SampleState,
     last_xxsep: torch.Tensor,      # (B,) bool from prepare_logits
     tables: DecodeTables,
-    past_80pct: bool,              # step / n_words > 0.8, in float32
+    past_80pct,                    # step / n_words > 0.8 in float32: a bool,
+                                   # or a (B,) bool tensor per row
 ) -> Tuple[torch.Tensor, SampleState]:
     """Post-sampling bookkeeping: repeat count, beat position, stopping,
     pad semantics. Returns (emitted idx or pad, new state)."""
@@ -149,10 +180,7 @@ def advance_state(
 
     # stopping: bar boundary after 80% of budget, or a sampled BOS
     abs_bar = torch.div(last_pos, SAMPLE_FREQ * 4, rounding_mode="floor")
-    if past_80pct:
-        stop_bar = was_sep & (abs_bar % 4 == 0)
-    else:
-        stop_bar = torch.zeros_like(was_sep)
+    stop_bar = was_sep & past_80pct & (abs_bar % 4 == 0)
     done = st.done | stop_bar | (idx == tables.bos_idx)
 
     # the token that *triggers* a stop is dropped, exactly like the
@@ -176,7 +204,8 @@ def sample_next_token(
     st: SampleState,
     tables: DecodeTables,
     temperatures: torch.Tensor,
-    top_p: float,
+    top_k,                         # int, or (B,) int64 on the device
+    top_p,                         # float, or (B,) fp32 on the device
     min_bars: int,
     allowed_ins: torch.Tensor,
     generator: Optional[torch.Generator],
@@ -186,7 +215,7 @@ def sample_next_token(
     """One full sampling step given model logits."""
     logits, last_xxsep = prepare_logits(logits, st, tables, temperatures,
                                         min_bars, allowed_ins)
-    idx, nc = filter_sample_sorted(generator, logits, settings.top_k, top_p,
+    idx, nc = filter_sample_sorted(generator, logits, top_k, top_p,
                                    greedy=settings.greedy)
     return advance_state(idx, nc, st, last_xxsep, tables, past_80pct)
 
@@ -213,7 +242,7 @@ def generate_compiled(
     settings: SamplerSettings,
     mem_len: int,
     kernel: str = "xla",
-    stacked_q=None,               # (int8 StackedTXL, w_scales) for the slab kernels
+    stacked_q=None,               # (StackedTXL, w_scales or None) for the slab kernels
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + fixed-length sampling loop.
 
@@ -238,10 +267,13 @@ def generate_compiled(
     )
     ring = txl.ring_from_prefill(cache0, cfg)
     toks = torch.empty((settings.n_words, B), dtype=I32, device=dev)
+    # the filter's per-row parameters, made on the device once
+    top_k_rows = torch.full((B,), settings.top_k, dtype=torch.long, device=dev)
+    top_p_rows = torch.full((B,), top_p, dtype=torch.float32, device=dev)
 
     def sample(i, logits, st):
-        return sample_next_token(logits, st, tables, temperatures, top_p,
-                                 min_bars, allowed_ins, generator, settings,
+        return sample_next_token(logits, st, tables, temperatures, top_k_rows,
+                                 top_p_rows, min_bars, allowed_ins, generator, settings,
                                  _past_80pct(i, settings.n_words))
 
     if kernel == "xla":
@@ -261,7 +293,7 @@ def generate_compiled(
     wkr_mt = txl.precompute_wkr(params, cfg, M).permute(0, 2, 1, 3) \
         .reshape(L, M + 1, HD).to(torch.bfloat16).contiguous()
     stacked, w_scales = stacked_q
-    core = fused_slab_allrows_core if kernel == "slab_ar_w8" else fused_slab_core
+    core = fused_slab_allrows_core if kernel in ALLROWS_KERNELS else fused_slab_core
     rows_per_cell = next(r for r in (8, 4, 2, 1) if B % r == 0)   # as the JAX engine
     embed32 = params["embed"].to(torch.float32)
     head_b = params.get("head_b")
@@ -273,7 +305,8 @@ def generate_compiled(
         blocked = ((dist < 1) | (dist > M)).to(I32)
         h_out, *kv = core(
             stacked, cfg, embed32[idx.long()], wkr_mt, *kv, blocked, ptr, M,
-            rows_per_cell=rows_per_cell, weights_int8=True, w_scales=w_scales)
+            rows_per_cell=rows_per_cell, weights_int8=w_scales is not None,
+            w_scales=w_scales)
         logits = h_out @ embed32.T
         if head_b is not None:
             logits = logits + head_b
@@ -309,14 +342,8 @@ class GenerationEngine:
         self.cfg = cfg
         self.vocab = vocab
         self.tables = build_tables(vocab, device=self.device)
+        self._stacked = None
         self._stacked_q = None
-
-    def _slab_ok(self, mem_len: int) -> bool:
-        """The slab paths apply to a bf16, bias-free config without beat
-        embeddings (the genre flagship shape) with mem_len % 32 == 0, the
-        TPU kernel's slab tile, kept so both packages pick alike."""
-        return (self.cfg.dtype == "bfloat16" and not self.cfg.bias
-                and not self.cfg.encode_position and mem_len % 32 == 0)
 
     def resolve_kernel(self, batch: int, mem_len: Optional[int] = None,
                        decode_kernel: Optional[str] = None) -> str:
@@ -329,20 +356,27 @@ class GenerationEngine:
           weights nearly halve the bytes per step;
         - any other B → 'xla', the exact ring step.
 
-        The slab kernels also need :meth:`_slab_ok`. On the CPU this returns
+        The slab kernels also need :func:`slab_ok`. On the CPU this returns
         'xla', as the JAX package does off the TPU."""
         if decode_kernel is not None:
             return decode_kernel
         mem_len = mem_len or self.cfg.mem_len
-        if self.device.type == "cuda" and self._slab_ok(mem_len):
+        if self.device.type == "cuda" and slab_ok(self.cfg, mem_len):
             if batch % 8 == 0:
                 return "slab_ar_w8"
             if batch < 8:
                 return "slab_w8"
         return "xla"
 
+    def stacked(self):
+        """(bf16-weight StackedTXL, None) for the slab and slab_ar paths."""
+        if self._stacked is None:
+            self._stacked = (stack_txl_layers(self.params), None)
+        return self._stacked
+
     def stacked_q(self):
-        """(int8-weight StackedTXL, w_scales) for the slab paths."""
+        """(int8-weight StackedTXL, w_scales) for the slab_w8 and slab_ar_w8
+        paths."""
         if self._stacked_q is None:
             self._stacked_q = quantize_stacked_weights(stack_txl_layers(self.params))
         return self._stacked_q
@@ -376,9 +410,11 @@ class GenerationEngine:
 
         ``decode_kernel``: None = auto (:meth:`resolve_kernel`); 'xla' is the
         exact bf16/f32 ring step; 'slab_w8' and 'slab_ar_w8' quantize the KV
-        cache and the weights to int8 (the kernel paths; on a CPU device
-        their plain version). The prompt prefill follows
-        ``models.txl.prefill``'s auto rule. ``seed`` seeds the sampling
+        cache and the weights to int8, 'slab' and 'slab_ar' the KV cache
+        only (the kernel paths; on a CPU device their plain version). The
+        prompt prefill follows ``models.txl.prefill``'s auto rule.
+        ``temperatures``: three genre slots, or a (t_note, t_dur) pair that
+        expands to (t_note, t_dur, t_dur). ``seed`` seeds the sampling
         generator on the engine's device."""
         B = len(seeds)
         mem_len = mem_len or self.cfg.mem_len
@@ -398,10 +434,12 @@ class GenerationEngine:
             last_pos[i] = p[-1] if len(p) else 0
 
         kernel = self.resolve_kernel(B, mem_len, decode_kernel)
-        if kernel in KERNELS[1:] and not self._slab_ok(mem_len):
+        if kernel in KERNELS[1:] and not slab_ok(self.cfg, mem_len):
             raise ValueError(f"decode_kernel={kernel!r} needs a bf16 bias-free "
-                             "config without beat embeddings and mem_len % 32 "
-                             f"== 0; got mem_len={mem_len}")
+                             "config without beat embeddings, mem_len % 32 == 0 "
+                             "and widths the slab kernels take; got "
+                             f"mem_len={mem_len}, d_head={self.cfg.d_head}")
+        temperatures = expand_temperatures(temperatures)
         settings = SamplerSettings(n_words=n_words, top_k=top_k, greedy=greedy)
         dev = self.device
         ins_mask = torch.from_numpy(G.allowed_ins_mask(self.vocab, allowed_ins)).to(dev)
@@ -415,7 +453,8 @@ class GenerationEngine:
             torch.tensor(temperatures, dtype=torch.float32, device=dev),
             float(top_p), int(min_bars), ins_mask, generator, settings,
             mem_len=mem_len, kernel=kernel,
-            stacked_q=None if kernel == "xla" else self.stacked_q())
+            stacked_q=(None if kernel == "xla" else self.stacked_q()
+                       if kernel in INT8_WEIGHT_KERNELS else self.stacked()))
         return out.cpu().numpy(), lengths.cpu().numpy()
 
 

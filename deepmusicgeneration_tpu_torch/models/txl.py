@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops.flash_prefill import flash_prefill_attention
+from ..ops.flash_prefill import KERNEL_HEAD_DIMS, flash_prefill_attention
 from ..ops.rel_attention import (
     NEG_INF,
     backwards_pos_enc,
@@ -107,13 +107,16 @@ def init_kv_cache(cfg: TXLConfig, batch: int, mem_len: Optional[int] = None,
                    valid=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
-def _flash_auto(cfg: TXLConfig, x: torch.Tensor) -> bool:
-    """The JAX package's rule for the flash prefill kernel, read on the
-    port's device: a CUDA tensor, a bf16 config and W <= 2048 with B >= 8
-    (the per-row work amortizes the kernel's fixed cost) or 2048 < W <= 8192
-    (the materialized scores grow quadratically)."""
+def _flash_auto(cfg: TXLConfig, x: torch.Tensor, device=None) -> bool:
+    """The JAX package's rule for the flash prefill kernel, read on
+    ``device`` (default: ``x``'s): a CUDA device, a bf16 config and
+    W <= 2048 with B >= 8 (the per-row work amortizes the kernel's fixed
+    cost) or 2048 < W <= 8192 (the materialized scores grow quadratically).
+    A head width the kernel is not built for takes the materialized branch."""
     B, W = x.shape
-    return (x.device.type == "cuda" and cfg.act_dtype == torch.bfloat16
+    dev = torch.device(device) if device is not None else x.device
+    return (dev.type == "cuda" and cfg.act_dtype == torch.bfloat16
+            and cfg.d_head in KERNEL_HEAD_DIMS
             and ((W <= 2048 and B >= 8) or 2048 < W <= 8192))
 
 

@@ -4,8 +4,8 @@
 // Replaces the TPU kernels of deepmusicgeneration_tpu/ops/flash_prefill.py::
 // flash_prefill_attention: the whole-window pallas_call (_make_kernel,
 // W <= 2048) and the row-blocked one (_blocked_prefill_call /
-// _make_blocked_kernel, 2048 < W <= 8192). One kernel serves every
-// W <= 8192 with W % 64 == 0 and computes the same function:
+// _make_blocked_kernel, 2048 < W <= 8192). One kernel serves every W and
+// computes the same function:
 //
 //   qu = bf16(q + u), qv = bf16(q + v)                       (per head, f32 add)
 //   score[i, j] = (qu_i . k_j + qv_i . wkr[j + W - 1 - i]) * scale   (f32)
@@ -18,7 +18,10 @@
 // per-block tables. One block owns (query tile of 64 rows, head, batch row)
 // and streams 64-key tiles of K, V and the 127 wkr rows the tile pair needs
 // through shared memory, with an online softmax in f32; key tiles in the
-// future of the whole query tile are skipped.
+// future of the whole query tile are skipped. When W is not a multiple of 64
+// the last tile is a tail: its query rows past W are zeros and are not
+// written, its keys past W are masked like padding, and wkr rows outside
+// [0, W) (read only by those rows) are zeros.
 //
 // Numerics against the TPU kernel: the mask fill stays the finite -1e9, so a
 // padded query row (all its keys masked) averages V over the keys of the
@@ -69,21 +72,22 @@ __host__ __device__ constexpr size_t smem_bytes() {
          + (size_t)kTile * 4;                         // key pad flags
 }
 
-// Copy rows [0, rows) of a (rows x DH) bf16 slab with leading dimension ld
-// (elements) into shared memory, row_words<DH>() words per row; rows >= rows
-// are zero-filled up to n_rows.
+// Copy rows first .. first + n_rows - 1 of a (W x DH) bf16 matrix whose row t
+// starts at src + t * ld (elements) into shared memory, row_words<DH>() words
+// per row; rows outside [0, W) are zero-filled.
 template <int DH>
-__device__ void load_rows(uint32_t* dst, const __nv_bfloat16* src, size_t ld, int rows,
-                          int n_rows) {
+__device__ void load_rows(uint32_t* dst, const __nv_bfloat16* src, size_t ld, int first,
+                          int n_rows, int W) {
   constexpr int WPR = DH / 2;
   for (int i = threadIdx.x; i < n_rows * WPR; i += kThreads) {
     const int r = i / WPR, w = i % WPR;
+    const int t = first + r;
     dst[r * row_words<DH>() + w] =
-        r < rows ? reinterpret_cast<const uint32_t*>(src + (size_t)r * ld)[w] : 0u;
+        (t >= 0 && t < W) ? reinterpret_cast<const uint32_t*>(src + (size_t)t * ld)[w] : 0u;
   }
 }
 
-// grid (W / kTile, H, B). q, k, v, out (B, W, H*DH) bf16; wkr (W, H*DH) bf16,
+// grid (ceil(W / kTile), H, B). q, k, v, out (B, W, H*DH) bf16; wkr (W, H*DH) bf16,
 // row t <-> distance W - 1 - t; u, vb (H*DH) bf16; pad (B, W) 0/1 bytes.
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
@@ -125,7 +129,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     constexpr int WPR = DH / 2;
     for (int i = tid; i < kTile * WPR; i += kThreads) {
       const int r = i / WPR, w = i % WPR;
-      const float2 qq = unpack(qsrc[(size_t)r * (HD / 2) + w]);
+      const float2 qq =
+          i0 + r < W ? unpack(qsrc[(size_t)r * (HD / 2) + w]) : make_float2(0.f, 0.f);
       const float2 uu = unpack(u2[w]), vv = unpack(v2[w]);
       s_qu[r * RW + w] = pack(qq.x + uu.x, qq.y + uu.y);
       s_qv[r * RW + w] = pack(qq.x + vv.x, qq.y + vv.y);
@@ -149,14 +154,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   for (int kt = 0; kt <= qt; ++kt) {
     const int j0 = kt * kTile;
     // wkr rows the tile pair reads: t = j + W - 1 - i for j <= i lies in
-    // [base, base + 2 kTile - 2]; rows past W - 1 belong to masked pairs
+    // [base, base + 2 kTile - 2]; rows past W - 1 belong to masked pairs and
+    // rows below 0 to query rows past W (a tail tile)
     const int base = W - kTile - i0 + j0;
     __syncthreads();  // the previous tile's readers are done
-    load_rows<DH>(s_k, k + (row0 + j0) * HD + h * DH, HD, kTile, kTile);
-    load_rows<DH>(s_v, v + (row0 + j0) * HD + h * DH, HD, kTile, kTile);
-    load_rows<DH>(s_r, wkr + (size_t)base * HD + h * DH, HD, min(2 * kTile, W - base),
-                  2 * kTile);
-    if (tid < kTile) s_pad[tid] = pad[row0 + j0 + tid];
+    load_rows<DH>(s_k, k + row0 * HD + h * DH, HD, j0, kTile, W);
+    load_rows<DH>(s_v, v + row0 * HD + h * DH, HD, j0, kTile, W);
+    load_rows<DH>(s_r, wkr + h * DH, HD, base, 2 * kTile, W);
+    if (tid < kTile) s_pad[tid] = j0 + tid < W ? pad[row0 + j0 + tid] : 1;
     __syncthreads();
 
     float acc[4][4];
@@ -250,6 +255,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
   for (int a = 0; a < kRowsPT; ++a) {
     const int r = rg + kRowGroups * a;
+    if (i0 + r >= W) continue;  // a tail tile's rows past W
     const float inv = 1.f / s_l[r];
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + (row0 + i0 + r) * HD + h * DH + 4 * cg);
     dst[0] = pack(o[a][0] * inv, o[a][1] * inv);
@@ -266,7 +272,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* wkr,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(W / kTile, H, B);
+  const dim3 grid((W + kTile - 1) / kTile, H, B);
   flash_prefill_kernel<DH><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(wkr),
@@ -286,12 +292,12 @@ const char* flash_prefill_error_string(int err) {
 // out = causal TXL attention of (q, k, v, wkr, u, vb) under the key pad mask.
 // Pointers are device pointers into contiguous tensors: q, k, v, out
 // (B, W, H*Dh) bf16; wkr (W, H*Dh) bf16; u, vb (H*Dh) bf16; pad (B, W) bytes
-// (nonzero = left padding). Needs W % 64 == 0 and Dh in {16, 32, 64, 128}.
+// (nonzero = left padding). Needs W >= 1 and Dh in {16, 32, 64, 128}.
 // Returns the CUDA error of the launch (0 = cudaSuccess); does not synchronize.
 int flash_prefill_fwd(const void* q, const void* k, const void* v, const void* wkr,
                       const void* u, const void* vb, const uint8_t* pad, void* out, int B,
                       int W, int H, int Dh, float scale, void* stream) {
-  if (W <= 0 || W % kTile) return (int)cudaErrorInvalidValue;
+  if (W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (Dh) {
     case 16: return launch<16>(q, k, v, wkr, u, vb, pad, out, B, W, H, scale, st);

@@ -37,7 +37,7 @@
 // _make_slab_allrows_kernel) with weights_int8=True. It computes the same
 // function; what defines that TPU kernel is that each layer's weights are read
 // once for all B rows. Here the four weight products go through
-// gemm_w8_partial, a skinny int8-weight GEMM: one block owns a
+// gemm_partial, a skinny GEMM: one block owns a
 // (128 K rows x 64 columns) weight slice, holds it dequantized in shared
 // memory, and applies up to 64 batch rows to it, so the weights leave device
 // memory once per step for B <= 64 (the row-tiled GEMV above reads them
@@ -49,7 +49,16 @@
 // the flagship one step must read ~449 MB (37.7 MB int8 weights, 6.3 MB wkr,
 // 402.7 MB int8 K/V, ~2.1 MB scales): ~134 us at 3.35 TB/s, bound by bytes.
 //
-// Order contract of both steps: attention reads the OLD slot `ptr` of every
+// The bf16-weight modes ("slab" and "slab_ar", the same two TPU kernels with
+// weights_int8=False) run the same chain with the weight products reading
+// bf16 panels as they are, with no column scale: the TPU kernel's else branch
+// feeds the bf16 panels to the MXU directly. The weight products are templates
+// on the panel type (Panel<int8_t> dequantizes and rounds to bf16,
+// Panel<__nv_bfloat16> reads the value), so attention, the slot write and
+// LayerNorm stay shared. At B = 16 on the flagship a bf16 step must read
+// 75.5 MB of weights (twice the int8 panels' 37.7 MB) besides wkr and K/V.
+//
+// Order contract of all four steps: attention reads the OLD slot `ptr` of every
 // row (on a full ring that slot holds the oldest token, at distance exactly
 // M, which is visible), and the fresh-slot write is a separate kernel
 // launched after it on the same stream. The TPU all-rows kernel overlaps its
@@ -74,7 +83,7 @@ constexpr int kARRowGroups = kThreads / kColThreads;  // 16
 constexpr int kARRows = 64;                         // batch rows per all-rows GEMM block
 constexpr int kARRowsPerThread = kARRows / kARRowGroups;  // 4
 constexpr int kARWordsPerThread = kARChunk / kARRowGroups;  // 8 char4 of the slice
-// dynamic shared memory of gemm_w8_partial: the dequantized slice and x chunk
+// dynamic shared memory of gemm_partial: the dequantized slice and x chunk
 constexpr size_t kARSmem = (size_t)kARChunk * kCols * 4 + (size_t)kARRows * (kARChunk + 1) * 4;
 
 enum Act { kNone = 0, kGeluTanh = 1, kRelu = 2 };
@@ -126,12 +135,47 @@ __device__ __forceinline__ float activate(float x, int act) {
   return x;
 }
 
-// partial[kb][b][n] = sum over k in chunk kb of bf16(x[b][k]) * bf16(W[k][n] * s[n]).
-// grid (ceil(N / kCols), ceil(K / kKChunk), ceil(B / kRows)); W is (K, N) int8.
+// Four consecutive weights W[k][n .. n + 3] of a panel, loaded as one word
+// (Raw) and turned into the kernel's bf16 operand values. int8 panels are
+// dequantized by their column scales and rounded to bf16, as the TPU kernel
+// upcasts them into VMEM; bf16 panels are used as they are (no scales).
+template <typename WT>
+struct Panel;
+
+template <>
+struct Panel<int8_t> {
+  using Raw = char4;
+  static __device__ __forceinline__ Raw zero() { return make_char4(0, 0, 0, 0); }
+  static __device__ __forceinline__ float4 value(Raw q, const float* sc) {
+    return make_float4(bf16_round((float)q.x * sc[0]), bf16_round((float)q.y * sc[1]),
+                       bf16_round((float)q.z * sc[2]), bf16_round((float)q.w * sc[3]));
+  }
+};
+
+template <>
+struct Panel<__nv_bfloat16> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw zero() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ float4 value(Raw p, const float*) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+};
+
+template <typename WT>
+__device__ __forceinline__ typename Panel<WT>::Raw load_raw(const WT* W, size_t off) {
+  return *reinterpret_cast<const typename Panel<WT>::Raw*>(W + off);
+}
+
+// partial[kb][b][n] = sum over k in chunk kb of bf16(x[b][k]) * w(k, n), where
+// w is bf16(W[k][n] * s[n]) for an int8 panel and W[k][n] for a bf16 one (s is
+// then null). grid (ceil(N / kCols), ceil(K / kKChunk), ceil(B / kRows)); W is (K, N).
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
-gemv_w8_partial(const float* __restrict__ x, int B, int K, int N,
-                const int8_t* __restrict__ W, const float* __restrict__ s,
-                float* __restrict__ partial) {
+gemv_partial(const float* __restrict__ x, int B, int K, int N,
+             const WT* __restrict__ W, const float* __restrict__ s,
+             float* __restrict__ partial) {
   __shared__ float red[kKSlices][kRows][kCols];
   const int tx = threadIdx.x % kColThreads;
   const int ty = threadIdx.x / kColThreads;
@@ -146,12 +190,15 @@ gemv_w8_partial(const float* __restrict__ x, int B, int K, int N,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
   if (n0 < N) {
-    const float s0 = s[n0], s1 = s[n0 + 1], s2 = s[n0 + 2], s3 = s[n0 + 3];
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[j] = s[n0 + j];
+    }
 #pragma unroll 4
     for (int k = kb * kKChunk + ty; k < k_end; k += kKSlices) {
-      const char4 w4 = *reinterpret_cast<const char4*>(W + (size_t)k * N + n0);
-      const float w[4] = {bf16_round((float)w4.x * s0), bf16_round((float)w4.y * s1),
-                          bf16_round((float)w4.z * s2), bf16_round((float)w4.w * s3)};
+      const float4 w4 = Panel<WT>::value(load_raw(W, (size_t)k * N + n0), sc);
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r < nb) {
@@ -178,7 +225,7 @@ gemv_w8_partial(const float* __restrict__ x, int B, int K, int N,
   }
 }
 
-// All-rows variant of gemv_w8_partial: the same partial sums, but one block
+// All-rows variant of gemv_partial: the same partial sums, but one block
 // reads its weight slice (kARChunk K rows x kCols columns) once and applies
 // every batch row of its kARRows-row group to it. Every load of the slice and
 // of the rows' x chunk is issued before the one barrier, so a block waits on
@@ -186,10 +233,11 @@ gemv_w8_partial(const float* __restrict__ x, int B, int K, int N,
 // rows over k in ascending order, one accumulator per output.
 // grid (ceil(N / kCols), ceil(K / kARChunk), ceil(B / kARRows)), kARSmem
 // bytes of dynamic shared memory.
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
-gemm_w8_partial(const float* __restrict__ x, int B, int K, int N,
-                const int8_t* __restrict__ W, const float* __restrict__ s,
-                float* __restrict__ partial) {
+gemm_partial(const float* __restrict__ x, int B, int K, int N,
+             const WT* __restrict__ W, const float* __restrict__ s,
+             float* __restrict__ partial) {
   extern __shared__ float4 ar_smem[];
   float4 (*ws)[kColThreads] = reinterpret_cast<float4 (*)[kColThreads]>(ar_smem);
   float (*xs)[kARChunk + 1] =
@@ -204,16 +252,14 @@ gemm_w8_partial(const float* __restrict__ x, int B, int K, int N,
   const int nb = min(kARRows, B - b0);
   // this thread's part of the slice: rows rg + kARRowGroups * j, columns n .. n + 3;
   // rows past K and columns past N are zeros, which add nothing below
-  char4 w4[kARWordsPerThread];
+  typename Panel<WT>::Raw w4[kARWordsPerThread];
 #pragma unroll
   for (int j = 0; j < kARWordsPerThread; ++j) {
     const int kk = rg + kARRowGroups * j;
-    w4[j] = (kk < kn && n < N)
-                ? *reinterpret_cast<const char4*>(W + (size_t)(k0 + kk) * N + n)
-                : make_char4(0, 0, 0, 0);
+    w4[j] = (kk < kn && n < N) ? load_raw(W, (size_t)(k0 + kk) * N + n) : Panel<WT>::zero();
   }
   float sc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (n < N) {
+  if (n < N && s != nullptr) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) sc[j] = s[n + j];
   }
@@ -224,9 +270,7 @@ gemm_w8_partial(const float* __restrict__ x, int B, int K, int N,
   }
 #pragma unroll
   for (int j = 0; j < kARWordsPerThread; ++j)
-    ws[rg + kARRowGroups * j][cg] =
-        make_float4(bf16_round((float)w4[j].x * sc[0]), bf16_round((float)w4[j].y * sc[1]),
-                    bf16_round((float)w4[j].z * sc[2]), bf16_round((float)w4[j].w * sc[3]));
+    ws[rg + kARRowGroups * j][cg] = Panel<WT>::value(w4[j], sc);
   __syncthreads();
   float acc[kARRowsPerThread][4];
 #pragma unroll
@@ -380,8 +424,13 @@ slab_attention(const float* __restrict__ qkv, int H, int M,
   float mx = -INFINITY;
   for (int m = threadIdx.x; m <= M; m += blockDim.x) mx = fmaxf(mx, sc[m]);
   mx = block_max(mx, red);
+  // The sums below visit the slots in ring order, oldest first (position i
+  // is slot (ptr + i) mod M, the self term last), so their order does not
+  // depend on where a row's ring starts: a row that joins a resident batch
+  // at another pointer sums exactly as it does alone.
   float den = 0.f;
-  for (int m = threadIdx.x; m <= M; m += blockDim.x) {
+  for (int i = threadIdx.x; i <= M; i += blockDim.x) {
+    const int m = i < M - ptr ? i + ptr : (i < M ? i + ptr - M : M);
     const float e = expf(sc[m] - mx);
     sc[m] = e;
     den += e;
@@ -391,7 +440,8 @@ slab_attention(const float* __restrict__ qkv, int H, int M,
   const int8_t* vcol = vc + (size_t)b * M * HD + h * DH + 4 * c;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll 4
-  for (int m = grp; m < M; m += kSlotGroups) {
+  for (int i = grp; i < M; i += kSlotGroups) {
+    const int m = i < M - ptr ? i + ptr : i + ptr - M;
     const float ew = bf16_round(sc[m] * vs[(size_t)b * M + m]);
     const char4 v4 = *reinterpret_cast<const char4*>(vcol + (size_t)m * HD);
     a0 = fmaf(ew, (float)v4.x, a0);
@@ -456,16 +506,17 @@ inline size_t max_partial(int B, int D, int Dff, int HD, int ch) {
   return p * B;
 }
 
-// Split-K partial sums of bf16(x) . bf16(W * s) for all B rows into
-// partial[ceil_div(K, k_chunk(allrows))][B][N].
-cudaError_t gemv(bool allrows, const float* x, int B, int K, int N, const int8_t* W,
+// Split-K partial sums of bf16(x) . w for all B rows into
+// partial[ceil_div(K, k_chunk(allrows))][B][N] (w as in gemv_partial).
+template <typename WT>
+cudaError_t gemv(bool allrows, const float* x, int B, int K, int N, const WT* W,
                  const float* s, float* partial, cudaStream_t st) {
   if (allrows) {
     dim3 grid(ceil_div(N, kCols), ceil_div(K, kARChunk), ceil_div(B, kARRows));
-    gemm_w8_partial<<<grid, kThreads, kARSmem, st>>>(x, B, K, N, W, s, partial);
+    gemm_partial<WT><<<grid, kThreads, kARSmem, st>>>(x, B, K, N, W, s, partial);
   } else {
     dim3 grid(ceil_div(N, kCols), ceil_div(K, kKChunk), ceil_div(B, kRows));
-    gemv_w8_partial<<<grid, kThreads, 0, st>>>(x, B, K, N, W, s, partial);
+    gemv_partial<WT><<<grid, kThreads, 0, st>>>(x, B, K, N, W, s, partial);
   }
   return cudaGetLastError();
 }
@@ -493,8 +544,10 @@ cudaError_t attention(int Dh, int blocks, size_t smem, cudaStream_t st, Args... 
 }
 
 // One token step for all B rows through all L layers (see slab_w8_step).
-int step(bool allrows, const int8_t* qkv_w, const int8_t* out_w, const int8_t* ff1_w,
-         const int8_t* ff2_w, const float* w_scales, const __nv_bfloat16* ff1_b,
+// WT is the weight panels' type; w_scales is null for bf16 panels.
+template <typename WT>
+int step(bool allrows, const WT* qkv_w, const WT* out_w, const WT* ff1_w,
+         const WT* ff2_w, const float* w_scales, const __nv_bfloat16* ff1_b,
          const __nv_bfloat16* ff2_b, const float* ln1_g, const float* ln1_b,
          const float* ln2_g, const float* ln2_b, const __nv_bfloat16* wkr,
          const __nv_bfloat16* u, const __nv_bfloat16* v, int8_t* kt, float* ks,
@@ -518,7 +571,7 @@ int step(bool allrows, const int8_t* qkv_w, const int8_t* out_w, const int8_t* f
     if (err != cudaSuccess) return err;
   }
   if (allrows) {
-    err = cudaFuncSetAttribute(gemm_w8_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(gemm_partial<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kARSmem);
     if (err != cudaSuccess) return err;
   }
@@ -526,10 +579,13 @@ int step(bool allrows, const int8_t* qkv_w, const int8_t* out_w, const int8_t* f
                         cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return err;
   for (int l = 0; l < L; ++l) {
-    const float* sc = w_scales + (size_t)l * 8 * smax;
+    // column scales of the layer's qkv / out / ff1 / ff2 panels (int8 only)
+    auto sc = [&](int row) -> const float* {
+      return w_scales != nullptr ? w_scales + ((size_t)l * 8 + row) * smax : nullptr;
+    };
     const size_t kv_off = (size_t)l * B * M;
     // qkv projection
-    if ((err = gemv(allrows, h_out, B, D, 3 * HD, qkv_w + (size_t)l * D * 3 * HD, sc, part, st)))
+    if ((err = gemv(allrows, h_out, B, D, 3 * HD, qkv_w + (size_t)l * D * 3 * HD, sc(0), part, st)))
       return err;
     gemv_finish<<<ceil_div(B * 3 * HD, kThreads), kThreads, 0, st>>>(
         part, ceil_div(D, ch), B, 3 * HD, nullptr, kNone, qkv);
@@ -543,19 +599,19 @@ int step(bool allrows, const int8_t* qkv_w, const int8_t* out_w, const int8_t* f
                                           vc + kv_off * HD, vs + kv_off);
     if ((err = cudaGetLastError())) return err;
     // out projection + residual + post-LN
-    if ((err = gemv(allrows, attn, B, HD, D, out_w + (size_t)l * HD * D, sc + smax, part, st)))
+    if ((err = gemv(allrows, attn, B, HD, D, out_w + (size_t)l * HD * D, sc(1), part, st)))
       return err;
     add_layer_norm<<<B, kThreads, ln_smem, st>>>(h_out, part, ceil_div(HD, ch), B, D,
                                                  nullptr, ln1_g + (size_t)l * D,
                                                  ln1_b + (size_t)l * D, h1);
     if ((err = cudaGetLastError())) return err;
     // feed-forward + residual + post-LN
-    if ((err = gemv(allrows, h1, B, D, Dff, ff1_w + (size_t)l * D * Dff, sc + 2 * smax, part, st)))
+    if ((err = gemv(allrows, h1, B, D, Dff, ff1_w + (size_t)l * D * Dff, sc(2), part, st)))
       return err;
     gemv_finish<<<ceil_div(B * Dff, kThreads), kThreads, 0, st>>>(
         part, ceil_div(D, ch), B, Dff, ff1_b + (size_t)l * Dff, act, ffx);
     if ((err = cudaGetLastError())) return err;
-    if ((err = gemv(allrows, ffx, B, Dff, D, ff2_w + (size_t)l * Dff * D, sc + 3 * smax, part, st)))
+    if ((err = gemv(allrows, ffx, B, Dff, D, ff2_w + (size_t)l * Dff * D, sc(3), part, st)))
       return err;
     add_layer_norm<<<B, kThreads, ln_smem, st>>>(h1, part, ceil_div(Dff, ch), B, D,
                                                  ff2_b + (size_t)l * D,
@@ -570,13 +626,13 @@ int step(bool allrows, const int8_t* qkv_w, const int8_t* out_w, const int8_t* f
 
 extern "C" {
 
-// Float32 scratch elements slab_w8_step / slab_ar_w8_step need for these
-// sizes (the all-rows step's larger K slices need fewer partial sums).
+// Float32 scratch elements any of the four steps needs for these sizes (the
+// all-rows steps' larger K slices need fewer partial sums).
 size_t slab_w8_scratch_floats(int B, int D, int Dff, int HD) {
   return (size_t)B * (3 * HD + HD + D + Dff) + max_partial(B, D, Dff, HD, k_chunk(false));
 }
 
-// Kernel launches either step makes per call (for the launch accounting).
+// Kernel launches any step makes per call (for the launch accounting).
 int slab_w8_kernels_per_step(int L) { return 10 * L; }
 
 const char* slab_w8_error_string(int err) {
@@ -585,15 +641,16 @@ const char* slab_w8_error_string(int err) {
 
 // One token step for all B rows through all L layers. Pointers are device
 // pointers into contiguous tensors with the layouts of fused_slab_core:
-// qkv_w (L,D,3HD) out_w (L,HD,D) ff1_w (L,D,Dff) ff2_w (L,Dff,D) int8;
-// w_scales (L,8,smax) f32 (rows 0..3: qkv, out, ff1, ff2 column scales);
+// qkv_w (L,D,3HD) out_w (L,HD,D) ff1_w (L,D,Dff) ff2_w (L,Dff,D), int8 for
+// the _w8 steps and bf16 for slab_step / slab_ar_step; w_scales (L,8,smax)
+// f32 (rows 0..3: qkv, out, ff1, ff2 column scales), null for bf16 panels;
 // ff1_b (L,Dff) ff2_b (L,D) bf16; ln1_g/ln1_b/ln2_g/ln2_b (L,D) f32;
 // wkr (L,M+1,HD) bf16; u, v (HD) bf16; kt, vc (L,B,M,HD) int8 and ks, vs
 // (L,B,M) f32, updated in slot ptr only; h_in (B,D) f32; blocked (B,M) int32;
 // h_out (B,D) f32; scratch of slab_w8_scratch_floats(...) floats.
 // Returns the first CUDA error (0 = cudaSuccess). Does not synchronize.
-#define SLAB_STEP_ARGS                                                                  \
-  const int8_t *qkv_w, const int8_t *out_w, const int8_t *ff1_w, const int8_t *ff2_w,  \
+#define SLAB_STEP_ARGS(WT)                                                              \
+  const WT *qkv_w, const WT *out_w, const WT *ff1_w, const WT *ff2_w,                  \
       const float *w_scales, const __nv_bfloat16 *ff1_b, const __nv_bfloat16 *ff2_b,   \
       const float *ln1_g, const float *ln1_b, const float *ln2_g, const float *ln2_b,  \
       const __nv_bfloat16 *wkr, const __nv_bfloat16 *u, const __nv_bfloat16 *v,       \
@@ -606,10 +663,25 @@ const char* slab_w8_error_string(int err) {
       u, v, kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M,     \
       smax, ptr, scale, act, stream
 
-int slab_w8_step(SLAB_STEP_ARGS) { return step(false, SLAB_STEP_PASS); }
+int slab_w8_step(SLAB_STEP_ARGS(int8_t)) { return step<int8_t>(false, SLAB_STEP_PASS); }
 
 // The all-rows step: the same arguments, scratch and result, weight products
-// through gemm_w8_partial.
-int slab_ar_w8_step(SLAB_STEP_ARGS) { return step(true, SLAB_STEP_PASS); }
+// through gemm_partial.
+int slab_ar_w8_step(SLAB_STEP_ARGS(int8_t)) { return step<int8_t>(true, SLAB_STEP_PASS); }
+
+// The bf16-weight steps ("slab", "slab_ar"): bf16 panels, w_scales ignored.
+int slab_step(SLAB_STEP_ARGS(__nv_bfloat16)) {
+  return step<__nv_bfloat16>(false, qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b,
+                             ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v, kt, ks, vc, vs, h_in,
+                             blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+                             scale, act, stream);
+}
+
+int slab_ar_step(SLAB_STEP_ARGS(__nv_bfloat16)) {
+  return step<__nv_bfloat16>(true, qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b,
+                             ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v, kt, ks, vc, vs, h_in,
+                             blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+                             scale, act, stream);
+}
 
 }  // extern "C"

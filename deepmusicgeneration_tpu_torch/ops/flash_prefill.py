@@ -7,7 +7,9 @@ key-pad mask), without materializing the ``(B, H, W, W)`` scores. It
 replaces the TPU kernel of the same name in
 ``deepmusicgeneration_tpu/ops/flash_prefill.py``, both its whole-window
 (W <= 2048) and its row-blocked (2048 < W <= 8192) pallas_calls, with one
-hand-written kernel, ``csrc/flash_prefill.cu``, for any W % 64 == 0.
+hand-written kernel, ``csrc/flash_prefill.cu``, for any W (a tail tile
+covers a W that is not a multiple of 64) and d_head in
+:data:`KERNEL_HEAD_DIMS`.
 
 On a CUDA tensor the wrapper launches that kernel (built with nvcc on first
 use, bound with ctypes) or raises; on a CPU tensor it runs
@@ -26,7 +28,7 @@ from . import _build
 from .rel_attention import rel_attention
 
 BF16 = torch.bfloat16
-TILE = 64          # the kernel's query / key tile; W must be a multiple
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
 
 
 def flash_prefill_attention_plain(q, k, v, wkr, u_bias, v_bias, pad_mask,
@@ -92,7 +94,8 @@ def flash_prefill_attention(
 
     ``block_rows`` is the TPU kernel's query-row blocking (0 = its automatic
     choice); it is checked to divide W, as there, and does not change the
-    result: the CUDA kernel streams 64-row tiles at every W."""
+    result: the CUDA kernel streams 64-row tiles at every W, the last one a
+    tail tile when W % 64 != 0."""
     B, W, HD = q.shape
     H = n_heads
     if HD % H:
@@ -113,9 +116,9 @@ def flash_prefill_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_attention: unsupported device {q.device}")
     Dh = HD // H
-    if Dh not in (16, 32, 64, 128) or W % TILE:
-        raise ValueError(f"the flash prefill kernel needs d_head in {{16, 32, 64, "
-                         f"128}} and W % {TILE} == 0; got d_head={Dh}, W={W}")
+    if Dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash prefill kernel needs d_head in "
+                         f"{KERNEL_HEAD_DIMS}; got d_head={Dh}")
     if pad_mask.dtype != torch.bool:
         raise TypeError(f"pad_mask: dtype {pad_mask.dtype}, expected torch.bool")
     operands = {"q": q, "k": k, "v": v, "wkr": wkr,

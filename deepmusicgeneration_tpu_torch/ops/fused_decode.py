@@ -1,25 +1,27 @@
 """Fused single-token decode step through the whole layer stack.
 
-``fused_slab_core`` (``slab_w8``) advances every batch row by one token
-through all L layers: int8-weight matvecs, attention over an int8 slot-major
-KV ring with the relative-position term rolled by the ring pointer, the
-in-place write of the fresh token's quantized K/V into slot ``ptr``, and the
-post-norm block tail with tanh GELU. It replaces the TPU kernel of the same
-name in ``deepmusicgeneration_tpu/ops/fused_decode.py`` for
-``score_mode="bf16"`` with ``weights_int8=True``; the other modes are still
-to port.
+``fused_slab_core`` advances every batch row by one token through all L
+layers: weight matvecs, attention over an int8 slot-major KV ring with the
+relative-position term rolled by the ring pointer, the in-place write of the
+fresh token's quantized K/V into slot ``ptr``, and the post-norm block tail
+with tanh GELU. It replaces the TPU kernel of the same name in
+``deepmusicgeneration_tpu/ops/fused_decode.py`` for ``score_mode="bf16"``
+in two modes: ``slab_w8`` (``weights_int8=True``: int8 weight panels with
+per-column scales) and ``slab`` (``weights_int8=False``: bf16 panels used as
+they are). The int8-score and int4-cache modes are still to port.
 
-``fused_slab_allrows_core`` (``slab_ar_w8``) computes the same step, with
-the same cache layout and result; it replaces the TPU kernel of that name
-with ``weights_int8=True``. Its CUDA version reads each layer's weights once
-for all B rows (the batched path, B % 8 == 0).
+``fused_slab_allrows_core`` computes the same step, with the same cache
+layout and result, in the modes ``slab_ar_w8`` and ``slab_ar``; it replaces
+the TPU kernel of that name. Its CUDA version reads each layer's weights
+once for all B rows (the batched path, B % 8 == 0).
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` (built with nvcc on first use, bound with ctypes) or
-raises; on a CPU tensor it runs :func:`slab_w8_plain`, the same arithmetic in
+raises; on a CPU tensor it runs :func:`slab_plain`, the same arithmetic in
 plain PyTorch. Unlike the JAX functions, whose cache operands are donated
 and aliased, the port updates ``kt``/``ks``/``vc``/``vs`` in place and
-returns them.
+returns them. Each wrapper's ``launches`` dict counts its kernel launches
+by mode.
 """
 
 from __future__ import annotations
@@ -36,6 +38,15 @@ from . import _build
 NEG_INF = -1e9
 F32 = torch.float32
 BF16 = torch.bfloat16
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernels are built for
+
+
+def kernel_accepts(cfg) -> bool:
+    """Whether the CUDA slab kernels take this config's widths: d_head in
+    :data:`KERNEL_HEAD_DIMS` and d_model, d_inner multiples of 4 (the
+    weight products read four columns at a time)."""
+    return (cfg.d_head in KERNEL_HEAD_DIMS and cfg.d_model % 4 == 0
+            and cfg.d_inner % 4 == 0)
 
 
 class StackedTXL(NamedTuple):
@@ -134,13 +145,16 @@ def _bf(x, acc=F32):
     return x.to(BF16).to(acc)
 
 
-def slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
-                  blocked, ptr: int, acc: torch.dtype = F32):
-    """Plain PyTorch version of the ``slab_w8`` step (same arithmetic and
-    rounding points as the kernel); updates the caches in place.
+def slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
+               blocked, ptr: int, acc: torch.dtype = F32):
+    """Plain PyTorch version of the slab step in both weight modes (same
+    arithmetic and rounding points as the kernels); updates the caches in
+    place. ``w_scales`` given: int8 panels dequantized per column and
+    rounded to bf16 (``slab_w8``, ``slab_ar_w8``); ``None``: bf16 panels used
+    as they are (``slab``, ``slab_ar``).
 
     ``acc`` is the dtype of everything between the bf16 cast points: float32,
-    as in the kernel, or float64 for a reference of how far a float32
+    as in the kernels, or float64 for a reference of how far a float32
     summation order can drift."""
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
@@ -150,7 +164,10 @@ def slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
     h = h_in.to(acc)
     masked = blocked[:, None, :] != 0
     for l in range(L):
-        deq = lambda w, row, n: _bf(w[l].to(acc) * w_scales[l, row:row + 1, :n], acc)
+        if w_scales is None:
+            deq = lambda w, row, n: w[l].to(acc)
+        else:
+            deq = lambda w, row, n: _bf(w[l].to(acc) * w_scales[l, row:row + 1, :n], acc)
         W_qkv, W_out = deq(stacked.qkv_w, 0, 3 * HD), deq(stacked.out_w, 1, D)
         W_ff1, W_ff2 = deq(stacked.ff1_w, 2, Dff), deq(stacked.ff2_w, 3, D)
         qkv = _bf(h, acc) @ W_qkv
@@ -206,7 +223,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _slab_lib() -> ctypes.CDLL:
     lib = _build.load("slab_decode")
-    for step in (lib.slab_w8_step, lib.slab_ar_w8_step):
+    for step in (lib.slab_w8_step, lib.slab_ar_w8_step, lib.slab_step,
+                 lib.slab_ar_step):
         step.restype = ctypes.c_int
         step.argtypes = [_P] * 22 + [_I] * 9 + [ctypes.c_float, _I, _P]
     lib.slab_w8_scratch_floats.restype = ctypes.c_size_t
@@ -220,13 +238,14 @@ def _slab_lib() -> ctypes.CDLL:
 
 def kernels_per_step(n_layers: int) -> int:
     """CUDA kernel launches inside one ``fused_slab_core`` or
-    ``fused_slab_allrows_core`` launch."""
+    ``fused_slab_allrows_core`` launch (any mode)."""
     return _slab_lib().slab_w8_kernels_per_step(n_layers)
 
 
-def _launch_slab(prefix: str, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks,
+def _launch_slab(mode: str, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks,
                  vc, vs, blocked, ptr: int):
-    """Run ``csrc/slab_decode.cu``'s ``<prefix>_step`` (slab_w8 / slab_ar_w8)."""
+    """Run ``csrc/slab_decode.cu``'s ``<mode>_step`` (slab_w8, slab_ar_w8,
+    slab or slab_ar; ``w_scales`` is None for the bf16 modes)."""
     lib = _slab_lib()
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
@@ -240,22 +259,24 @@ def _launch_slab(prefix: str, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks,
             stacked.ff1_b, stacked.ff2_b, stacked.ln1_g, stacked.ln1_b,
             stacked.ln2_g, stacked.ln2_b, wkr_mt, stacked.u, stacked.v,
             kt, ks, vc, vs, h_in, blocked, h_out, scratch]
+    smax = 0 if w_scales is None else w_scales.shape[2]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{prefix}_step")(
-            *[t.data_ptr() for t in ptrs],
-            L, B, D, Dff, H, Dh, M, w_scales.shape[2], ptr,
+        err = getattr(lib, f"{mode}_step")(
+            *[None if t is None else t.data_ptr() for t in ptrs],
+            L, B, D, Dff, H, Dh, M, smax, ptr,
             scale, _ACT_CODES[cfg.act], stream)
     if err != 0:
-        raise RuntimeError(f"{prefix} kernel failed: CUDA error {err} "
+        raise RuntimeError(f"{mode} kernel failed: CUDA error {err} "
                            f"({lib.slab_w8_error_string(err).decode()})")
     return h_out, kt, ks, vc, vs
 
 
 def _check_step_inputs(stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked,
-                       ptr: int, mem_len: int, rows_per_cell: int, w_scales):
+                       ptr: int, mem_len: int, rows_per_cell: int,
+                       weights_int8: bool, w_scales):
     """Validate the operands of either slab step; returns the device."""
-    if w_scales is None:
+    if weights_int8 and w_scales is None:
         raise ValueError("weights_int8=True requires w_scales (from "
                          "quantize_stacked_weights)")
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
@@ -270,11 +291,12 @@ def _check_step_inputs(stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked,
         raise ValueError(f"unsupported activation {cfg.act!r}")
     dev = h_in.device
     smax = max(3 * HD, D, Dff)
-    for name, t, dtype, shape in (
-            ("qkv_w", stacked.qkv_w, torch.int8, (L, D, 3 * HD)),
-            ("out_w", stacked.out_w, torch.int8, (L, HD, D)),
-            ("ff1_w", stacked.ff1_w, torch.int8, (L, D, Dff)),
-            ("ff2_w", stacked.ff2_w, torch.int8, (L, Dff, D)),
+    wdt = torch.int8 if weights_int8 else BF16
+    checks = [
+            ("qkv_w", stacked.qkv_w, wdt, (L, D, 3 * HD)),
+            ("out_w", stacked.out_w, wdt, (L, HD, D)),
+            ("ff1_w", stacked.ff1_w, wdt, (L, D, Dff)),
+            ("ff2_w", stacked.ff2_w, wdt, (L, Dff, D)),
             ("ff1_b", stacked.ff1_b, BF16, (L, 1, Dff)),
             ("ff2_b", stacked.ff2_b, BF16, (L, 1, D)),
             ("ln1_g", stacked.ln1_g, F32, (L, 1, D)),
@@ -283,17 +305,19 @@ def _check_step_inputs(stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked,
             ("ln2_b", stacked.ln2_b, F32, (L, 1, D)),
             ("u", stacked.u, BF16, (1, HD)),
             ("v", stacked.v, BF16, (1, HD)),
-            ("w_scales", w_scales, F32, (L, 8, smax)),
             ("h_in", h_in, F32, (B, D)),
             ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
             ("kt", kt, torch.int8, (L, B, M, HD)),
             ("ks", ks, F32, (L, B, M, 1)),
             ("vc", vc, torch.int8, (L, B, M, HD)),
             ("vs", vs, F32, (L, B, M, 1)),
-            ("blocked", blocked, torch.int32, (B, M))):
+            ("blocked", blocked, torch.int32, (B, M))]
+    if weights_int8:
+        checks.append(("w_scales", w_scales, F32, (L, 8, smax)))
+    for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
-    if dev.type == "cuda" and (Dh not in (16, 32, 64, 128) or D % 4 or Dff % 4):
-        raise ValueError("the slab kernels need d_head in {16, 32, 64, 128} "
+    if dev.type == "cuda" and not kernel_accepts(cfg):
+        raise ValueError(f"the slab kernels need d_head in {KERNEL_HEAD_DIMS} "
                          "and widths that are multiples of 4")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -321,27 +345,32 @@ def fused_slab_core(
     """Slab-write decode core. Returns (h_out, kt, ks, vc, vs), the caches
     updated in place in slot ``ptr``.
 
-    Only ``score_mode="bf16"`` with ``weights_int8=True`` (``slab_w8``) is
-    ported. ``rows_per_cell`` is the TPU kernel's row tiling; it is checked
-    to divide the batch, as there, and does not change the result.
+    Ported: ``score_mode="bf16"`` without ``kv_int4``, with int8 weights
+    (``weights_int8=True``, ``slab_w8``) or bf16 weights (``slab``; any
+    ``w_scales`` is ignored, as in the JAX function). ``rows_per_cell`` is
+    the TPU kernel's row tiling; it is checked to divide the batch, as
+    there, and does not change the result.
     """
-    if score_mode != "bf16" or not weights_int8 or kv_int4:
+    if score_mode != "bf16" or kv_int4:
         raise NotImplementedError(
-            "only the slab_w8 mode (score_mode='bf16', weights_int8=True, "
-            "kv_int4=False) is ported; the other slab modes are still to port "
-            "(ROADMAP.md)")
+            "only the slab and slab_w8 modes (score_mode='bf16', "
+            "kv_int4=False) are ported; slab_int8, slab4 and slab4_w8 are "
+            "still to port (ROADMAP.md)")
     ptr = int(ptr)
+    w_scales = w_scales if weights_int8 else None
     args = (stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked, ptr)
-    dev = _check_step_inputs(*args, mem_len, rows_per_cell, w_scales)
+    dev = _check_step_inputs(*args, mem_len, rows_per_cell, weights_int8, w_scales)
     if dev.type == "cpu":
-        return slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
-                             vs, blocked, ptr)
-    out = _launch_slab("slab_w8", stacked, w_scales, *args[1:])
-    fused_slab_core.launches += 1
+        return slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
+                          vs, blocked, ptr)
+    mode = "slab_w8" if weights_int8 else "slab"
+    out = _launch_slab(mode, stacked, w_scales, *args[1:])
+    fused_slab_core.launches[mode] += 1
     return out
 
 
-fused_slab_core.launches = 0  # kernel launches (CUDA tensors only)
+# kernel launches by mode (CUDA tensors only)
+fused_slab_core.launches = {"slab_w8": 0, "slab": 0}
 
 
 def fused_slab_allrows_core(
@@ -364,25 +393,24 @@ def fused_slab_allrows_core(
     updated in place in slot ``ptr``.
 
     The same contract and cache layout as :func:`fused_slab_core`; on the
-    card each layer's weights are read once for all B rows. Only
-    ``weights_int8=True`` (``slab_ar_w8``) is ported. ``rows_per_cell`` is
-    the TPU kernel's KV streaming group (``min(rows_per_cell, B)`` rows); it
-    is checked to divide the batch, as there, and does not change the
-    result."""
-    if not weights_int8:
-        raise NotImplementedError(
-            "only slab_ar_w8 (weights_int8=True) is ported; the bf16-weight "
-            "slab_ar mode is still to port (ROADMAP.md)")
+    card each layer's weights are read once for all B rows. Both weight
+    modes are ported: ``slab_ar_w8`` (``weights_int8=True``) and ``slab_ar``
+    (bf16 panels; any ``w_scales`` is ignored). ``rows_per_cell`` is the TPU
+    kernel's KV streaming group (``min(rows_per_cell, B)`` rows); it is
+    checked to divide the batch, as there, and does not change the result."""
     ptr = int(ptr)
+    w_scales = w_scales if weights_int8 else None
     args = (stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked, ptr)
     dev = _check_step_inputs(*args, mem_len, min(rows_per_cell, h_in.shape[0]),
-                             w_scales)
+                             weights_int8, w_scales)
     if dev.type == "cpu":
-        return slab_w8_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
-                             vs, blocked, ptr)
-    out = _launch_slab("slab_ar_w8", stacked, w_scales, *args[1:])
-    fused_slab_allrows_core.launches += 1
+        return slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
+                          vs, blocked, ptr)
+    mode = "slab_ar_w8" if weights_int8 else "slab_ar"
+    out = _launch_slab(mode, stacked, w_scales, *args[1:])
+    fused_slab_allrows_core.launches[mode] += 1
     return out
 
 
-fused_slab_allrows_core.launches = 0  # kernel launches (CUDA tensors only)
+# kernel launches by mode (CUDA tensors only)
+fused_slab_allrows_core.launches = {"slab_ar_w8": 0, "slab_ar": 0}

@@ -31,6 +31,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..decode.engine import expand_temperatures
+
 
 @dataclass(frozen=True)
 class _ReqKey:
@@ -73,8 +75,7 @@ class GenerationService:
         """Queue one prompt; the future resolves to its new token ids."""
         if self._closed:
             raise RuntimeError("service closed")
-        if len(temperatures) == 2:
-            temperatures = (temperatures[0], temperatures[1], temperatures[1])
+        temperatures = expand_temperatures(temperatures)
         req = _Request(
             seed=np.asarray(seed_idxenc),
             key=_ReqKey(n_words, tuple(float(t) for t in temperatures),

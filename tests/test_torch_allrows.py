@@ -121,18 +121,19 @@ def test_plain_slab_ar_w8_matches_pallas_interpret(model, R, ptr, full):
                                    rtol=SCALE_RTOL, atol=0)
         np.testing.assert_allclose(got[1 + i][1:, :, ptr], ref[1 + i][1:, :, ptr],
                                    rtol=SCALE_RTOL_DEEP, atol=0)
-    assert tfd.fused_slab_allrows_core.launches == 0   # CPU: no kernel launch
+    assert tfd.fused_slab_allrows_core.launches["slab_ar_w8"] == 0   # CPU: no kernel launch
 
 
 def test_allrows_checks_its_arguments(model):
     jcfg, cfg, _, (tst, tws), wkr_mt = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfd.fused_slab_allrows_core(tst, cfg, None, None, None, None, None, None,
-                                    None, 0, jcfg.mem_len, weights_int8=False)
     kv, h_in, blocked = _ring(jcfg, 3, True, seed=1)
     wkr_t = torch.from_numpy(np.array(wkr_mt.astype(jnp.float32))).bfloat16()
     args = [torch.from_numpy(h_in), wkr_t,
             *[torch.from_numpy(t.copy()) for t in kv], torch.from_numpy(blocked)]
+    # the bf16-weight mode (slab_ar) takes bf16 panels, not int8 ones
+    with pytest.raises(TypeError, match="qkv_w"):
+        tfd.fused_slab_allrows_core(tst, cfg, *args, 3, jcfg.mem_len,
+                                    weights_int8=False)
     with pytest.raises(ValueError, match="rows_per_cell"):
         tfd.fused_slab_allrows_core(tst, cfg, *args, 3, jcfg.mem_len,
                                     rows_per_cell=6, weights_int8=True, w_scales=tws)

@@ -22,6 +22,7 @@ from deepmusicgeneration_tpu_torch.codec.item import MusicItem
 from deepmusicgeneration_tpu_torch.codec.validate import roundtrip_ok
 from deepmusicgeneration_tpu_torch.decode.engine import GenerationEngine
 from deepmusicgeneration_tpu_torch.models.config import TXLConfig, small_test_config
+from deepmusicgeneration_tpu_torch.models.txl import _flash_auto as txl_rule
 from deepmusicgeneration_tpu_torch.ops import fused_decode
 from deepmusicgeneration_tpu_torch.ops import sampling
 from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
@@ -125,6 +126,50 @@ def test_resolve_kernel_policy(vocab):
     assert engine.resolve_kernel(1, decode_kernel="xla") == "xla"
 
 
+def test_two_temperatures_expand_like_jax(song_midi, vocab):
+    """A (t_note, t_dur) pair is (t_note, t_dur, t_dur), as in the JAX
+    engine: the same greedy tokens as the 3-tuple, and the same sampled
+    tokens from the same seed (the temperatures shape the draw)."""
+    engine = MusicLearner.load(DEMO, device="cpu").engine
+    prompt = MusicItem.from_file(song_midi, vocab).trim_to_beat(16) \
+        .set_genre("pop").remove_eos().data
+    kw = dict(n_words=24, top_p=0.9, min_bars=1)
+    pair = engine.generate_batch([prompt], temperatures=(0.7, 1.6), greedy=True, **kw)
+    three = engine.generate_batch([prompt], temperatures=(0.7, 1.6, 1.6), greedy=True,
+                                  **kw)
+    np.testing.assert_array_equal(pair[0], three[0])
+    np.testing.assert_array_equal(pair[1], three[1])
+    toks, lengths = engine.generate_batch([prompt], temperatures=(0.5, 2.0), seed=4,
+                                          **kw)
+    ref = engine.generate_batch([prompt], temperatures=(0.5, 2.0, 2.0), seed=4, **kw)
+    assert 0 < lengths[0] <= 24
+    np.testing.assert_array_equal(toks, ref[0])
+
+
+def test_auto_rules_respect_kernel_limits(vocab):
+    """The card's rules, read with the device given as an argument: at
+    ctx_len = mem_len = 96 (W = 96, not a multiple of 64) the flash prefill
+    (which has a tail tile) and the slab kernels apply; at d_head = 48,
+    which the kernels are not built for, the rules pick the materialized
+    prefill and the exact decode, and an explicit slab kernel raises."""
+    engine = MusicLearner.load(DEMO, device="cpu").engine
+    engine.device = torch.device("cuda")                # the rule on a card
+    cuda = torch.device("cuda")
+    x8 = lambda W: torch.zeros((8, W), dtype=torch.long)
+    base = engine.cfg
+    engine.cfg = base.replace(ctx_len=96, mem_len=96)
+    assert txl_rule(engine.cfg, x8(96), cuda)
+    assert [engine.resolve_kernel(b) for b in (1, 8)] == ["slab_w8", "slab_ar_w8"]
+    engine.cfg = base.replace(d_model=384, n_heads=8, d_head=48)
+    assert not txl_rule(engine.cfg, x8(96), cuda)
+    assert not txl_rule(engine.cfg, torch.zeros((2, 4096), dtype=torch.long), cuda)
+    assert [engine.resolve_kernel(b) for b in (1, 8)] == ["xla", "xla"]
+    with pytest.raises(ValueError, match="d_head=48"):
+        engine.generate_batch([np.arange(12, 40)], n_words=4, decode_kernel="slab_w8")
+    engine.cfg = base
+    assert txl_rule(base, x8(256), cuda) and not txl_rule(base, x8(256), "cpu")
+
+
 def test_device_none_means_the_card(vocab):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -156,7 +201,7 @@ def test_slab_w8_path_end_to_end_on_cpu(song_midi, vocab, tmp_path):
                                   decode_kernel="slab_w8")
     full = seed_item.append(MusicItem(new, vocab))
     _checked_continuation(full, seed_item, vocab, tmp_path)
-    assert fused_decode.fused_slab_core.launches == 0   # CPU: no kernel launch
+    assert fused_decode.fused_slab_core.launches["slab_w8"] == 0   # CPU: no kernel launch
 
 
 def test_predict_nw_genre_on_cpu(song_midi, vocab, tmp_path):

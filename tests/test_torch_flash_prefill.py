@@ -3,8 +3,9 @@ the JAX package.
 
 The plain PyTorch version of ``flash_prefill_attention`` (what the wrapper
 runs for CPU tensors) is held against JAX ``flash_prefill_attention`` in
-Pallas interpret mode: the whole-window kernel at W = 128 and the
-row-blocked kernel (``block_rows=128``) at W = 512, with left-padded rows.
+Pallas interpret mode: the whole-window kernel at W = 128 and W = 96 (not a
+multiple of the CUDA kernel's 64-row tile) and the row-blocked kernel
+(``block_rows=128``) at W = 512, with left-padded rows.
 The whole prefill is held against JAX ``txl.prefill(flash=True)`` with the
 kernel patched to interpret mode, as ``tests/test_fused_decode.py`` does.
 The CUDA kernel itself is held against the plain version in the
@@ -37,8 +38,8 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("W,block_rows", [(128, 0), (512, 128)],
-                         ids=["whole", "blocked"])
+@pytest.mark.parametrize("W,block_rows", [(128, 0), (512, 128), (96, 0)],
+                         ids=["whole", "blocked", "tail"])
 def test_plain_matches_pallas_interpret(W, block_rows, dtype):
     B, H, Dh = 2, 2, 64
     HD = H * Dh

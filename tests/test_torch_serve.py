@@ -109,7 +109,7 @@ def test_slab_ar_w8_generation_matches_jax(vocab):
             prompts, n_words=8, greedy=True, decode_kernel="slab_ar_w8")
     np.testing.assert_array_equal(got, np.asarray(ref))
     np.testing.assert_array_equal(got_len, np.asarray(ref_len))
-    assert fused_decode.fused_slab_allrows_core.launches == 0   # CPU: plain
+    assert fused_decode.fused_slab_allrows_core.launches["slab_ar_w8"] == 0   # CPU: plain
     assert flash_prefill.flash_prefill_attention.launches == 0
 
 
