@@ -4,15 +4,18 @@ A JSON API over the generation services:
 
     POST /generate   {"midi_b64": ..., "genre": "jazz", "n_words": 256, ...}
                    → {"tokens": [...], "midi_b64": ..., "n_tokens": N}
+    POST /remix      {"midi_b64": ..., "pred_type": "notes", "mask_proportion": 0.6}
+                   → {"tokens": [...], "midi_b64": ..., "n_tokens": N}
+    POST /harmonize  {"midi_b64": ..., "pred_melody": true, "n_words": 200}
+                   → {"midi_b64": ...}
     POST /tokenize   {"midi_b64": ...} → {"tokens": [...], "text": "...", "n_tokens": N}
     GET  /health     → {"ok": true}
-    POST /remix, /harmonize → 501 until the multitask model is ported
-                     (ROADMAP.md Queue 1, item 12)
 
 Concurrent /generate requests ride the static coalescing
 :class:`..tasks.serve.GenerationService`, or, with ``continuous=True``, the
-continuous-batching :class:`..decode.continuous.ContinuousGenerationService`.
-Run:
+continuous-batching :class:`..decode.continuous.ContinuousGenerationService`;
+/remix and /harmonize run the multitask learner (``createRemixModel``,
+loaded on the first such request, as the JAX package does). Run:
 
     python -m deepmusicgeneration_tpu_torch serve --port 8711 [--continuous] [--device cpu]
 """
@@ -30,21 +33,20 @@ from ..codec.item import MusicItem
 from ..vocab import BOS, MusicVocab, genre_prefix_token
 
 
-class NotPorted(Exception):
-    """A route whose model is not ported yet (answered with 501)."""
-
-
 class MusicServer:
-    def __init__(self, genre_learner=None, max_batch: int = 16,
+    def __init__(self, genre_learner=None, multitask_learner=None, max_batch: int = 16,
                  continuous: bool = False, device=None):
         """``genre_learner``: a loaded ``MusicLearner``, or None to load
         ``createGenreContinuationModel(device=device)`` on the first
-        /generate. ``continuous=True`` serves /generate from the
+        /generate; ``multitask_learner`` likewise a ``MultitaskLearner`` or
+        None for ``createRemixModel(device=device)`` on the first /remix or
+        /harmonize. ``continuous=True`` serves /generate from the
         continuous-batching engine: requests join a resident device batch
         within one chunk of arriving, requests with different sampling
         settings share it, and early-stopping rows free their lane at once."""
         self.vocab = MusicVocab.create()
         self._genre = genre_learner
+        self._multi = multitask_learner
         self._service = None
         # RLock: service() holds it while calling genre(), which locks again
         self._lock = threading.RLock()
@@ -59,6 +61,13 @@ class MusicServer:
                 from .app_utils import createGenreContinuationModel
                 self._genre = createGenreContinuationModel(device=self.device)
             return self._genre
+
+    def multi(self):
+        with self._lock:
+            if self._multi is None:
+                from .app_utils import createRemixModel
+                self._multi = createRemixModel(device=self.device)
+            return self._multi
 
     def service(self):
         # the same lock as genre(): two concurrent first /generate requests
@@ -105,9 +114,26 @@ class MusicServer:
                 "midi_b64": base64.b64encode(
                     full.to_midi_bytes(bpm=float(req.get("bpm", 120)))).decode()}
 
-    def handle_multitask(self, req: dict) -> dict:
-        raise NotPorted("remix and harmonize need the multitask model, which is "
-                        "not ported yet (ROADMAP.md Queue 1, item 12)")
+    def handle_remix(self, req: dict) -> dict:
+        from ..tasks.remix import predict_mask_remix
+        pred = predict_mask_remix(
+            self.multi(), base64.b64decode(req["midi_b64"]), genre=req.get("genre", "auto"),
+            pred_type=req.get("pred_type", "notes"),
+            mask_proportion=float(req.get("mask_proportion", 0.6)),
+            cutoff_beat=float(req.get("cutoff_beat", 32)), seed=int(req.get("seed", 0)))
+        return {"tokens": pred.data.tolist(), "n_tokens": len(pred),
+                "midi_b64": base64.b64encode(
+                    pred.to_midi_bytes(bpm=float(req.get("bpm", 120)))).decode()}
+
+    def handle_harmonize(self, req: dict) -> dict:
+        from ..tasks.harmonize import s2s_predict_from_midi
+        multitrack = s2s_predict_from_midi(
+            self.multi(), base64.b64decode(req["midi_b64"]),
+            n_words=int(req.get("n_words", 200)),
+            pred_melody=bool(req.get("pred_melody", True)), seed_len=req.get("seed_len"),
+            seed=int(req.get("seed", 0)))
+        return {"midi_b64": base64.b64encode(
+            multitrack.to_midi_bytes(bpm=float(req.get("bpm", 120)))).decode()}
 
     def close(self):
         if self._service is not None:
@@ -118,8 +144,8 @@ def make_handler(server: MusicServer):
     routes = {
         "/tokenize": server.handle_tokenize,
         "/generate": server.handle_generate,
-        "/remix": server.handle_multitask,
-        "/harmonize": server.handle_multitask,
+        "/remix": server.handle_remix,
+        "/harmonize": server.handle_harmonize,
     }
 
     class Handler(BaseHTTPRequestHandler):
@@ -151,8 +177,6 @@ def make_handler(server: MusicServer):
                 self._send(200, fn(req))
             except KeyError as e:
                 self._send(400, {"error": f"missing field {e}"})
-            except NotPorted as e:
-                self._send(501, {"error": str(e)})
             except Exception as e:
                 self._send(500, {"error": repr(e)})
 
@@ -167,7 +191,7 @@ def serve(port: int = 8711, host: str = "127.0.0.1", max_batch: int = 16,
     server = MusicServer(max_batch=max_batch, continuous=continuous, device=device)
     httpd = ThreadingHTTPServer((host, port), make_handler(server))
     print(f"serving on http://{host}:{httpd.server_address[1]} "
-          f"(/health /tokenize /generate; /remix /harmonize answer 501)")
+          f"(/health /tokenize /generate /remix /harmonize)")
     try:
         httpd.serve_forever()
     finally:

@@ -1,13 +1,16 @@
 """Command-line interface of the PyTorch port.
 
     python -m deepmusicgeneration_tpu_torch generate --midi in.mid --genre jazz
+    python -m deepmusicgeneration_tpu_torch remix --midi in.mid --pred-type notes
+    python -m deepmusicgeneration_tpu_torch harmonize --midi in.mid
     python -m deepmusicgeneration_tpu_torch serve --port 8711 [--continuous]
     python -m deepmusicgeneration_tpu_torch tokenize --midi in.mid
 
-``generate`` (genre-conditioned continuation), ``serve`` (the HTTP
-endpoint) and ``tokenize`` are ported; the other subcommands of the JAX
-package are still to port (ROADMAP.md). ``--device cpu`` runs on the CPU;
-the default is the CUDA card.
+``generate`` (genre-conditioned continuation), ``remix`` (mask infill),
+``harmonize`` (seq2seq), ``serve`` (the HTTP endpoint) and ``tokenize`` are
+ported; the other subcommands of the JAX package are still to port
+(ROADMAP.md). ``--device cpu`` runs on the CPU; the default is the CUDA
+card.
 """
 
 from __future__ import annotations
@@ -28,6 +31,27 @@ def cmd_generate(args):
         output_bpm=args.bpm, seed=args.seed)
     full.write_midi(args.out, bpm=args.bpm)
     print(f"wrote {args.out} ({len(full)} tokens)")
+
+
+def cmd_remix(args):
+    from .app.app_utils import createRemixModel, predictMaskModel
+    model = createRemixModel(ckpt_path=args.ckpt, device=args.device)
+    pred = predictMaskModel(
+        model, args.midi, genre=args.genre, pred_type=args.pred_type,
+        mask_proportion=args.mask_proportion, cutoff_beat=args.cutoff_beat,
+        output_bpm=args.bpm, seed=args.seed)
+    pred.write_midi(args.out, bpm=args.bpm)
+    print(f"wrote {args.out} ({len(pred)} tokens)")
+
+
+def cmd_harmonize(args):
+    from .app.app_utils import createS2SModel
+    from .tasks.harmonize import s2s_predict_from_midi
+    model = createS2SModel(ckpt_path=args.ckpt, device=args.device)
+    multitrack = s2s_predict_from_midi(model, args.midi, n_words=args.max_len,
+                                       pred_melody=args.pred_melody, seed=args.seed)
+    multitrack.write_midi(args.out, bpm=args.bpm)
+    print(f"wrote {args.out}")
 
 
 def cmd_serve(args):
@@ -70,6 +94,32 @@ def main(argv=None):
     g.add_argument("--bpm", type=float, default=120)
     g.add_argument("--seed", type=int, default=0)
     g.set_defaults(fn=cmd_generate)
+
+    r = sub.add_parser("remix", help="mask-infill remix (multitask model)")
+    r.add_argument("--midi", required=True)
+    r.add_argument("--genre", default="auto")
+    r.add_argument("--out", default="outputs/remix_output.mid")
+    r.add_argument("--ckpt", default="./checkpoints/mask_music_model")
+    r.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    r.add_argument("--pred-type", choices=["notes", "duration"], default="notes")
+    r.add_argument("--mask-proportion", type=float, default=0.6)
+    r.add_argument("--cutoff-beat", type=float, default=32)
+    r.add_argument("--bpm", type=float, default=120)
+    r.add_argument("--seed", type=int, default=0)
+    r.set_defaults(fn=cmd_remix)
+
+    h = sub.add_parser("harmonize", help="seq2seq melody / accompaniment")
+    h.add_argument("--midi", required=True)
+    h.add_argument("--out", default="outputs/s2s_output.mid")
+    h.add_argument("--ckpt", default="./checkpoints/s2s_model")
+    h.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    h.add_argument("--max-len", type=int, default=200)
+    h.add_argument("--pred-melody", action="store_true")
+    h.add_argument("--bpm", type=float, default=120)
+    h.add_argument("--seed", type=int, default=0)
+    h.set_defaults(fn=cmd_harmonize)
 
     sv = sub.add_parser("serve", help="HTTP generation service")
     sv.add_argument("--port", type=int, default=8711)

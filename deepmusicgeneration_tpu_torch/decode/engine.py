@@ -81,11 +81,19 @@ def expand_temperatures(temperatures) -> tuple:
 
 @dataclass(frozen=True)
 class SamplerSettings:
-    """Static sampling configuration."""
+    """Static sampling configuration. The defaults are the genre engine's;
+    the seq2seq engine turns off the min-bars BOS ban and the bar-boundary
+    stop, and stops on a sampled EOS or past a maximum position
+    (``decode.multitask_engine``). The temperature slots come with the
+    tables (``build_tables``)."""
 
     n_words: int = 512
     top_k: int = 30
     greedy: bool = False
+    use_min_bars_ban: bool = True
+    bar_stop: bool = True      # 80%-budget bar-boundary early stop
+    pos_stop: bool = False     # stop past max_pos (seq2seq)
+    eos_stop: bool = False     # stop on a sampled EOS (seq2seq)
 
 
 class DecodeTables(NamedTuple):
@@ -95,19 +103,23 @@ class DecodeTables(NamedTuple):
     temp_slot: torch.Tensor    # (V,) int64
     sep_idx: int
     bos_idx: int
+    eos_idx: int
     ni_idx: int
     pad_idx: int
     dur_lo: int
 
 
-def build_tables(vocab: MusicVocab, device=None) -> DecodeTables:
-    """The grammar and genre temperature-slot tables on ``device``."""
+def build_tables(vocab: MusicVocab, temp_mode: str = "genre", strict: bool = True,
+                 device=None) -> DecodeTables:
+    """The grammar and temperature-slot tables on ``device``: ``temp_mode``
+    'genre' (three temperatures) or 'twotemp' (the multitask engines')."""
     return DecodeTables(
-        allowed=torch.from_numpy(G.allowed_table(vocab, strict=True)).to(device),
+        allowed=torch.from_numpy(G.allowed_table(vocab, strict=strict)).to(device),
         prev_class=torch.from_numpy(G.prev_class_table(vocab)).long().to(device),
-        temp_slot=torch.from_numpy(G.temp_slot_table(vocab, "genre")).long().to(device),
+        temp_slot=torch.from_numpy(G.temp_slot_table(vocab, temp_mode)).long().to(device),
         sep_idx=vocab.sep_idx,
         bos_idx=vocab.bos_idx,
+        eos_idx=vocab.eos_idx,
         ni_idx=vocab.ni_idx,
         pad_idx=vocab.pad_idx,
         dur_lo=vocab.dur_range[0],
@@ -131,9 +143,11 @@ def prepare_logits(
     temperatures: torch.Tensor,    # (B, 3) fp32 per row, or (3,) for all rows
     min_bars,                      # (B,) int32 per row, or an int for all rows
     allowed_ins: torch.Tensor,     # (B, V) bool overlay per row, or (V,)
+    settings: Optional[SamplerSettings] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-sampling logit processing: temperature slot + repeat penalty,
-    min-bars BOS ban, grammar mask. Returns (masked logits, last_xxsep)."""
+    min-bars BOS ban (unless ``settings.use_min_bars_ban`` is off), grammar
+    mask. Returns (masked logits, last_xxsep)."""
     prev = st.prev_tok.long()
     # last_xxsep flag update from prev (deep_music_genre.py:1901-1905)
     last_xxsep = torch.where(prev == tables.sep_idx, True,
@@ -148,11 +162,12 @@ def prepare_logits(
     logits = logits / temperature[:, None]
 
     # BOS banned while bars generated ≤ min_bars
-    bars = torch.div(st.last_pos - st.start_pos, SAMPLE_FREQ * 4,
-                     rounding_mode="floor")
-    bos = tables.bos_idx
-    logits = logits.clone()
-    logits[:, bos] = torch.where(bars <= min_bars, FILTER_VALUE, logits[:, bos])
+    if settings is None or settings.use_min_bars_ban:
+        bars = torch.div(st.last_pos - st.start_pos, SAMPLE_FREQ * 4,
+                         rounding_mode="floor")
+        bos = tables.bos_idx
+        logits = logits.clone()
+        logits[:, bos] = torch.where(bars <= min_bars, FILTER_VALUE, logits[:, bos])
 
     ok = tables.allowed[cls, last_xxsep.long()] & allowed_ins   # (B, V)
     return torch.where(ok, logits, FILTER_VALUE), last_xxsep
@@ -166,9 +181,12 @@ def advance_state(
     tables: DecodeTables,
     past_80pct,                    # step / n_words > 0.8 in float32: a bool,
                                    # or a (B,) bool tensor per row
+    settings: Optional[SamplerSettings] = None,
+    max_pos: Optional[torch.Tensor] = None,   # (B,) int32, with settings.pos_stop
 ) -> Tuple[torch.Tensor, SampleState]:
     """Post-sampling bookkeeping: repeat count, beat position, stopping,
-    pad semantics. Returns (emitted idx or pad, new state)."""
+    pad semantics. Returns (emitted idx or pad, new state). ``settings``
+    None means the genre defaults."""
     idx = idx.to(I32)
     prev = st.prev_tok
     repeat_count = torch.where(nc <= 2, st.repeat_count + 1,
@@ -178,10 +196,17 @@ def advance_state(
     duration = idx - tables.dur_lo
     last_pos = torch.where(was_sep & ~st.done, st.last_pos + duration, st.last_pos)
 
-    # stopping: bar boundary after 80% of budget, or a sampled BOS
+    # stopping: bar boundary after 80% of budget, a sampled BOS (or EOS), or
+    # past the counterpart track's length (seq2seq)
+    settings = settings or SamplerSettings()
     abs_bar = torch.div(last_pos, SAMPLE_FREQ * 4, rounding_mode="floor")
-    stop_bar = was_sep & past_80pct & (abs_bar % 4 == 0)
-    done = st.done | stop_bar | (idx == tables.bos_idx)
+    done = st.done | (idx == tables.bos_idx)
+    if settings.bar_stop:
+        done = done | (was_sep & past_80pct & (abs_bar % 4 == 0))
+    if settings.eos_stop:
+        done = done | (idx == tables.eos_idx)
+    if settings.pos_stop and max_pos is not None:
+        done = done | (was_sep & (last_pos > max_pos))
 
     # the token that *triggers* a stop is dropped, exactly like the
     # reference's `break` before `new_idx.append(idx)`; afterwards pads flow
@@ -211,13 +236,14 @@ def sample_next_token(
     generator: Optional[torch.Generator],
     settings: SamplerSettings,
     past_80pct: bool,
+    max_pos: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, SampleState]:
     """One full sampling step given model logits."""
     logits, last_xxsep = prepare_logits(logits, st, tables, temperatures,
-                                        min_bars, allowed_ins)
+                                        min_bars, allowed_ins, settings)
     idx, nc = filter_sample_sorted(generator, logits, top_k, top_p,
                                    greedy=settings.greedy)
-    return advance_state(idx, nc, st, last_xxsep, tables, past_80pct)
+    return advance_state(idx, nc, st, last_xxsep, tables, past_80pct, settings, max_pos)
 
 
 def _past_80pct(i: int, n_words: int) -> bool:

@@ -1,0 +1,407 @@
+"""MultiTransformer inference: the multitask encoder-decoder (mask infill,
+next-word continuation, seq2seq harmonization) as plain functions of a
+parameter dict.
+
+The inference half of the JAX package's ``models/multitask.py``, with its
+structural quirks of the reference architecture:
+
+* separate q/k/v projections with biases, **no output projection**
+  (d_model == n_heads * d_head), post-norm ``ln(q + attn)``,
+* ``u``/``v`` relative biases shared by a whole stack,
+* a block runs self-attention, and only with an encoder output to attend to
+  does it run cross-attention and the feed-forward: the mask and next-word
+  paths are attention-only stacks,
+* the relative sinusoid table spans ``max(L, Le) + mem_len`` positions and
+  is sliced to the key length,
+* cross-attention zeroes the strictly upper band of the shifted relative
+  scores (``r_mask``), self-attention does not,
+* token + beat + bar embeddings, each zero at its padding index,
+* a tied output head with a bias.
+
+``params`` is the JAX package's tree carried over by
+:func:`..train.checkpoint.multitask_params_from_numpy`: ``{"embed",
+"beat_enc", "bar_enc", "head_b", "encoder"/"decoder": {"u", "v", "layers":
+[{"mha1", "mha2": {"q_w", "q_b", "k_w", "k_b", "v_w", "v_b", "r_w", "r_b",
+"ln_g", "ln_b"}, "ff1_w", "ff1_b", "ff2_w", "ff2_b", "ff_ln_g",
+"ff_ln_b"}]}}``. Inference only: no dropout, no training kernels, no remat.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..ops.rel_attention import (NEG_INF, backwards_pos_enc, causal_window_mask,
+                                 rel_attention)
+from .config import MultitaskConfig
+from .txl import PAD_G, _layer_norm, _logits
+
+F32 = torch.float32
+
+
+def _attn_init(randn, cfg: MultitaskConfig) -> Dict:
+    D, HD = cfg.d_model, cfg.n_heads * cfg.d_head
+    zeros = lambda n: randn(n).zero_() if cfg.bias else None
+    return {"q_w": randn(D, HD), "k_w": randn(D, HD), "v_w": randn(D, HD),
+            "q_b": zeros(HD), "k_b": zeros(HD), "v_b": zeros(HD),
+            "r_w": randn(D, HD), "r_b": zeros(HD),
+            "ln_g": 1.0 + randn(D), "ln_b": randn(D).zero_()}
+
+
+def init_multitask(cfg: MultitaskConfig, generator: Optional[torch.Generator] = None,
+                   device=None) -> Dict:
+    """Fresh float32 parameters with the JAX package's shapes and
+    distribution (``init_multitask``): weights N(0, 0.02^2), LayerNorm gains
+    1 + N(0, 0.02^2), zero biases and LayerNorm offsets, a zero padding row
+    in the embedding. The draws come from ``generator`` (on ``device``, which
+    defaults to the generator's), so they differ from JAX's threefry
+    numbers."""
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device) * 0.02
+
+    def stack(n):
+        return {"u": randn(cfg.n_heads, 1, cfg.d_head),
+                "v": randn(cfg.n_heads, 1, cfg.d_head),
+                "layers": [{"mha1": _attn_init(randn, cfg), "mha2": _attn_init(randn, cfg),
+                            "ff1_w": randn(cfg.d_model, cfg.d_inner),
+                            "ff1_b": randn(cfg.d_inner).zero_(),
+                            "ff2_w": randn(cfg.d_inner, cfg.d_model),
+                            "ff2_b": randn(cfg.d_model).zero_(),
+                            "ff_ln_g": 1.0 + randn(cfg.d_model),
+                            "ff_ln_b": randn(cfg.d_model).zero_()}
+                           for _ in range(n)]}
+
+    params = {"embed": randn(cfg.vocab_size, cfg.d_model),
+              "beat_enc": randn(cfg.beat_len, cfg.d_model),
+              "bar_enc": randn(cfg.max_bar_len, cfg.d_model),
+              "encoder": stack(cfg.enc_layers),
+              "decoder": stack(cfg.dec_layers),
+              "head_b": randn(cfg.vocab_size).zero_() if cfg.out_bias else None}
+    params["embed"][1] = 0.0            # padding-index row (pad_idx == 1)
+    return params
+
+
+def embed_tokens(params: Dict, cfg: MultitaskConfig, x: torch.Tensor,
+                 pos: Optional[torch.Tensor], pad_idx: int = 1) -> torch.Tensor:
+    """Token + beat + bar embeddings, each zero at its padding index (the
+    pad token, beat 0, bar 0)."""
+    dt = cfg.act_dtype
+    emb = params["embed"][x].to(dt)
+    emb = torch.where((x == pad_idx)[..., None], 0.0, emb).to(dt)
+    if pos is not None:
+        pos = pos.long()
+        beat = pos % cfg.beat_len
+        bar = torch.clamp(torch.div(pos, cfg.beat_len, rounding_mode="floor")
+                          % cfg.max_bar_len, max=cfg.max_bar_len - 1)
+        be = torch.where((beat == 0)[..., None], 0.0, params["beat_enc"][beat].to(dt))
+        ba = torch.where((bar == 0)[..., None], 0.0, params["bar_enc"][bar].to(dt))
+        emb = emb + be.to(dt) + ba.to(dt)
+    return emb
+
+
+def _lin(x, w, b):
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _proj(h, w, b, H: int, Dh: int):
+    """(B, L, D) → (B, H, L, Dh)."""
+    y = _lin(h, w, b)
+    B, L, _ = y.shape
+    return y.reshape(B, L, H, Dh).transpose(1, 2)
+
+
+def _wkr_of(ap, r, H: int, Dh: int):
+    """(K, D) sinusoid table → (H, K, Dh) relative keys."""
+    return _lin(r, ap["r_w"], ap["r_b"]).reshape(r.shape[0], H, Dh).transpose(0, 1)
+
+
+def _attn_apply(ap, cfg: MultitaskConfig, q_in, kv_in, r, u, v, mask, r_mask: bool):
+    """ln(q_in + rel_attention(q_in, kv_in)) with no output projection."""
+    H, Dh = cfg.n_heads, cfg.d_head
+    B, Lq, _ = q_in.shape
+    K = kv_in.shape[1]
+    q = _proj(q_in, ap["q_w"], ap["q_b"], H, Dh)
+    k = _proj(kv_in, ap["k_w"], ap["k_b"], H, Dh)
+    vv = _proj(kv_in, ap["v_w"], ap["v_b"], H, Dh)
+    attn = rel_attention(q, k, vv, _wkr_of(ap, r[-K:], H, Dh), u, v,
+                         mask=None if mask is None else mask[..., -K:],
+                         scale=cfg.scale, shift=True, r_mask=r_mask)
+    attn = attn.to(q_in.dtype).transpose(1, 2).reshape(B, Lq, H * Dh)
+    return _layer_norm(q_in + attn, ap["ln_g"], ap["ln_b"])
+
+
+def _act(x, kind: str):
+    if kind == "gelu":
+        return torch.nn.functional.gelu(x)       # the exact erf form
+    if kind == "relu":
+        return torch.relu(x)
+    raise ValueError(kind)
+
+
+def _ff(bp, cfg: MultitaskConfig, h):
+    y = _act(_lin(h, bp["ff1_w"], bp["ff1_b"]), cfg.act)
+    y = _lin(y, bp["ff2_w"], bp["ff2_b"])
+    return _layer_norm(h + y, bp["ff_ln_g"], bp["ff_ln_b"])
+
+
+def _causal_mask(L: int, device=None) -> torch.Tensor:
+    """(1, 1, L, L) causal mask (True = blocked); column 0 always visible."""
+    return causal_window_mask(L, 0, 1, 1, device=device)
+
+
+def _stack_uv(stack: Dict, dt):
+    return stack["u"].to(dt), stack["v"].to(dt)
+
+
+def stack_forward(stack: Dict, cfg: MultitaskConfig, h: torch.Tensor, is_decoder: bool,
+                  enc_out: Optional[torch.Tensor] = None,
+                  self_mask: Optional[torch.Tensor] = None,
+                  pad_cols: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One stack over an embedded (B, L, D) input: causal self-attention for
+    the decoder, bidirectional for the encoder, with ``pad_cols`` (B, L)
+    blocked as keys; cross-attention and the feed-forward only with
+    ``enc_out``."""
+    B, L, D = h.shape
+    dt = h.dtype
+    Le = enc_out.shape[1] if enc_out is not None else 0
+    r = backwards_pos_enc(max(L, Le) + cfg.mem_len, D, dtype=dt, device=h.device)
+    u, v = _stack_uv(stack, dt)
+    if self_mask is None and is_decoder:
+        self_mask = _causal_mask(L, h.device)
+    if pad_cols is not None:
+        pc = pad_cols[:, None, None, :]
+        self_mask = pc if self_mask is None else (self_mask | pc)
+    for bp in stack["layers"]:
+        h = _attn_apply(bp["mha1"], cfg, h, h, r, u, v, self_mask, r_mask=False)
+        if enc_out is not None:
+            h = _attn_apply(bp["mha2"], cfg, h, enc_out, r, u, v, None, r_mask=True)
+            h = _ff(bp, cfg, h)
+    return h
+
+
+def head(params: Dict, cfg: MultitaskConfig, h: torch.Tensor) -> torch.Tensor:
+    """The tied linear head: float32 logits."""
+    return _logits(params, h)
+
+
+def encode(params: Dict, cfg: MultitaskConfig, x, pos, pad_cols=None,
+           pad_idx: int = 1) -> torch.Tensor:
+    """The bidirectional encoder over (B, W) tokens; ``pad_cols`` blocks
+    right-padding columns as keys."""
+    h = embed_tokens(params, cfg, x, pos, pad_idx)
+    return stack_forward(params["encoder"], cfg, h, is_decoder=False, pad_cols=pad_cols)
+
+
+class DecKVCache(NamedTuple):
+    """Right-aligned decoder self-attention cache: (dec_layers, B, M, H, Dh)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    valid: torch.Tensor     # (B,) int32
+
+
+def _prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out, enc_pad,
+             mem_len, pad_idx):
+    """The decoder over a LEFT-padded (B, W) prefix, with cross-attention
+    and the feed-forward when ``enc_out`` is given; returns last-token logits
+    and the cache of each layer's self-attention K/V."""
+    B, W = x.shape
+    dt = cfg.act_dtype
+    M = cfg.mem_len if mem_len is None else mem_len
+    H, Dh = cfg.n_heads, cfg.d_head
+    h = embed_tokens(params, cfg, x, pos, pad_idx)
+    Le = enc_out.shape[1] if enc_out is not None else 0
+    r = backwards_pos_enc(max(W, Le) + cfg.mem_len, cfg.d_model, dtype=dt, device=x.device)
+    u, v = _stack_uv(params["decoder"], dt)
+    mask = _causal_mask(W, x.device) | pad_mask[:, None, None, :]
+    cross_mask = enc_pad[:, None, None, :] if enc_pad is not None else None
+    ks, vs = [], []
+    for bp in params["decoder"]["layers"]:
+        ap = bp["mha1"]
+        ks.append(_proj(h, ap["k_w"], ap["k_b"], H, Dh).transpose(1, 2)[:, -M:])
+        vs.append(_proj(h, ap["v_w"], ap["v_b"], H, Dh).transpose(1, 2)[:, -M:])
+        h = _attn_apply(ap, cfg, h, h, r, u, v, mask, r_mask=False)
+        if enc_out is not None:
+            h = _attn_apply(bp["mha2"], cfg, h, enc_out, r, u, v, cross_mask, r_mask=True)
+            h = _ff(bp, cfg, h)
+    logits = head(params, cfg, h[:, -1])
+    n_valid = torch.clamp((~pad_mask).sum(dim=1).to(torch.int32), max=M)
+    k_st, v_st = torch.stack(ks), torch.stack(vs)
+    if W < M:
+        padw = (0, 0, 0, 0, M - W, 0)           # left-pad the slot axis
+        k_st = torch.nn.functional.pad(k_st, padw)
+        v_st = torch.nn.functional.pad(v_st, padw)
+    return logits, DecKVCache(k_st, v_st, n_valid)
+
+
+def decoder_prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out,
+                    enc_pad=None, mem_len: Optional[int] = None,
+                    pad_idx: int = 1) -> Tuple[torch.Tensor, DecKVCache]:
+    """The seq2seq decoder over a LEFT-padded target prefix (``pad_mask``
+    True = pad), attending to ``enc_out`` (B, Le, D) with ``enc_pad``
+    columns blocked; returns (last-token logits, the self-attention cache of
+    each layer's input, right-aligned in M slots)."""
+    return _prefill(params, cfg, x, pos, pad_mask, enc_out, enc_pad, mem_len, pad_idx)
+
+
+def lm_prefill(params, cfg: MultitaskConfig, x, pos, pad_mask,
+               mem_len: Optional[int] = None,
+               pad_idx: int = 1) -> Tuple[torch.Tensor, DecKVCache]:
+    """The decoder as an attention-only language model over a LEFT-padded
+    prompt (the next-word task)."""
+    return _prefill(params, cfg, x, pos, pad_mask, None, None, mem_len, pad_idx)
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer decode: one slot write per layer per step, relative tables and
+# the cross-attention K/V projected once per generation. At one query token
+# rel_shift is the identity and the cross r_mask keeps every column, so the
+# relative terms index the distance tables directly.
+# ---------------------------------------------------------------------------
+
+class DecRingCache(NamedTuple):
+    k: torch.Tensor        # (dec_layers, B, H, M, Dh)
+    v: torch.Tensor
+    g: torch.Tensor        # (B, M) int32 global index per slot (pad → PAD_G)
+    ptr: int               # next slot to overwrite
+    g_cur: int             # global index of the token being decoded
+
+
+class CrossCache(NamedTuple):
+    k: torch.Tensor        # (dec_layers, B, H, Le, Dh)
+    v: torch.Tensor
+    wkr: torch.Tensor      # (dec_layers, H, Le, Dh)
+
+
+def precompute_dec_wkr(params: Dict, cfg: MultitaskConfig, mem_len: int) -> torch.Tensor:
+    """(dec_layers, H, M+1, Dh): each layer's self-attention relative keys
+    over distances M..0."""
+    r = backwards_pos_enc(mem_len + 1, cfg.d_model, dtype=cfg.act_dtype,
+                          device=params["embed"].device)
+    return torch.stack([_wkr_of(bp["mha1"], r, cfg.n_heads, cfg.d_head)
+                        for bp in params["decoder"]["layers"]])
+
+
+def precompute_cross(params: Dict, cfg: MultitaskConfig, enc_out: torch.Tensor) -> CrossCache:
+    """Every decoder layer's cross-attention K/V of ``enc_out`` and its
+    relative keys over the Le encoder positions, projected once."""
+    H, Dh = cfg.n_heads, cfg.d_head
+    r = backwards_pos_enc(enc_out.shape[1], cfg.d_model, dtype=enc_out.dtype,
+                          device=enc_out.device)
+    ks, vs, wk = [], [], []
+    for bp in params["decoder"]["layers"]:
+        ap = bp["mha2"]
+        ks.append(_proj(enc_out, ap["k_w"], ap["k_b"], H, Dh))
+        vs.append(_proj(enc_out, ap["v_w"], ap["v_b"], H, Dh))
+        wk.append(_wkr_of(ap, r, H, Dh))
+    return CrossCache(torch.stack(ks), torch.stack(vs), torch.stack(wk))
+
+
+def dec_ring_from_prefill(cache: DecKVCache) -> DecRingCache:
+    """Right-aligned prefill cache → ring form. Slot j holds the prompt token
+    with global index j - M (last prompt token → -1), invalid slots PAD_G;
+    the pointer starts at 0, overwriting the oldest slot first."""
+    L, B, M, H, Dh = cache.k.shape
+    k = cache.k.permute(0, 1, 3, 2, 4).contiguous()
+    v = cache.v.permute(0, 1, 3, 2, 4).contiguous()
+    slot = torch.arange(M, device=cache.k.device)[None, :]
+    g = torch.where(slot >= (M - cache.valid[:, None]), slot - M, PAD_G).to(torch.int32)
+    return DecRingCache(k=k, v=v, g=g, ptr=0, g_cur=0)
+
+
+def _ring_self_attn(ap, cfg: MultitaskConfig, h, cache: DecRingCache, i: int,
+                    wkr_all, u, v, blocked):
+    """Layer ``i``'s ln(h + self_attn) over the ring plus the fresh token;
+    returns (h_out, k1, v1) with k1/v1 (B, H, 1, Dh) for the slot write."""
+    B = h.shape[0]
+    H, Dh = cfg.n_heads, cfg.d_head
+    M = cache.k.shape[3]
+    q = _proj(h, ap["q_w"], ap["q_b"], H, Dh)
+    k1 = _proj(h, ap["k_w"], ap["k_b"], H, Dh)
+    v1 = _proj(h, ap["v_w"], ap["v_b"], H, Dh)
+    ks, vs = cache.k[i], cache.v[i]                                   # (B, H, M, Dh)
+    ac = torch.einsum("bhqd,bhkd->bhqk", (q + u).to(F32), ks.to(F32))[:, :, 0]
+    # wkr row m ↔ distance M - m; ring slot j holds distance
+    # ((ptr - 1 - j) mod M) + 1, a rotation of the first M scores by ptr
+    s_d = torch.einsum("bhqd,hkd->bhqk", (q + v).to(F32),
+                       wkr_all[i].to(F32))[:, :, 0]                   # (B, H, M+1)
+    bd = torch.roll(s_d[..., :M], cache.ptr, dims=-1)
+    scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
+    score = torch.where(blocked[:, None, :], NEG_INF, (ac + bd) * scale)
+    ac_self = torch.einsum("bhqd,bhqd->bhq", (q + u).to(F32), k1.to(F32))
+    self_score = (ac_self[:, :, 0] + s_d[..., -1]) * scale
+    full = torch.cat([score, self_score[:, :, None]], dim=-1)
+    prob = torch.softmax(full, dim=-1).to(h.dtype)
+    attn = torch.einsum("bhk,bhkd->bhd", prob[..., :M].to(F32), vs.to(F32)).to(h.dtype)
+    attn = attn + prob[..., M:M + 1] * v1[:, :, 0]
+    return _layer_norm(h + attn.reshape(B, 1, H * Dh), ap["ln_g"], ap["ln_b"]), k1, v1
+
+
+def _cross_attn_step(ap, cfg: MultitaskConfig, h, kc, vc, wkr2, u, v, cross_mask):
+    """One-token cross-attention over the cached K/V: ``_attn_apply`` at
+    Lq = 1, where rel_shift is the identity and the tril keeps every column."""
+    B = h.shape[0]
+    H, Dh = cfg.n_heads, cfg.d_head
+    q = _proj(h, ap["q_w"], ap["q_b"], H, Dh)
+    attn = rel_attention(q, kc, vc, wkr2, u, v, mask=cross_mask, scale=cfg.scale,
+                         shift=False)
+    attn = attn.to(h.dtype).transpose(1, 2).reshape(B, 1, H * Dh)
+    return _layer_norm(h + attn, ap["ln_g"], ap["ln_b"])
+
+
+def _ring_write_advance(cache: DecRingCache, new_kv) -> DecRingCache:
+    for i, (k1, v1) in enumerate(new_kv):
+        cache.k[i][:, :, cache.ptr] = k1[:, :, 0]
+        cache.v[i][:, :, cache.ptr] = v1[:, :, 0]
+    cache.g[:, cache.ptr] = cache.g_cur
+    M = cache.k.shape[3]
+    return DecRingCache(k=cache.k, v=cache.v, g=cache.g, ptr=(cache.ptr + 1) % M,
+                        g_cur=cache.g_cur + 1)
+
+
+def decoder_step_ring(params, cfg: MultitaskConfig, tok, pos, cache: DecRingCache,
+                      cross: CrossCache, wkr_all: torch.Tensor, enc_pad=None,
+                      pad_idx: int = 1) -> Tuple[torch.Tensor, DecRingCache]:
+    """One seq2seq decode step against the ring cache (the ``xla`` path).
+
+    Unlike the JAX function, this writes the new token's K/V into slot
+    ``ptr`` of ``cache.k``/``cache.v`` and its index into ``cache.g`` in place
+    (each layer's attention has read the old slot first) and returns a cache
+    holding the same tensors with the pointer advanced."""
+    dt = cfg.act_dtype
+    M = cache.k.shape[3]
+    h = embed_tokens(params, cfg, tok[:, None], pos[:, None], pad_idx)
+    u, v = _stack_uv(params["decoder"], dt)
+    dist = cache.g_cur - cache.g
+    blocked = (dist < 1) | (dist > M)
+    cross_mask = enc_pad[:, None, None, :] if enc_pad is not None else None
+    new_kv = []
+    for i, bp in enumerate(params["decoder"]["layers"]):
+        h2, k1, v1 = _ring_self_attn(bp["mha1"], cfg, h, cache, i, wkr_all, u, v, blocked)
+        h2 = _cross_attn_step(bp["mha2"], cfg, h2, cross.k[i], cross.v[i],
+                              cross.wkr[i], u, v, cross_mask)
+        h = _ff(bp, cfg, h2)
+        new_kv.append((k1, v1))
+    return head(params, cfg, h[:, 0]), _ring_write_advance(cache, new_kv)
+
+
+def lm_step_ring(params, cfg: MultitaskConfig, tok, pos, cache: DecRingCache,
+                 wkr_all: torch.Tensor, pad_idx: int = 1) -> Tuple[torch.Tensor, DecRingCache]:
+    """One next-word decode step (attention-only blocks), in place as
+    :func:`decoder_step_ring`."""
+    dt = cfg.act_dtype
+    M = cache.k.shape[3]
+    h = embed_tokens(params, cfg, tok[:, None], pos[:, None], pad_idx)
+    u, v = _stack_uv(params["decoder"], dt)
+    dist = cache.g_cur - cache.g
+    blocked = (dist < 1) | (dist > M)
+    new_kv = []
+    for i, bp in enumerate(params["decoder"]["layers"]):
+        h, k1, v1 = _ring_self_attn(bp["mha1"], cfg, h, cache, i, wkr_all, u, v, blocked)
+        new_kv.append((k1, v1))
+    return head(params, cfg, h[:, 0]), _ring_write_advance(cache, new_kv)

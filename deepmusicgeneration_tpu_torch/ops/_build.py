@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``ops/_build/``
-(listed in ``.gitignore``), named by a hash of the source, and loaded with
-``ctypes``. Nothing is built or loaded when a module is imported.
+(listed in ``.gitignore``), named by a hash of the source and of the shared
+headers ``csrc/*.cuh``, and loaded with ``ctypes``. Nothing is built or
+loaded when a module is imported.
 """
 
 from __future__ import annotations
@@ -35,7 +36,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library for ``csrc/<name>.cu`` goes."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -61,11 +61,14 @@ def rel_attention(
     mask: torch.Tensor = None,  # (B|1, 1|H, Q, K) bool, True = BLOCKED
     scale: bool = True,
     shift: bool = True,
+    r_mask: bool = False,
 ) -> torch.Tensor:
     """Core AC+BD attention (inference, no dropout); returns (B, H, Q, Dh).
 
     ``shift=False`` is the single-token decode path where the skew is the
     identity (Q == 1) and BD indexes the distance table directly.
+    ``r_mask`` zeroes the strictly upper band of the shifted BD scores
+    (``tril(K - Q)``), as the multitask model's cross-attention does.
     """
     dh = q.shape[-1]
     f32 = torch.float32
@@ -73,6 +76,9 @@ def rel_attention(
     bd = torch.einsum("bhqd,hkd->bhqk", (q + v_bias).to(f32), wkr.to(f32))
     if shift:
         bd = rel_shift(bd)
+    if r_mask:
+        Q, K = bd.shape[-2:]
+        bd = bd * torch.tril(torch.ones((Q, K), dtype=f32, device=bd.device), K - Q)
     score = ac + bd
     if scale:
         score = score * float(np.float32(1.0) / np.sqrt(np.float32(dh)))

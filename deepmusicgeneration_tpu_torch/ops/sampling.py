@@ -1,8 +1,9 @@
 """Logit filtering and sampling on the device.
 
 Batched equivalents of the reference's host-side samplers: ``top_k_top_p``
-(deep_music_genre.py:1679-1706) and softmax + multinomial, fused into one
-stable sort per step. :func:`filter_sample_sorted` draws from an explicit
+(deep_music_genre.py:1679-1706) and softmax + multinomial, as separate
+filters (:func:`top_k_top_p`, :func:`sample_categorical`; the multitask
+engine's parallel mask fill) and fused into one stable sort per step. :func:`filter_sample_sorted` draws from an explicit
 ``torch.Generator`` shared by the batch (the static engine);
 :func:`filter_sample_sorted_rows` gives every row its own stream, a
 counter-based hash of (row seed, row step, sorted position), for the
@@ -16,6 +17,43 @@ from typing import Optional
 import torch
 
 FILTER_VALUE = -1e9
+
+
+def top_k_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep the k highest logits per row (ties at the threshold survive)."""
+    if top_k <= 0:
+        return logits
+    kth = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values[..., -1:]
+    return torch.where(logits < kth, FILTER_VALUE, logits)
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering over the last axis, as the reference: tokens whose
+    cumulative softmax probability in descending order exceeds ``top_p`` are
+    dropped, shifted one position so the first token above it is kept. Ties
+    are ordered as the JAX package orders them (a reversed stable ascending
+    argsort: the higher vocab id first)."""
+    order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    sorted_logits = torch.gather(logits, -1, order)
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    remove_sorted = torch.cat([torch.zeros_like(cum[..., :1], dtype=torch.bool),
+                               cum[..., :-1] > top_p], dim=-1)
+    remove = torch.empty_like(remove_sorted).scatter_(-1, order, remove_sorted)
+    return torch.where(remove, FILTER_VALUE, logits)
+
+
+def top_k_top_p(logits: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
+    """Top-k, then top-p on what survives (``top_p <= 0`` disables it)."""
+    out = top_k_filter(logits, top_k)
+    return top_p_filter(out, top_p) if top_p > 0.0 else out
+
+
+def sample_categorical(generator: Optional[torch.Generator],
+                       logits: torch.Tensor) -> torch.Tensor:
+    """A softmax draw over the last axis by Gumbel-max, from ``generator``."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
 def _filter_sorted(logits: torch.Tensor, top_k, top_p):

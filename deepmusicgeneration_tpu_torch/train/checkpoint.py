@@ -2,8 +2,9 @@
 
 A checkpoint directory holds ``manifest.json`` (model config, vocab layout,
 step) and ``params.msgpack``, written by flax's ``serialization.to_bytes``.
-This module reads that format with a small pure-Python msgpack decoder, so
-the port needs neither flax nor the ``msgpack`` package:
+This module reads that format, for the genre and the multitask kinds alike,
+with a small pure-Python msgpack decoder, so the port needs neither flax nor
+the ``msgpack`` package:
 
 * maps, arrays, strings, binaries, nil, booleans, integers and floats,
 * ext code 1 — an ndarray, whose payload is a msgpack array
@@ -22,7 +23,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from ..models.config import TXLConfig
+from ..models.config import MultitaskConfig, TXLConfig
 from ..vocab import MusicVocab
 
 MANIFEST = "manifest.json"
@@ -120,15 +121,18 @@ def msgpack_restore(payload: bytes) -> Any:
     return tree
 
 
-def load_checkpoint(path: str) -> Tuple[Dict, TXLConfig, MusicVocab, Dict]:
-    """Returns (params tree of CPU tensors, config, vocab, manifest)."""
+_CONFIGS = {"txl": TXLConfig, "multitask": MultitaskConfig}
+
+
+def load_checkpoint(path: str) -> Tuple[Dict, object, MusicVocab, Dict]:
+    """Returns (params tree of CPU tensors, config, vocab, manifest); the
+    config is a ``TXLConfig`` or a ``MultitaskConfig`` by the manifest's
+    ``kind``."""
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
-    if manifest.get("kind") != "txl":
-        raise NotImplementedError(
-            f"checkpoint kind {manifest.get('kind')!r} is not ported yet; "
-            "see ROADMAP.md")
-    config = TXLConfig.from_dict(manifest["config"])
+    if manifest.get("kind") not in _CONFIGS:
+        raise ValueError(f"unknown checkpoint kind {manifest.get('kind')!r}")
+    config = _CONFIGS[manifest["kind"]].from_dict(manifest["config"])
     vocab = MusicVocab.from_layout(manifest.get("vocab_layout", "genre"))
     with open(os.path.join(path, PARAMS), "rb") as f:
         params = msgpack_restore(f.read())
@@ -183,4 +187,57 @@ def params_from_numpy(tree: Dict, cfg: TXLConfig, device="cpu") -> Dict:
             if tuple(lp[k].shape) != shape:
                 raise ValueError(f"layers/{i}/{k}: shape {tuple(lp[k].shape)} "
                                  f"!= {shape}")
+    return out
+
+
+_ATTN_KEYS = ("q_w", "q_b", "k_w", "k_b", "v_w", "v_b", "r_w", "r_b", "ln_g", "ln_b")
+_MT_BLOCK_KEYS = ("ff1_w", "ff1_b", "ff2_w", "ff2_b", "ff_ln_g", "ff_ln_b")
+
+
+def _layer_list(layers):
+    return [layers[str(i)] for i in range(len(layers))] if isinstance(layers, dict) else layers
+
+
+def multitask_params_from_numpy(tree: Dict, cfg: MultitaskConfig, device="cpu") -> Dict:
+    """Carry a JAX multitask parameter tree into the port's parameter dict
+    (the layout of :mod:`..models.multitask`).
+
+    ``tree`` holds numpy arrays (bfloat16 as ml_dtypes arrays) or the
+    tensors :func:`msgpack_restore` returns; ``layers`` are a list or a map
+    keyed ``"0".."n"``; absent biases are None. Shapes are checked against
+    ``cfg``; dtypes are kept.
+    """
+    H, Dh, D, V, Dff = cfg.n_heads, cfg.d_head, cfg.d_model, cfg.vocab_size, cfg.d_inner
+    HD = H * Dh
+    t = lambda x: _tensor(x, device)
+    out = {"embed": t(tree["embed"]), "beat_enc": t(tree["beat_enc"]),
+           "bar_enc": t(tree["bar_enc"]), "head_b": t(tree.get("head_b"))}
+    expect = {"embed": (V, D), "beat_enc": (cfg.beat_len, D),
+              "bar_enc": (cfg.max_bar_len, D), "head_b": (V,)}
+    attn_shapes = {"q_w": (D, HD), "k_w": (D, HD), "v_w": (D, HD), "r_w": (D, HD),
+                   "q_b": (HD,), "k_b": (HD,), "v_b": (HD,), "r_b": (HD,),
+                   "ln_g": (D,), "ln_b": (D,)}
+    block_shapes = {"ff1_w": (D, Dff), "ff1_b": (Dff,), "ff2_w": (Dff, D),
+                    "ff2_b": (D,), "ff_ln_g": (D,), "ff_ln_b": (D,)}
+    for name, n_layers in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers)):
+        layers = _layer_list(tree[name]["layers"])
+        if len(layers) != n_layers:
+            raise ValueError(f"{name}: checkpoint has {len(layers)} layers, config "
+                             f"{n_layers}")
+        out[name] = {"u": t(tree[name]["u"]), "v": t(tree[name]["v"]), "layers": [
+            {**{m: {k: t(lp[m].get(k)) for k in _ATTN_KEYS} for m in ("mha1", "mha2")},
+             **{k: t(lp.get(k)) for k in _MT_BLOCK_KEYS}} for lp in layers]}
+        expect[f"{name}/u"] = expect[f"{name}/v"] = (H, 1, Dh)
+        for i, lp in enumerate(out[name]["layers"]):
+            for m in ("mha1", "mha2"):
+                for k, shape in attn_shapes.items():
+                    expect[f"{name}/layers/{i}/{m}/{k}"] = shape
+            for k, shape in block_shapes.items():
+                expect[f"{name}/layers/{i}/{k}"] = shape
+    for key, shape in expect.items():
+        node = out
+        for part in key.split("/"):
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        if node is not None and tuple(node.shape) != shape:
+            raise ValueError(f"{key}: shape {tuple(node.shape)} != {shape}")
     return out

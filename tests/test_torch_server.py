@@ -1,8 +1,9 @@
 """The port's HTTP surface on the CPU (``app/server.py``, ``app/app_utils.py``,
 ``cli.py``): a real round trip on an ephemeral port with the demo
 checkpoint. /generate over the static and the continuous service returns
-the tokens of a direct call of the same request; the multitask routes
-answer 501 until that model is ported."""
+the tokens of a direct call of the same request; /remix and /harmonize
+answer with MIDI from the demo multitask checkpoint; ``cli remix`` and
+``cli harmonize`` run on the CPU."""
 
 import base64
 import json
@@ -21,16 +22,29 @@ from deepmusicgeneration_tpu_torch.app import app_utils
 from deepmusicgeneration_tpu_torch.app.server import MusicServer, make_handler
 from deepmusicgeneration_tpu_torch.codec.item import MusicItem
 from deepmusicgeneration_tpu_torch.decode.continuous import ContinuousEngine
-from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
+from deepmusicgeneration_tpu_torch.tasks.remix import predict_mask_remix
+from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner, MusicLearner
 from deepmusicgeneration_tpu_torch.vocab import MusicVocab
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "checkpoints", "demo_genre_model")
+DEMO_MT = os.path.join(ROOT, "checkpoints", "demo_multitask_model")
 
 
 @pytest.fixture(scope="module")
 def learner():
     return MusicLearner.load(DEMO, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def mt_learner():
+    return MultitaskLearner.load(DEMO_MT, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def two_track(learner):
+    """A Piano melody over a Bass line (the tracks harmonize splits)."""
+    return MusicItem.from_npenc(generate_song("electronic", 5), learner.vocab).to_midi_bytes()
 
 
 @pytest.fixture(scope="module")
@@ -45,8 +59,9 @@ def _start(server):
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["static", "continuous"])
-def http(request, learner):
-    server = MusicServer(genre_learner=learner, max_batch=4, continuous=request.param)
+def http(request, learner, mt_learner):
+    server = MusicServer(genre_learner=learner, multitask_learner=mt_learner, max_batch=4,
+                         continuous=request.param)
     httpd, url = _start(server)
     yield url, server
     httpd.shutdown()
@@ -114,8 +129,54 @@ def test_errors(http, midi):
         urllib.request.urlopen(url + "/nope", timeout=30)
     assert e.value.code == 404
     for route in ("/remix", "/harmonize"):
-        code, out = _post(url, route, {"midi_b64": base64.b64encode(midi).decode()})
-        assert code == 501 and "multitask" in out["error"]
+        code, out = _post(url, route, {"n_words": 4})
+        assert code == 400 and "midi_b64" in out["error"]
+
+
+def test_remix_equals_a_direct_call(http, two_track, mt_learner):
+    """/remix returns the tokens of predict_mask_remix on the same request,
+    as MIDI that re-parses to them."""
+    url, _ = http
+    code, out = _post(url, "/remix", {"midi_b64": base64.b64encode(two_track).decode(),
+                                      "mask_proportion": 0.5, "seed": 4})
+    assert code == 200, out
+    want = predict_mask_remix(mt_learner, two_track, genre="auto", mask_proportion=0.5,
+                              seed=4)
+    assert out["tokens"] == want.data.tolist() and out["n_tokens"] == len(want)
+    back = MusicItem.from_file(base64.b64decode(out["midi_b64"]), mt_learner.vocab)
+    assert back.data[0] == mt_learner.vocab.bos_idx and len(back.data) > 2
+
+
+def test_harmonize_answers_midi(http, two_track, mt_learner):
+    url, _ = http
+    code, out = _post(url, "/harmonize", {"midi_b64": base64.b64encode(two_track).decode(),
+                                          "n_words": 24, "seed": 1})
+    assert code == 200, out
+    back = MusicItem.from_file(base64.b64decode(out["midi_b64"]), mt_learner.vocab)
+    assert back.data[0] == mt_learner.vocab.bos_idx and len(back.data) > 2
+
+
+@pytest.mark.parametrize("cmd", ["remix", "harmonize"])
+def test_cli_multitask_commands(tmp_path, two_track, capsys, cmd):
+    """``cli remix`` and ``cli harmonize`` on the CPU with the demo multitask
+    checkpoint write a MIDI that re-parses."""
+    src, out = tmp_path / "in.mid", tmp_path / f"{cmd}.mid"
+    src.write_bytes(two_track)
+    extra = ["--max-len", "24"] if cmd == "harmonize" else ["--mask-proportion", "0.5"]
+    cli.main([cmd, "--midi", str(src), "--ckpt", DEMO_MT, "--device", "cpu",
+              "--out", str(out), *extra])
+    assert f"wrote {out}" in capsys.readouterr().out
+    back = MusicItem.from_file(str(out), MusicVocab.create())
+    assert len(back.data) > 2
+
+
+def test_multitask_factory_chain(tmp_path):
+    """A missing multitask checkpoint falls back to the committed 85M one,
+    on the device asked for."""
+    got = app_utils.createRemixModel(ckpt_path=str(tmp_path / "none"), device="cpu")
+    assert got.cfg.dec_layers == 10 and got.device == "cpu"    # synth_multitask_model
+    s2s = app_utils.createS2SModel(ckpt_path=DEMO_MT, device="cpu")
+    assert s2s.cfg.dec_layers == 4
 
 
 def test_genre_factory_chain(tmp_path):
