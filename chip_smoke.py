@@ -64,6 +64,22 @@ non-zero without printing a result):
 10. http — the HTTP server (``--continuous``) on 127.0.0.1 in a thread:
    /health, /tokenize, four concurrent /generate, then /remix and
    /harmonize on the demo multitask learner (200, MIDI that re-parses).
+11. train kernel — ``flash_train_attention``'s CUDA forward and backward
+   against its plain version at the flagship's train shape (B 16, L 512,
+   K 1024, 12 x 64 heads, bf16), inputs drawn on the card, in five cases
+   (causal with full memory, 40 valid memory slots, a curriculum window of
+   3, key padding, attention dropout 0.1): the output and the six gradients
+   each held to the float64 check (TRAIN_REL, PLAIN_K).
+12. train timing — CUDA-event medians of 100 forward and 100 backward
+   launches and of the plain version, beside the bound.
+13. train — the main path of training: a synthetic corpus
+   (``synthcorpus.make_corpus``) sized to one epoch of 16-32 steps,
+   ``MusicLearner(btp_phase1_config)`` with fresh weights on the card,
+   ``fit_one_cycle`` at bs 16, bptt 512 with a validation loader; 8 forward
+   and 8 backward kernel launches a step (and 8 forward a validation
+   batch), the plain version never called; the loss of the last 4 steps
+   below that of the first 4 and finite; then ``save``, ``MusicLearner.load``
+   on the card and 32 tokens through ``slab_w8``, whose MIDI re-parses.
 
 A ``time:`` line after each phase says how long it took. Then one JSON line
 with every kernel, and the last line
@@ -76,8 +92,10 @@ from __future__ import annotations
 import argparse
 import base64
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -99,9 +117,10 @@ from deepmusicgeneration_tpu_torch.decode.continuous import (ContinuousEngine,
 from deepmusicgeneration_tpu_torch.decode.engine import INT8_WEIGHT_KERNELS, _bucket
 from deepmusicgeneration_tpu_torch.models import multitask as mt
 from deepmusicgeneration_tpu_torch.models import txl
-from deepmusicgeneration_tpu_torch.models.config import multitask_config
+from deepmusicgeneration_tpu_torch.models.config import btp_phase1_config, multitask_config
 from deepmusicgeneration_tpu_torch.ops import _build
 from deepmusicgeneration_tpu_torch.ops import flash_prefill as fp
+from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
 from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
 from deepmusicgeneration_tpu_torch.ops import fused_s2s as fs
 from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
@@ -109,13 +128,16 @@ from deepmusicgeneration_tpu_torch.tasks.harmonize import (nw_predict_from_midi,
                                                            s2s_predict_from_midi)
 from deepmusicgeneration_tpu_torch.tasks.remix import predict_mask_remix
 from deepmusicgeneration_tpu_torch.tasks.serve import GenerationService
+from deepmusicgeneration_tpu_torch.train import synthcorpus
+from deepmusicgeneration_tpu_torch.train.data import LMStreamLoader
 from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner, MusicLearner
+from deepmusicgeneration_tpu_torch.train.preprocess import load_corpus
 from deepmusicgeneration_tpu_torch.vocab import SAMPLE_FREQ, MusicVocab
 
 CKPT = Path(__file__).resolve().parent / "checkpoints" / "synth_genre_model"
 MT_DEMO = Path(__file__).resolve().parent / "checkpoints" / "demo_multitask_model"
 # every csrc/*.cu the slices run
-KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab")
+KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab", "flash_train")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 
@@ -177,6 +199,36 @@ FLASH_ATOL = 1e-4
 # attention is exact (PERF.md, Findings; tests/test_torch_cuda.py).
 PREFILL_LOGITS_ATOL, PREFILL_LOGITS_RTOL = 0.15, 0.05
 PREFILL_LAYER_RTOL = 2.0 ** -8
+# The flash train kernels against their plain version, the float64 check in
+# relative form: the kernel's output and each of its six gradients, and the
+# float32 plain version's, are compared with a float64 run of the plain
+# version on the same bf16 inputs (the same bf16 cast points: q + u, q + v,
+# the dropped-out probabilities, the output; everything between them in
+# float64). Each distance is relative, |x - ref| / |ref| over the whole
+# tensor (Frobenius), and the kernel's must be at most
+#     TRAIN_REL + PLAIN_K x the float32 plain version's.
+# How TRAIN_REL was set, before the first card run judged by it: the kernel
+# rounds where the plain version does not (bf16 dS and P·keep before the
+# backward's products, each gradient to bf16 at the end, and the forward's
+# row sum is accumulated online), each a relative error of at most 2^-9 per
+# term; summed over many terms of random sign these stay near 2^-9 in
+# relative norm, and a value rounded to bf16 on one side and not the other
+# differs by about 2^-8 / sqrt(12) in relative norm. So a correct kernel sits
+# near 3e-3; TRAIN_REL = 2^-6 (1.6e-2) leaves five times that. A wrong
+# dropout mask (another seed), a dropped BD term or a wrong unskew (one
+# query row off) moves the output or a gradient by 0.4 or more in this norm
+# (tests/test_torch_flash_train.py runs each such fault through this check).
+TRAIN_REL = 2.0 ** -6
+TRAIN_OUTPUTS = ("out", "dq", "dk", "dv", "dwkr", "du", "dv_bias")
+TRAIN_B, TRAIN_L, TRAIN_M = 16, 512, 512    # the flagship's cli train batch
+TRAIN_SEED = 977
+TRAIN_CASES = (
+    ("causal", dict(win_size=1, win_k=1, mem_valid=TRAIN_M), False),
+    ("mem40", dict(win_size=1, win_k=1, mem_valid=40), False),
+    ("win3", dict(win_size=3, win_k=0, mem_valid=TRAIN_M), False),
+    ("pad", dict(win_size=1, win_k=1, mem_valid=TRAIN_M), True),
+    ("dropout", dict(win_size=1, win_k=1, mem_valid=TRAIN_M, attn_p=0.1), False),
+)
 
 
 def say(line: str) -> None:
@@ -658,12 +710,14 @@ MT_WRAPPERS = {"s2s_": fs.fused_s2s_slab_core, "nw_": fs.fused_nw_slab_core}
 
 def launches() -> dict:
     """Every kernel's launch count: the four genre slab modes, the flash
-    prefill, and the s2s / nw slab steps in both modes (s2s_slab_w8,
-    s2s_slab, nw_slab_w8, nw_slab)."""
+    prefill, the s2s / nw slab steps in both modes (s2s_slab_w8, s2s_slab,
+    nw_slab_w8, nw_slab), and the flash train forward and backward
+    (flash_train_fwd, flash_train_bwd)."""
     return {**fd.fused_slab_core.launches, **fd.fused_slab_allrows_core.launches,
             "flash_prefill": fp.flash_prefill_attention.launches,
             **{prefix + mode: n for prefix, w in MT_WRAPPERS.items()
-               for mode, n in w.launches.items()}}
+               for mode, n in w.launches.items()},
+            **{"flash_train_" + k: n for k, n in ftr.flash_train_attention.launches.items()}}
 
 
 def set_launches(counts: dict) -> None:
@@ -674,6 +728,8 @@ def set_launches(counts: dict) -> None:
     for prefix, wrapper in MT_WRAPPERS.items():
         for mode in wrapper.launches:
             wrapper.launches[mode] = counts[prefix + mode]
+    for k in ftr.flash_train_attention.launches:
+        ftr.flash_train_attention.launches[k] = counts["flash_train_" + k]
 
 
 def reset_launches() -> None:
@@ -1254,6 +1310,208 @@ def http_phase(learner, mt_learner, seed: int):
         raise AssertionError("the HTTP phase failed")
 
 
+def train_inputs(B, L, K, H, Dh, dev, seed, pad=False) -> dict:
+    """bf16 operands of the train attention drawn on ``dev``: q, k, v, wkr of
+    unit scale, u and v biases of 0.5, dO of unit scale; with ``pad`` each
+    batch row b pads its first (37 b) mod (L / 2) window keys."""
+    rng = np.random.default_rng(seed)
+    HD = H * Dh
+    bf = lambda shape, std: normal(shape, std, rng, dev).to(torch.bfloat16)
+    mask = None
+    if pad:
+        n = (37 * torch.arange(B, device=dev)) % (L // 2)
+        mask = torch.arange(L, device=dev)[None, :] < n[:, None]
+    return dict(q=bf((B, L, HD), 1.0), k=bf((B, K, HD), 1.0), v=bf((B, K, HD), 1.0),
+                wkr=bf((K, HD), 1.0), u=bf((H, Dh), 0.5), vb=bf((H, Dh), 0.5), pad=mask,
+                do=bf((B, L, HD), 1.0))
+
+
+def train_run(fn, inp, H, win_size, win_k, mem_valid, attn_p=0.0, attn_seed=None,
+              **acc) -> list:
+    """``fn``'s output and its gradients of q, k, v, wkr, u, v (from dO), as
+    float64 tensors (zeros for an input the output does not depend on)."""
+    leaves = [inp[n].detach().clone().requires_grad_(True)
+              for n in ("q", "k", "v", "wkr", "u", "vb")]
+    out = fn(*leaves, win_size, win_k, mem_valid, H, inp["pad"], True, attn_p,
+             attn_seed if attn_p else None, **acc)
+    out.backward(inp["do"])
+    grads = [torch.zeros_like(x) if x.grad is None else x.grad for x in leaves]
+    return [t.detach().double() for t in (out, *grads)]
+
+
+def rel(x, ref) -> float:
+    return float((x - ref).norm() / ref.norm().clamp_min(1e-300))
+
+
+def train_check(kernel, plain, inp, H, **case):
+    """The float64 check of the train attention (TRAIN_REL): ``kernel``'s
+    output and gradients against a float64 run of ``plain``, each within
+    TRAIN_REL + PLAIN_K x the float32 plain version's distance. Returns
+    (ok, {output: (distance, float32 plain distance, bound, max |kernel -
+    float32 plain|)})."""
+    got = train_run(kernel, inp, H, **case)
+    ref64 = train_run(plain, inp, H, **case, acc=torch.float64)
+    ref32 = train_run(plain, inp, H, **case, acc=torch.float32)
+    report, ok = {}, True
+    for name, g, r64, r32 in zip(TRAIN_OUTPUTS, got, ref64, ref32):
+        d_plain = rel(r32, r64)
+        d, bound = rel(g, r64), TRAIN_REL + PLAIN_K * d_plain
+        report[name] = (d, d_plain, bound, float((g - r32).abs().max()))
+        ok = ok and d <= bound and bool(torch.isfinite(g).all())
+    return ok, report
+
+
+def train_kernel_phase(cfg, dev, seed):
+    """The flash train kernels against their plain version on each case;
+    returns {"train_fwd" / "train_bwd": (largest |kernel - float32 plain|,
+    largest distance over its bound)}."""
+    H, Dh, K = cfg.n_heads, cfg.d_head, TRAIN_M + TRAIN_L
+    worst = {"train_fwd": (0.0, 0.0), "train_bwd": (0.0, 0.0)}
+    before = launches()
+    for i, (name, case, pad) in enumerate(TRAIN_CASES):
+        inp = train_inputs(TRAIN_B, TRAIN_L, K, H, Dh, dev, seed + i, pad)
+        ok, report = train_check(ftr.flash_train_attention, ftr.flash_train_attention_plain,
+                                 inp, H, **case, attn_seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        say(f"kernel: flash_train {name} B={TRAIN_B} L={TRAIN_L} K={K} {case}: " + "; ".join(
+            f"{k} |d|/|ref| {d:.3e} (plain f32 {dp:.2e}, bound {b:.3e}, max|d| {m:.2e})"
+            for k, (d, dp, b, m) in report.items()))
+        if not ok:
+            raise AssertionError(f"flash train kernels disagree with their plain version "
+                                 f"on case {name}")
+        for key, names in (("train_fwd", TRAIN_OUTPUTS[:1]), ("train_bwd", TRAIN_OUTPUTS[1:])):
+            for k in names:
+                d, _, b, m = report[k]
+                worst[key] = (max(worst[key][0], m), max(worst[key][1], d / b))
+    set_launches(before)
+    return worst
+
+
+def train_bytes_and_flops(inp, vecs, B, L, K, H, Dh, blocked):
+    """Bytes each pass must move (inputs read once, outputs written once)
+    and its products' operations over the (query, key) pairs this data
+    leaves visible (2 per multiply-add): the forward's AC, BD and P.V; the
+    backward's recomputed AC and BD, dP, dV, dK, dQ's two terms and dWkr."""
+    nbytes = lambda t: t.numel() * t.element_size()
+    ops = sum(nbytes(t) for t in (inp["q"], inp["k"], inp["v"], inp["wkr"], inp["u"],
+                                   inp["vb"], *vecs))
+    stats = 2 * B * H * L * 4                     # the forward's row max and sum
+    fwd_bytes = ops + nbytes(inp["q"]) + stats    # + out
+    bwd_bytes = (ops + nbytes(inp["do"]) + B * L * H * 4 + stats      # + dO, delta
+                 + nbytes(inp["q"]) + 2 * nbytes(inp["k"])            # dq, dk, dv
+                 + (K + 2) * H * Dh * 4)                              # dwkr, du, dv f32
+    pairs = int((~blocked).sum()) * H
+    return (fwd_bytes, 3 * 2 * pairs * Dh), (bwd_bytes, 8 * 2 * pairs * Dh), pairs
+
+
+def train_timing_phase(cfg, dev, seed):
+    """CUDA-event medians of the forward and backward kernels (the wrapper's
+    launches, 100 each) and of the plain version's forward and backward, at
+    the flagship's train shape: causal, full memory, dropout 0.1, as the
+    main path trains."""
+    H, Dh, B, L, K = cfg.n_heads, cfg.d_head, TRAIN_B, TRAIN_L, TRAIN_M + TRAIN_L
+    inp = train_inputs(B, L, K, H, Dh, dev, seed)
+    vecs = ftr.mask_vectors(B, L, K, 1, 1, TRAIN_M, device=dev)
+    sc = float(np.float32(1.0 / math.sqrt(Dh)))
+    ops = [inp[n].contiguous() for n in ("q", "k", "v", "wkr")] + [
+        inp["u"].reshape(-1), inp["vb"].reshape(-1)]
+    args = dict(H=H, sc=sc, attn_p=cfg.attn_p, seed=TRAIN_SEED)
+    out, m, l = ftr._launch_fwd(*ops, vecs, **args)
+    delta = (inp["do"].float() * out.float()).reshape(B, L, H, Dh).sum(-1).contiguous()
+    fwd = lambda: ftr._launch_fwd(*ops, vecs, **args)
+    bwd = lambda: ftr._launch_bwd(*ops, vecs, inp["do"], delta, m, l, **args)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ops]
+    plain = lambda: ftr.flash_train_attention_plain(*leaves, 1, 1, TRAIN_M, H, None, True,
+                                                    cfg.attn_p, TRAIN_SEED)
+    graph = plain()
+    plain_bwd = lambda: torch.autograd.grad(graph, leaves, inp["do"], retain_graph=True)
+    times = {"train_fwd": time_ms(fwd, 100), "train_bwd": time_ms(bwd, 100)}
+    plain_ms = {"train_fwd": time_ms(plain, 10), "train_bwd": time_ms(plain_bwd, 10)}
+    again = {"train_fwd": time_ms(fwd, 100), "train_bwd": time_ms(bwd, 100)}
+    blocked = ftr.blocked_mask(*vecs)
+    (fb, ff), (bb, bf), pairs = train_bytes_and_flops(inp, vecs, B, L, K, H, Dh, blocked)
+    dense = 2 * B * H * L * K * Dh
+    result = {}
+    for key, nbytes, flops in (("train_fwd", fb, ff), ("train_bwd", bb, bf)):
+        bound_ms, bound_by = bound(nbytes, flops)
+        result[key] = dict(ms=min(times[key], again[key]), plain_ms=plain_ms[key],
+                        bound_ms=bound_ms, bound_by=bound_by)
+        say(f"timing: flash_train {key[6:]} B={B} L={L} K={K} kernel median "
+            f"{times[key]:.4f} ms (again {again[key]:.4f}) plain {plain_ms[key]:.4f} ms "
+            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP over "
+            f"{pairs / (B * H):.0f} visible pairs a head, by {bound_by}; dense L x K "
+            f"products: {(3 if key == 'train_fwd' else 8) * dense / 1e9:.2f} GFLOP)")
+    return result
+
+
+def train_corpus(root: Path, seed: int):
+    """A synthetic corpus of 5 train songs and 1 valid song a genre; returns the
+    idxenc lists (train, valid)."""
+    synthcorpus.make_corpus(root, songs_per_genre=5, val_per_genre=1, base_seed=seed)
+    vocab = MusicVocab.create()
+    return load_corpus(root / "train", vocab), load_corpus(root / "valid", vocab)
+
+
+def train_phase(seed: int):
+    """The main path of training on the flagship (see the module docstring);
+    returns the launch counts of the fit."""
+    vocab = MusicVocab.create()
+    cfg = btp_phase1_config(len(vocab))
+    with tempfile.TemporaryDirectory() as tmp:
+        train, valid = train_corpus(Path(tmp) / "corpus", seed)
+        loader = LMStreamLoader(train, vocab, bs=TRAIN_B, bptt=cfg.ctx_len, seed=seed,
+                                encode_position=cfg.encode_position,
+                                transpose_range=cfg.transpose_range)
+        valid_loader = LMStreamLoader(valid, vocab, bs=TRAIN_B, bptt=cfg.ctx_len,
+                                      shuffle=False, transpose_range=None,
+                                      encode_position=cfg.encode_position)
+        n_steps, n_valid = len(loader), len(valid_loader)
+        if not 16 <= n_steps <= 32:
+            raise AssertionError(f"the corpus gives {n_steps} steps an epoch, not 16-32")
+        learner = MusicLearner(cfg, vocab, generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        reset_launches()
+        plain_calls = ftr.flash_train_attention_plain.calls
+        result = learner.fit_one_cycle(loader, epochs=1, valid_loader=valid_loader,
+                                       seed=seed, log_fn=lambda line: say(f"train: {line}"))
+        torch.cuda.synchronize()
+        counts = launches()
+        entry, losses = result.history[0], result.losses
+        first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+        toks = n_steps * TRAIN_B * cfg.ctx_len
+        say(f"train: fit_one_cycle 41M flagship B={TRAIN_B} bptt={cfg.ctx_len} "
+            f"{n_steps} steps + {n_valid} valid batches in {entry['time_s']:.2f} s: "
+            f"{n_steps / entry['time_s']:.3f} steps/s, {toks / entry['time_s']:.0f} tok/s; "
+            f"loss first 4 {first:.4f} last 4 {last:.4f}, valid {entry['valid_loss']:.4f}; "
+            f"launches {counts}; plain version calls "
+            f"{ftr.flash_train_attention_plain.calls - plain_calls}")
+        want = only(flash_train_fwd=8 * (n_steps + n_valid), flash_train_bwd=8 * n_steps)
+        if counts != want:
+            raise AssertionError(f"training launched {counts}, expected {want}")
+        if ftr.flash_train_attention_plain.calls != plain_calls:
+            raise AssertionError("training called the plain train attention on the card")
+        if not (np.isfinite(losses).all() and last < first):
+            raise AssertionError(f"the loss did not fall: first 4 {first}, last 4 {last}")
+        path = Path(tmp) / "ckpt"
+        learner.save(str(path))
+        back = MusicLearner.load(str(path))
+        if back.step != n_steps:
+            raise AssertionError(f"the manifest records step {back.step}, not {n_steps}")
+        midi = prompt_midi(seed, vocab)
+        reset_launches()
+        full = predict_nw_genre(back, midi, genre="jazz", max_len=32, seed=seed)
+        gen_counts = launches()
+        if gen_counts != only(slab_w8=32):
+            raise AssertionError(f"generation after training launched {gen_counts}")
+        seed_item = MusicItem.from_file(midi, vocab).trim_to_beat(32).set_genre("jazz") \
+            .remove_eos()
+        checks = check_continuation(seed_item, full.data[len(seed_item.data):], vocab,
+                                    piano_range=False)
+        say(f"train: saved {path.name} step {back.step}, reloaded on the card, 32 tokens "
+            f"through slab_w8: {checks}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1298,6 +1556,10 @@ def main(argv=None) -> int:
     n_slab_ar = timed("slab_ar", slab_ar_phase, learner, items[48:], args.seed)
     n_mt = timed("mt tasks", mt_main_phase, flagship, demo, args.seed)
     timed("http", http_phase, learner, demo, args.seed)
+    train_cfg = btp_phase1_config(len(learner.vocab))
+    err.update(timed("train kernel", train_kernel_phase, train_cfg, dev, args.seed))
+    timing.update(timed("train timing", train_timing_phase, train_cfg, dev, args.seed))
+    n_train = timed("train", train_phase, args.seed)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     csrc = "deepmusicgeneration_tpu_torch/ops/csrc/"
     src = "deepmusicgeneration_tpu/ops/"
@@ -1320,7 +1582,9 @@ def main(argv=None) -> int:
                 n_mt[f"{task}_{mode}"], f"{task}_{mode}")
           for task, wrapper, line in (("s2s", "fused_s2s_slab_core", 614),
                                       ("nw", "fused_nw_slab_core", 736))
-          for mode in MT_MODES]]}))
+          for mode in MT_MODES],
+        *[entry(f"flash_train_attention[{part}]", "flash_train.cu", "flash_train.py:804",
+                n_train[f"flash_train_{part}"], f"train_{part}") for part in ("fwd", "bwd")]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

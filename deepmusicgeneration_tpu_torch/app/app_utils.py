@@ -13,11 +13,12 @@ import os
 from functools import lru_cache
 from typing import List, Optional
 
-from ..models.config import multitask_config
+from ..models.config import btp_phase1_config, multitask_config
 from ..tasks.generate import predict_nw_genre
 from ..tasks.remix import predict_mask_remix
 from ..train.checkpoint import MANIFEST
-from ..train.learner import MultitaskLearner, MusicLearner, multitask_model_learner
+from ..train.learner import (MultitaskLearner, MusicLearner, multitask_model_learner,
+                             music_model_learner)
 from ..vocab import MusicVocab
 
 __all__ = ["createGenreContinuationModel", "createRemixModel", "createS2SModel",
@@ -42,10 +43,10 @@ def createGenreContinuationModel(encode_position: bool = False,
 
     Fallback chain: the given checkpoint → the committed trained-at-scale
     checkpoint (synth_genre_model, the flagship config) → the committed demo
-    checkpoint. The JAX package's last link, freshly initialised weights,
-    needs a parameter initializer the port does not have yet: without a
-    checkpoint this raises (ROADMAP.md Queue 1). ``device=None`` means the
-    CUDA card; pass ``"cpu"`` explicitly.
+    checkpoint → fresh weights of the reference config (``init_txl``, seed
+    0), as the JAX package's factory ends (with ``encode_position`` such a
+    model cannot predict yet: the beat-position embedding is still to
+    port). ``device=None`` means the CUDA card; pass ``"cpu"`` explicitly.
     """
     if _exists(ckpt_path):
         return MusicLearner.load(ckpt_path, device=device)
@@ -53,9 +54,8 @@ def createGenreContinuationModel(encode_position: bool = False,
         return MusicLearner.load(_demo("synth_genre_model"), device=device)
     if _exists(_demo("demo_genre_model")):
         return MusicLearner.load(_demo("demo_genre_model"), device=device)
-    raise FileNotFoundError(
-        f"no genre checkpoint at {ckpt_path!r} nor under checkpoints/; the "
-        "fresh-initialised fallback is not ported yet (ROADMAP.md Queue 1)")
+    cfg = btp_phase1_config().replace(encode_position=encode_position)
+    return music_model_learner(cfg=cfg, device=device)
 
 
 def _multitask(ckpt_path: str, device, vocab: MusicVocab) -> MultitaskLearner:

@@ -5,17 +5,20 @@
     python -m deepmusicgeneration_tpu_torch harmonize --midi in.mid
     python -m deepmusicgeneration_tpu_torch serve --port 8711 [--continuous]
     python -m deepmusicgeneration_tpu_torch tokenize --midi in.mid
+    python -m deepmusicgeneration_tpu_torch preprocess --src midis/ --out cache/
+    python -m deepmusicgeneration_tpu_torch train --data cache/ --ckpt ckpt/ [--small]
 
 ``generate`` (genre-conditioned continuation), ``remix`` (mask infill),
-``harmonize`` (seq2seq), ``serve`` (the HTTP endpoint) and ``tokenize`` are
-ported; the other subcommands of the JAX package are still to port
-(ROADMAP.md). ``--device cpu`` runs on the CPU; the default is the CUDA
-card.
+``harmonize`` (seq2seq), ``serve`` (the HTTP endpoint), ``tokenize``,
+``preprocess`` (MIDI corpus to cached npenc files) and ``train`` (the genre
+LM) are ported; ``import-checkpoint`` is still to port (ROADMAP.md).
+``--device cpu`` runs on the CPU; the default is the CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def cmd_generate(args):
@@ -71,6 +74,44 @@ def cmd_tokenize(args):
         print(f"wrote {args.out} ({len(item)} tokens)")
     else:
         print(text)
+
+
+def cmd_preprocess(args):
+    from pathlib import Path
+    from .train.preprocess import process_all
+    midis = sorted(Path(args.src).rglob("*.mid")) + sorted(Path(args.src).rglob("*.midi"))
+    out = process_all(midis, args.out, timeout_s=args.timeout, verbose=True)
+    print(f"tokenized {len(out)}/{len(midis)} files → {args.out}")
+
+
+def cmd_train(args):
+    from .models.config import btp_phase1_config
+    from .train.data import LMStreamLoader
+    from .train.learner import MusicLearner
+    from .train.preprocess import load_corpus
+    from .vocab import MusicVocab
+    vocab = MusicVocab.create()
+    corpus = load_corpus(args.data, vocab, limit=args.limit)
+    if not corpus:
+        print("no usable .npy files found", file=sys.stderr)
+        raise SystemExit(1)
+    n_val = max(len(corpus) // 10, 1)
+    cfg = btp_phase1_config(len(vocab))
+    if args.small:
+        cfg = cfg.replace(n_layers=2, d_model=128, d_inner=256, n_heads=4,
+                          d_head=32, ctx_len=128, mem_len=128)
+    learner = MusicLearner(cfg, vocab, device=args.device)
+    train_loader = LMStreamLoader(corpus[n_val:], vocab, bs=args.bs,
+                                  bptt=cfg.ctx_len, encode_position=cfg.encode_position,
+                                  transpose_range=cfg.transpose_range)
+    valid_loader = LMStreamLoader(corpus[:n_val], vocab, bs=args.bs,
+                                  bptt=cfg.ctx_len, shuffle=False,
+                                  transpose_range=None,
+                                  encode_position=cfg.encode_position)
+    learner.fit_one_cycle(train_loader, epochs=args.epochs, lr=args.lr,
+                          valid_loader=valid_loader, save_best_to=args.ckpt)
+    learner.save(args.ckpt)
+    print(f"saved checkpoint → {args.ckpt}")
 
 
 def main(argv=None):
@@ -137,6 +178,24 @@ def main(argv=None):
     t.add_argument("--genre", default=None)
     t.add_argument("--out", default=None)
     t.set_defaults(fn=cmd_tokenize)
+
+    pp = sub.add_parser("preprocess", help="batch tokenize a MIDI corpus")
+    pp.add_argument("--src", required=True)
+    pp.add_argument("--out", required=True)
+    pp.add_argument("--timeout", type=float, default=120)
+    pp.set_defaults(fn=cmd_preprocess)
+
+    tr = sub.add_parser("train", help="train the genre LM")
+    tr.add_argument("--data", required=True, help="dir of cached .npy npencs")
+    tr.add_argument("--ckpt", default="./checkpoints/lakh_genre_model")
+    tr.add_argument("--epochs", type=int, default=3)
+    tr.add_argument("--bs", type=int, default=16)
+    tr.add_argument("--lr", type=float, default=5e-4)
+    tr.add_argument("--limit", type=int, default=None)
+    tr.add_argument("--small", action="store_true")
+    tr.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    tr.set_defaults(fn=cmd_train)
 
     args = p.parse_args(argv)
     args.fn(args)

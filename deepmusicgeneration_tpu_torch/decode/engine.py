@@ -485,8 +485,4 @@ class GenerationEngine:
 
 
 def _to_device(node, device):
-    if isinstance(node, dict):
-        return {k: _to_device(v, device) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_to_device(v, device) for v in node]
-    return None if node is None else node.to(device)
+    return txl.tree_map(lambda t: t.to(device), node)

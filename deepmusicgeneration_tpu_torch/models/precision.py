@@ -1,13 +1,20 @@
-"""Parameter precision policy for inference.
+"""Parameter precision policy.
 
-Decode is memory-bound: every generated token reads the full parameter set.
-Storing matmul weights in bfloat16 halves that traffic; layer-norm
-parameters and the head bias stay float32 because they feed float32 math.
+Inference: decode is memory-bound, every generated token reads the full
+parameter set. Storing matmul weights in bfloat16 halves that traffic;
+layer-norm parameters and the head bias stay float32 because they feed
+float32 math.
+
+Training: float32 master parameters that the optimizer updates; the forward
+casts each weight to the activation dtype where it is used
+(``models/txl.py::_linear``), so bf16 activations never round the masters.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .txl import tree_map
 
 # parameters that stay fp32 even at inference
 _FP32_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "ln_g", "ln_b",
@@ -30,3 +37,11 @@ def cast_params_for_inference(params, dtype=torch.bfloat16):
         return cast(name, node)
 
     return walk("", params)
+
+
+def master_params(params, device=None):
+    """Float32 master copies of a parameter tree (nested dicts / lists of
+    tensors, None leaves kept), on ``device`` and with ``requires_grad``:
+    the leaves the train step differentiates and the optimizer updates."""
+    return tree_map(lambda t: t.detach().to(device=device, dtype=torch.float32).clone()
+                    .requires_grad_(True), params)

@@ -1,5 +1,6 @@
-"""MusicTransformerXL inference path: prompt prefill and the exact ring-cache
-decode step, as plain functions of a parameter dict.
+"""MusicTransformerXL as plain functions of a parameter dict: the parameter
+initializer, the full-window training forward with XL memory, prompt
+prefill and the exact ring-cache decode step.
 
 Architecture parity with the reference model (deep_music_genre.py:1603-1665
 on top of fastai's TransformerXL): token embedding, N post-norm decoder
@@ -7,7 +8,8 @@ blocks with relative-position multi-head attention (shared ``u``/``v``
 biases, fused qkv projection, per-layer ``r_w`` projection of a backwards
 sinusoid table), erf GELU feed-forward, weight-tied output head.
 
-``params`` is the JAX package's parameter tree carried over by
+``params`` is the JAX package's parameter tree, drawn by :func:`init_txl` or
+carried over by
 :func:`deepmusicgeneration_tpu_torch.train.checkpoint.params_from_numpy`:
 ``{"embed", "u", "v", "head_b", "layers": [{"qkv_w", "qkv_b", "r_w", "r_b",
 "out_w", "out_b", "ln1_g", "ln1_b", "ff1_w", "ff1_b", "ff2_w", "ff2_b",
@@ -21,7 +23,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+import numpy as np
+
 from ..ops.flash_prefill import KERNEL_HEAD_DIMS, flash_prefill_attention
+from ..ops.flash_train import flash_train_attention, kernel_supports
 from ..ops.rel_attention import (
     NEG_INF,
     backwards_pos_enc,
@@ -76,11 +81,24 @@ def _check_supported(cfg: TXLConfig):
             "yet; see ROADMAP.md")
 
 
-def _block_tail(lp, cfg, h, attn):
+def _dropout(x, rate: float, generator: Optional[torch.Generator], train: bool):
+    """Inverted dropout: keep with probability 1 - rate, scale by 1 / (1 - rate)."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _block_tail(lp, cfg, h, attn, generator=None, train=False):
+    """Output projection, residual + LayerNorm, feed-forward, residual +
+    LayerNorm; with ``train`` and a generator, the residual and feed-forward
+    dropouts (``models/txl.py:249-262`` of the JAX package)."""
     out = _linear(attn, lp["out_w"], lp["out_b"])
+    out = _dropout(out, cfg.resid_p, generator, train)
     h2 = _layer_norm(h + out, lp["ln1_g"], lp["ln1_b"])
     ff = _act(_linear(h2, lp["ff1_w"], lp["ff1_b"]), cfg.act)
-    ff = _linear(ff, lp["ff2_w"], lp["ff2_b"])
+    ff = _dropout(ff, cfg.ff_p, generator, train)
+    ff = _dropout(_linear(ff, lp["ff2_w"], lp["ff2_b"]), cfg.ff_p, generator, train)
     return _layer_norm(h2 + ff, lp["ln2_g"], lp["ln2_b"])
 
 
@@ -89,6 +107,218 @@ def _logits(params, h_last):
     if params.get("head_b") is not None:
         logits = logits + params["head_b"].to(F32)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Parameters and the full-window (training) forward
+# ---------------------------------------------------------------------------
+
+def _linear_init(generator: torch.Generator, shape, std: float = 0.02) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=F32) * std
+
+
+def init_txl(cfg: TXLConfig, generator: Optional[torch.Generator] = None,
+             device=None) -> Dict:
+    """Fresh float32 parameters, the JAX package's tree (``init_txl``,
+    fastai's init_transformer): N(0, 0.02) weights, LayerNorm gains
+    1 + N(0, 0.02), zero biases, None for absent biases. Drawn on the CPU
+    from ``generator`` (seed 0 if None), then moved to ``device``."""
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    H, Dh, D = cfg.n_heads, cfg.d_head, cfg.d_model
+    zeros = lambda n: torch.zeros((n,), dtype=F32)
+    params = {
+        "embed": _linear_init(g, (cfg.vocab_size, D)),
+        "u": _linear_init(g, (H, 1, Dh)),
+        "v": _linear_init(g, (H, 1, Dh)),
+        "head_b": zeros(cfg.vocab_size) if cfg.out_bias else None,
+    }
+    if cfg.encode_position:
+        params["beat_enc"] = _linear_init(g, (cfg.beat_len, D))
+        params["bar_enc"] = _linear_init(g, (cfg.max_bar_len, D))
+    params["layers"] = [{
+        "qkv_w": _linear_init(g, (D, 3 * H * Dh)),
+        "qkv_b": zeros(3 * H * Dh) if cfg.bias else None,
+        "r_w": _linear_init(g, (D, H * Dh)),
+        "r_b": zeros(H * Dh) if cfg.bias else None,
+        "out_w": _linear_init(g, (H * Dh, D)),
+        "out_b": zeros(D) if cfg.bias else None,
+        "ln1_g": 1.0 + _linear_init(g, (D,)),
+        "ln1_b": zeros(D),
+        "ff1_w": _linear_init(g, (D, cfg.d_inner)),
+        "ff1_b": zeros(cfg.d_inner),
+        "ff2_w": _linear_init(g, (cfg.d_inner, D)),
+        "ff2_b": zeros(D),
+        "ln2_g": 1.0 + _linear_init(g, (D,)),
+        "ln2_b": zeros(D),
+    } for _ in range(cfg.n_layers)]
+    return tree_map(lambda t: t.to(device), params) if device is not None else params
+
+
+def tree_leaves(params):
+    """The tensors of a parameter tree, None leaves skipped, in JAX's leaf
+    order (each dict's keys sorted, lists in order)."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in tree_leaves(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [t for x in params for t in tree_leaves(x)]
+    return [] if params is None else [params]
+
+
+def tree_map(fn, params):
+    """``fn`` on every tensor of a parameter tree; None leaves stay None."""
+    if isinstance(params, dict):
+        return {k: tree_map(fn, v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [tree_map(fn, v) for v in params]
+    return None if params is None else fn(params)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+class TXLState(NamedTuple):
+    """XL hidden-state memory: right-aligned (n_layers, B, M, D) and the
+    number of filled slots (a host int)."""
+    mem: torch.Tensor
+    valid: int
+
+
+def init_state(cfg: TXLConfig, batch: int, mem_len: Optional[int] = None,
+               device=None) -> TXLState:
+    M = cfg.mem_len if mem_len is None else mem_len
+    return TXLState(mem=torch.zeros((cfg.n_layers, batch, M, cfg.d_model),
+                                    dtype=cfg.act_dtype, device=device), valid=0)
+
+
+def flash_train_auto(cfg: TXLConfig, B: int, L: int, seq: int, device) -> bool:
+    """The JAX package's rule for the flash train kernel (``txl.py:337-340``)
+    with "TPU" read as a CUDA device: a bf16 config, B >= 8, L and M + L
+    multiples of 128, M + L <= 2048. Where the rule holds but the CUDA
+    kernels do not take the shape (``ops.flash_train.kernel_supports``), it
+    raises rather than let the card run the score path."""
+    if not (torch.device(device).type == "cuda" and cfg.act_dtype == torch.bfloat16
+            and B >= 8 and L % 128 == 0 and seq % 128 == 0 and seq <= 2048):
+        return False
+    why = kernel_supports(B, L, seq, cfg.n_heads, cfg.n_heads * cfg.d_head, cfg.act_dtype)
+    if why is not None:
+        raise NotImplementedError(
+            f"the flash train kernel has no CUDA version for B={B}, L={L}, M+L={seq}, "
+            f"{cfg.n_heads} x {cfg.d_head} heads: {why}")
+    return True
+
+
+def _train_attention(lp, cfg, h, h_ctx, r, u, v, mask, flash_args, generator,
+                     attn_seeds, train):
+    """One layer's attention over [memory, window]: the flash train kernel
+    with ``flash_args = (win_size, win_k, mem_valid, pad_mask)``, else the
+    materialized score path under ``mask``. Returns (B, L, H * Dh)."""
+    H, Dh = cfg.n_heads, cfg.d_head
+    HD = H * Dh
+    attn_p = cfg.attn_p if (train and generator is not None) else 0.0
+    if flash_args is not None:
+        win_size, win_k, mem_valid, pad_mask = flash_args
+        dt = h.dtype
+        w = lp["qkv_w"].to(dt)
+        q = h @ w[:, :HD]
+        kv = h_ctx @ w[:, HD:]
+        if lp["qkv_b"] is not None:
+            bqkv = lp["qkv_b"].to(dt)
+            q = q + bqkv[:HD]
+            kv = kv + bqkv[HD:]
+        wkr_flat = _linear(r, lp["r_w"], lp["r_b"])
+        # drop_att rides inside the kernel (counter-hash mask, identical
+        # forward and backward), seeded per layer from the host
+        seed = int(attn_seeds.integers(0, 2 ** 31 - 1)) if attn_p > 0.0 else None
+        return flash_train_attention(q, kv[..., :HD], kv[..., HD:], wkr_flat, u, v,
+                                     win_size, win_k, mem_valid, H, pad_mask=pad_mask,
+                                     scale=cfg.scale, attn_p=attn_p, attn_seed=seed)
+    q, _, _ = _qkv(lp, h, H, Dh)
+    _, k, vv = _qkv(lp, h_ctx, H, Dh)
+    attn = rel_attention(q, k, vv, _wkr(lp, r, H, Dh), u, v, mask=mask, scale=cfg.scale,
+                         shift=True, attn_p=attn_p, generator=generator)
+    B, _, L, _ = attn.shape
+    return attn.transpose(1, 2).reshape(B, L, HD)
+
+
+def forward(
+    params: Dict,
+    cfg: TXLConfig,
+    x: torch.Tensor,                       # (B, L) token ids
+    pos: Optional[torch.Tensor] = None,    # (B, L) beat positions (unused: no beat embedding)
+    state: Optional[TXLState] = None,
+    train: bool = False,
+    rng: Optional[int] = None,
+    win_size: int = 1,
+    win_k: int = 1,
+    pad_mask: Optional[torch.Tensor] = None,   # (B, L) True where x is padding
+    flash: Optional[bool] = None,
+    mesh=None,
+    ring_mesh=None,
+) -> Tuple[torch.Tensor, Optional[TXLState]]:
+    """Full-window forward (``models/txl.py::forward`` of the JAX package).
+    Returns (logits (B, L, V) float32, new_state).
+
+    ``rng``: an int seed for the dropouts when ``train`` (None: no dropout);
+    the masks are drawn on ``x``'s device from a generator it seeds, the
+    flash kernel's attention seeds from a host generator it seeds.
+    ``flash``: every layer's attention through
+    ``ops.flash_train.flash_train_attention`` (the CUDA kernels on the card,
+    its plain version on the CPU) instead of the materialized score path;
+    None picks it by :func:`flash_train_auto`, which never picks it on the
+    CPU. On the card, shapes the kernels do not take raise, whether
+    ``flash=True`` was explicit or picked. The new XL memory is each layer's input over the last
+    M positions, detached; its fill count grows by L, capped at M.
+    """
+    _check_supported(cfg)
+    if mesh is not None or ring_mesh is not None:
+        raise NotImplementedError(
+            "mesh and ring (sequence-parallel) training are not ported yet; see "
+            "ROADMAP.md Queue 1 item 14")
+    B, L = x.shape
+    dt = cfg.act_dtype
+    dev = x.device
+    generator = (torch.Generator(device=dev).manual_seed(int(rng))
+                 if (train and rng is not None) else None)
+    attn_seeds = np.random.default_rng(int(rng)) if generator is not None else None
+    h = _dropout(params["embed"][x].to(dt), cfg.embed_p, generator, train)
+
+    M = state.mem.shape[2] if state is not None else 0
+    seq = M + L
+    r = backwards_pos_enc(seq, cfg.d_model, dtype=dt, device=dev)
+    if flash is None:
+        flash = flash_train_auto(cfg, B, L, seq, dev)
+    mem_valid = state.valid if state is not None else 0
+    mask, flash_args = None, None
+    if flash:
+        flash_args = (win_size, win_k, mem_valid, pad_mask)
+    else:
+        mask = causal_window_mask(L, M, win_size, win_k,
+                                  mem_valid=mem_valid if state is not None else None,
+                                  device=dev)
+        if pad_mask is not None:
+            # block attention *to* padded positions of the current window
+            blocked_cols = torch.cat([torch.zeros((B, M), dtype=torch.bool, device=dev),
+                                      pad_mask], dim=1)[:, None, None, :]
+            mask = mask | blocked_cols
+
+    u, v = params["u"].to(dt), params["v"].to(dt)
+    new_mem = []
+    for i, lp in enumerate(params["layers"]):
+        if state is not None:
+            h_ctx = torch.cat([state.mem[i].to(dt), h], dim=1)
+            new_mem.append(h_ctx[:, -M:].detach() if M else state.mem[i])
+        else:
+            h_ctx = h
+        attn = _train_attention(lp, cfg, h, h_ctx, r, u, v, mask, flash_args, generator,
+                                attn_seeds, train)
+        h = _block_tail(lp, cfg, h, attn, generator, train)
+
+    logits = _logits(params, _dropout(h, cfg.output_p, generator, train))
+    new_state = state
+    if state is not None and M:
+        new_state = TXLState(mem=torch.stack(new_mem), valid=min(state.valid + L, M))
+    return logits, new_state
 
 
 class KVCache(NamedTuple):

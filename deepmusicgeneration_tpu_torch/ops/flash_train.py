@@ -1,0 +1,378 @@
+"""Differentiable Transformer-XL attention for training, over [memory, window].
+
+``flash_train_attention`` computes the masked ``AC + skew(BD)`` relative
+attention of the window's L queries against K = M + L keys (the XL memory,
+then the window) under the causal-window curriculum mask, the memory's
+validity and key padding, with attention-probability dropout inside, and
+its gradients for q, k, v, wkr and the u / v biases. It replaces the TPU
+kernel of the same name in ``deepmusicgeneration_tpu/ops/flash_train.py``
+(the forward and backward ``pallas_call``s of ``_make_flash_train``) with
+hand-written CUDA kernels, ``csrc/flash_train.cu``: neither pass writes the
+(B, H, L, K) scores to device memory.
+
+On a CUDA tensor the wrapper launches those kernels (built with nvcc on
+first use, bound with ctypes) or raises; on a CPU tensor it runs
+:func:`flash_train_attention_plain`, whose gradients autograd gives.
+
+The mask is rebuilt from four vectors (:func:`mask_vectors`), exactly as
+the TPU kernel's wrapper builds them: query row i is blocked from key j when
+``cw[j] >= rt[i]`` (the curriculum window), ``cb[j]`` (a memory slot not yet
+filled) or ``kp[b, j]`` (padding). Blocked scores are filled with -1e9, not
+-inf, so a row whose keys are all blocked averages V uniformly, as there.
+
+Dropout keeps or drops each probability by a counter hash of (seed, batch
+row, head, query, key) (:func:`_hash_keep`), the TPU kernel's bit for bit,
+so the forward, the recomputing backward and the plain version draw the
+same mask.
+
+The skew: ``BD[i, j] = (q + v)_i . wkr[(j + L - 1 - i) mod K]``. Wrapped
+entries are masked only in the two regimes the train step emits (``win_size
+== 1`` with ``win_k >= 1``, and ``win_size > 1`` with ``win_k == 0``); there
+the result equals ``rel_attention`` under ``causal_window_mask`` with its
+exact ``rel_shift`` spill.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+
+BF16 = torch.bfloat16
+NEG_INF = -1e9
+KERNEL_HEAD_DIMS = (32, 64)   # the head widths the CUDA kernels are built for
+TILE = 64                     # L and K must be multiples of it on the card
+
+# lowbias32-style mixer constants of the TPU kernel (flash_train.py:80-110),
+# as unsigned 32-bit values
+_C1 = 0x7feb352d
+_C2 = 0x846ca68b
+_CH = 0x9E3779B9              # stride between heads
+_CB = 0x632be59b              # stride between batch rows
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32), without overflowing
+    int64: the low and high 16-bit halves of ``x`` are multiplied apart."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C1)
+    x = x ^ (x >> 15)
+    x = _mul32(x, _C2)
+    return x ^ (x >> 16)
+
+
+def keep_threshold(p: float) -> int:
+    """Keep where the mixed value, read as a signed int32, exceeds this:
+    P(x <= t) = (t + 2^31) / 2^32 = p."""
+    return int(p * (1 << 32)) - (1 << 31)
+
+
+def keep_scale(p: float) -> float:
+    """The kept probabilities' factor, 1 / (1 - p) rounded to float32."""
+    return float(np.float32(1.0 / (1.0 - p)))
+
+
+def keep_mask(B: int, H: int, L: int, K: int, p: float, seed: int,
+              device=None) -> torch.Tensor:
+    """(B, H, L, K) float32 keep mask of every batch row and head: row b of
+    head h is ``_hash_keep(seed + b * _CB, h, (L, K), p)``."""
+    b = torch.arange(B, dtype=torch.int64, device=device)[:, None, None, None]
+    h = torch.arange(H, dtype=torch.int64, device=device)[None, :, None, None]
+    i = torch.arange(L, dtype=torch.int64, device=device)[None, None, :, None]
+    j = torch.arange(K, dtype=torch.int64, device=device)[None, None, None, :]
+    x = _mix((int(seed) + b * _CB + (h + 1) * _CH + i * K + j) & _M32)
+    signed = torch.where(x >= (1 << 31), x - (1 << 32), x)
+    return (signed > keep_threshold(p)).to(torch.float32) * keep_scale(p)
+
+
+def _hash_keep(seed, h: int, shape, p: float) -> torch.Tensor:
+    """The TPU kernel's ``_hash_keep``: head ``h``'s keep mask of a (rows,
+    cols) tile for a batch row whose seed is ``seed`` (the attention seed +
+    b * _CB in int32)."""
+    return keep_mask(1, h + 1, *shape, p, seed)[0, h]
+
+
+def mask_vectors(B: int, L: int, K: int, win_size: int, win_k: int,
+                 mem_valid: int, pad_mask: Optional[torch.Tensor] = None,
+                 device=None):
+    """The four int32 vectors the mask is rebuilt from
+    (``flash_train.py:840-853``): rt (L,) the row window thresholds, cw (K,)
+    the column window indices (-2^30 for memory columns and the
+    always-visible first window column), cb (K,) 1 for memory slots not yet
+    filled, kp (B, K) key padding."""
+    M = K - L
+    rt = (torch.arange(L, dtype=torch.int32, device=device) // int(win_size)
+          + int(win_k))
+    jw = torch.arange(K, dtype=torch.int32, device=device) - M
+    cw = torch.where(jw <= 0, torch.full_like(jw, -(2 ** 30)),
+                     torch.div(jw, int(win_size), rounding_mode="floor"))
+    cb = (torch.arange(K, dtype=torch.int32, device=device)
+          < M - int(mem_valid)).to(torch.int32)
+    kp = torch.zeros((B, K), dtype=torch.int32, device=device)
+    if pad_mask is not None:
+        kp[:, M:] = pad_mask.to(torch.int32)
+    return rt, cw, cb, kp
+
+
+def blocked_mask(rt, cw, cb, kp) -> torch.Tensor:
+    """(B, 1, L, K) bool, True = blocked (``_blocked_mask``)."""
+    win = cw[None, :] >= rt[:, None]
+    col = (cb[None, :] != 0) | (kp != 0)
+    return win[None, None] | col[:, None, None, :]
+
+
+class _Round(torch.autograd.Function):
+    """Rounds to ``dtype`` where the kernel rounds, keeping the working type;
+    the gradient passes through unrounded, so autograd gives the exact
+    gradient of the rounded forward."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _round(x, dtype):
+    return x if dtype == x.dtype else _Round.apply(x, dtype)
+
+
+def skew_index(L: int, K: int, device=None) -> torch.Tensor:
+    """(L, K) int64: the wkr row of each (query, key) pair,
+    (j + L - 1 - i) mod K."""
+    i = torch.arange(L, device=device)[:, None]
+    j = torch.arange(K, device=device)[None, :]
+    return (j + L - 1 - i) % K
+
+
+def flash_train_attention_plain(q, k, v, wkr, u_bias, v_bias, win_size, win_k,
+                                mem_valid, n_heads: int, pad_mask=None,
+                                scale: bool = True, attn_p: float = 0.0,
+                                attn_seed: Optional[int] = None,
+                                acc: torch.dtype = torch.float32):
+    """Plain PyTorch version, differentiable by autograd: it materializes the
+    (B, H, L, K) scores, gathers the skewed BD with :func:`skew_index`, and
+    rounds to the inputs' dtype where the kernel does: q + u and q + v, the
+    dropped-out probabilities before P.V, the output. Everything else runs
+    in ``acc`` (float32, or float64 for the card's check). Returns
+    (B, L, HD) in the inputs' dtype."""
+    flash_train_attention_plain.calls += 1
+    B, L, HD = q.shape
+    K = k.shape[1]
+    H = n_heads
+    Dh = HD // H
+    dt, dev = q.dtype, q.device
+    rt, cw, cb, kp = mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, dev)
+    blocked = blocked_mask(rt, cw, cb, kp)
+    heads = lambda t, n: t.reshape(B, n, H, Dh).transpose(1, 2).to(acc)
+    qh = heads(q, L)
+    qu = _round(qh + u_bias.reshape(H, 1, Dh).to(acc), dt)
+    qv = _round(qh + v_bias.reshape(H, 1, Dh).to(acc), dt)
+    kh, vh = heads(k, K), heads(v, K)
+    wh = wkr.reshape(K, H, Dh).transpose(0, 1).to(acc)              # (H, K, Dh)
+    ac = qu @ kh.transpose(-1, -2)                                  # (B, H, L, K)
+    bd_rows = torch.einsum("bhld,hkd->bhlk", qv, wh)
+    bd = torch.gather(bd_rows, -1, skew_index(L, K, dev).expand(B, H, L, K))
+    sc = float(np.float32(1.0 / math.sqrt(Dh))) if scale else 1.0
+    score = torch.where(blocked, NEG_INF, (ac + bd) * sc)
+    e = torch.exp(score - score.amax(-1, keepdim=True))
+    pf = e / e.sum(-1, keepdim=True)
+    if attn_p > 0.0:
+        pf = pf * keep_mask(B, H, L, K, attn_p, attn_seed or 0, dev).to(acc)
+    out = _round(pf, dt) @ vh                                       # (B, H, L, Dh)
+    return out.transpose(1, 2).reshape(B, L, HD).to(dt)
+
+
+flash_train_attention_plain.calls = 0   # calls of the plain version
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_train")
+    lib.flash_train_fwd.restype = ctypes.c_int
+    lib.flash_train_fwd.argtypes = ([_P] * 10 + [_P] * 3 + [_I] * 5
+                                    + [_F, _I, ctypes.c_uint32, _I, _F, _P])
+    lib.flash_train_bwd.restype = ctypes.c_int
+    lib.flash_train_bwd.argtypes = ([_P] * 10 + [_P] * 4 + [_P] * 6 + [_P] * 3
+                                    + [_I] * 5 + [_F, _I, ctypes.c_uint32, _I, _F, _P])
+    lib.flash_train_error_string.restype = ctypes.c_char_p
+    lib.flash_train_error_string.argtypes = [_I]
+    return lib
+
+
+def _check(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"flash train {what} kernel failed: CUDA error {err} "
+                           f"({lib.flash_train_error_string(err).decode()})")
+
+
+def _dropout_args(attn_p: float, seed: int):
+    """(dropout on, seed as uint32, keep threshold, keep scale) for the
+    kernels."""
+    if attn_p <= 0.0:
+        return 0, 0, 0, 1.0
+    return 1, int(seed) & _M32, keep_threshold(attn_p), keep_scale(attn_p)
+
+
+def _launch_fwd(q, k, v, wkr, u, vb, vecs, H, sc, attn_p, seed):
+    lib = _lib()
+    B, L, HD = q.shape
+    K = k.shape[1]
+    out = torch.empty_like(q)
+    m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_train_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(), u.data_ptr(),
+            vb.data_ptr(), *(t.data_ptr() for t in vecs), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, L, K, H, HD // H, sc,
+            *_dropout_args(attn_p, seed), stream)
+    _check(lib, err, "forward")
+    return out, m, l
+
+
+def _launch_bwd(q, k, v, wkr, u, vb, vecs, do, delta, m, l, H, sc, attn_p, seed):
+    lib = _lib()
+    B, L, HD = q.shape
+    K = k.shape[1]
+    dev = q.device
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dwkr = torch.empty((K, HD), dtype=torch.float32, device=dev)
+    du = torch.empty((HD,), dtype=torch.float32, device=dev)
+    dvb = torch.empty_like(du)
+    n_part = B * (L // TILE)      # per (batch row, query tile) partial sums
+    part_w = torch.empty((n_part, K, HD), dtype=torch.float32, device=dev)
+    part_u = torch.empty((n_part, HD), dtype=torch.float32, device=dev)
+    part_v = torch.empty_like(part_u)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_train_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(), u.data_ptr(),
+            vb.data_ptr(), *(t.data_ptr() for t in vecs), do.data_ptr(),
+            delta.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dwkr.data_ptr(), du.data_ptr(), dvb.data_ptr(),
+            part_w.data_ptr(), part_u.data_ptr(), part_v.data_ptr(),
+            B, L, K, H, HD // H, sc, *_dropout_args(attn_p, seed), stream)
+    _check(lib, err, "backward")
+    return dq, dk, dv, dwkr, du, dvb
+
+
+class _FlashTrain(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one differentiable op. The
+    forward saves each query row's softmax max and sum; the backward
+    recomputes the probabilities from them and takes
+    ``delta = sum_d dO * O`` in float32 outside the kernel, as the TPU
+    kernel's backward does (``flash_train.py:321-326``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wkr, u, vb, rt, cw, cb, kp, H, sc, attn_p, seed):
+        vecs = (rt, cw, cb, kp)
+        out, m, l = _launch_fwd(q, k, v, wkr, u, vb, vecs, H, sc, attn_p, seed)
+        flash_train_attention.launches["fwd"] += 1
+        ctx.save_for_backward(q, k, v, wkr, u, vb, rt, cw, cb, kp, out, m, l)
+        ctx.meta = (H, sc, attn_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, wkr, u, vb, rt, cw, cb, kp, out, m, l = ctx.saved_tensors
+        H, sc, attn_p, seed = ctx.meta
+        B, L, HD = q.shape
+        delta = (do.float() * out.float()).reshape(B, L, H, HD // H).sum(-1).contiguous()
+        dq, dk, dv, dwkr, du, dvb = _launch_bwd(
+            q, k, v, wkr, u, vb, (rt, cw, cb, kp), do.to(q.dtype).contiguous(), delta,
+            m, l, H, sc, attn_p, seed)
+        flash_train_attention.launches["bwd"] += 1
+        return (dq, dk, dv, dwkr.to(wkr.dtype), du.to(u.dtype), dvb.to(vb.dtype),
+                None, None, None, None, None, None, None, None)
+
+
+def kernel_supports(B: int, L: int, K: int, n_heads: int, HD: int, dtype) -> Optional[str]:
+    """None if the CUDA kernels take these shapes, else the reason."""
+    Dh = HD // n_heads
+    if dtype != BF16:
+        return f"dtype {dtype}, the kernels take {BF16}"
+    if HD % n_heads or Dh not in KERNEL_HEAD_DIMS:
+        return f"d_head={Dh}, the kernels take {KERNEL_HEAD_DIMS}"
+    if L <= 0 or L % TILE or K % TILE or K < max(L, 2 * TILE):
+        return (f"L={L}, K={K}: the kernels need L and K multiples of {TILE} "
+                f"with K >= L and K >= {2 * TILE}")
+    return None
+
+
+def flash_train_attention(
+    q: torch.Tensor,          # (B, L, HD): the window's queries, heads side by side
+    k: torch.Tensor,          # (B, K, HD): [memory, window] keys, K = M + L
+    v: torch.Tensor,          # (B, K, HD)
+    wkr: torch.Tensor,        # (K, HD): backwards sinusoid through r_w
+    u_bias: torch.Tensor,     # (H, Dh) or any shape of H * Dh values
+    v_bias: torch.Tensor,
+    win_size: int,            # the curriculum's window size
+    win_k: int,               # its diagonal offset
+    mem_valid: int,           # filled memory slots (0..M)
+    n_heads: int,
+    pad_mask: Optional[torch.Tensor] = None,   # (B, L) bool, True = pad (key blocked)
+    scale: bool = True,
+    attn_p: float = 0.0,
+    attn_seed: Optional[int] = None,           # int32 seed, used when attn_p > 0
+) -> torch.Tensor:
+    """Differentiable rel-attention over [memory, window]; returns (B, L, HD).
+
+    On the card: the CUDA kernels (bf16, d_head in :data:`KERNEL_HEAD_DIMS`,
+    L and K multiples of :data:`TILE`; anything else raises). On the CPU:
+    :func:`flash_train_attention_plain`."""
+    B, L, HD = q.shape
+    K = k.shape[1]
+    H = n_heads
+    for name, t, shape in (("k", k, (B, K, HD)), ("v", v, (B, K, HD)),
+                           ("wkr", wkr, (K, HD))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: on {t.device}, expected {q.device}")
+    if pad_mask is not None and tuple(pad_mask.shape) != (B, L):
+        raise ValueError(f"pad_mask: shape {tuple(pad_mask.shape)}, expected {(B, L)}")
+    if u_bias.numel() != HD or v_bias.numel() != HD:
+        raise ValueError(f"u_bias / v_bias must hold H*Dh = {HD} values")
+    if attn_p > 0.0 and attn_seed is None:
+        raise ValueError("attn_p > 0 needs an attn_seed")
+    if q.device.type == "cpu":
+        return flash_train_attention_plain(q, k, v, wkr, u_bias, v_bias, win_size,
+                                           win_k, mem_valid, H, pad_mask, scale,
+                                           attn_p, attn_seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_train_attention: unsupported device {q.device}")
+    why = kernel_supports(B, L, K, H, HD, q.dtype)
+    if why:
+        raise ValueError(f"flash_train_attention: {why}")
+    operands = [t.contiguous() for t in (q, k, v, wkr, u_bias.reshape(HD),
+                                         v_bias.reshape(HD))]
+    for t in operands:
+        if t.dtype != BF16:
+            raise TypeError(f"dtype {t.dtype}, expected {BF16}")
+    vecs = mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, q.device)
+    sc = float(np.float32(1.0 / math.sqrt(HD // H))) if scale else 1.0
+    return _FlashTrain.apply(*operands, *vecs, H, sc, float(attn_p), int(attn_seed or 0))
+
+
+# CUDA kernel launches (CUDA tensors only): "fwd" per forward, "bwd" per backward
+flash_train_attention.launches = {"fwd": 0, "bwd": 0}

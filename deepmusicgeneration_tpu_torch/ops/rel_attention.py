@@ -62,13 +62,18 @@ def rel_attention(
     scale: bool = True,
     shift: bool = True,
     r_mask: bool = False,
+    attn_p: float = 0.0,
+    generator: torch.Generator = None,
 ) -> torch.Tensor:
-    """Core AC+BD attention (inference, no dropout); returns (B, H, Q, Dh).
+    """Core AC+BD attention; returns (B, H, Q, Dh).
 
     ``shift=False`` is the single-token decode path where the skew is the
     identity (Q == 1) and BD indexes the distance table directly.
     ``r_mask`` zeroes the strictly upper band of the shifted BD scores
     (``tril(K - Q)``), as the multitask model's cross-attention does.
+    ``attn_p``/``generator``: training-time dropout on the softmax
+    probabilities (fastai's ``drop_att``), applied only when a generator
+    (on the tensors' device) is given.
     """
     dh = q.shape[-1]
     f32 = torch.float32
@@ -85,6 +90,10 @@ def rel_attention(
     if mask is not None:
         score = torch.where(mask, NEG_INF, score)
     prob = torch.softmax(score, dim=-1).to(v.dtype)
+    if generator is not None and attn_p > 0.0:
+        keep = torch.rand(prob.shape, generator=generator, device=prob.device) < 1.0 - attn_p
+        prob = torch.where(keep, prob / (1.0 - attn_p), torch.zeros((), dtype=prob.dtype,
+                                                                   device=prob.device))
     out = torch.einsum("bhqk,bhkd->bhqd", prob.to(f32), v.to(f32))
     return out.to(v.dtype)
 

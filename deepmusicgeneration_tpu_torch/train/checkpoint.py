@@ -1,16 +1,18 @@
-"""Checkpoint loading: the JAX package's msgpack params + JSON manifest.
+"""Checkpoints in the JAX package's format: msgpack params + JSON manifest.
 
 A checkpoint directory holds ``manifest.json`` (model config, vocab layout,
-step) and ``params.msgpack``, written by flax's ``serialization.to_bytes``.
-This module reads that format, for the genre and the multitask kinds alike,
-with a small pure-Python msgpack decoder, so the port needs neither flax nor
-the ``msgpack`` package:
+step) and ``params.msgpack``, as flax's ``serialization.to_bytes`` writes
+it. This module reads that format, for the genre and the multitask kinds
+alike, and writes it for the genre kind (:func:`save_checkpoint`), with a
+small pure-Python msgpack codec, so the port needs neither flax nor the
+``msgpack`` package:
 
 * maps, arrays, strings, binaries, nil, booleans, integers and floats,
 * ext code 1 — an ndarray, whose payload is a msgpack array
   ``[shape, dtype name, raw little-endian bytes]``.
 
-Lists of layers were saved as maps keyed ``"0".."n"``.
+Lists of layers are saved as maps keyed ``"0".."n"`` and absent biases as
+nil, in the order the JAX package writes them.
 """
 
 from __future__ import annotations
@@ -18,12 +20,13 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.config import MultitaskConfig, TXLConfig
+from ..models.precision import master_params
 from ..vocab import MusicVocab
 
 MANIFEST = "manifest.json"
@@ -121,6 +124,131 @@ def msgpack_restore(payload: bytes) -> Any:
     return tree
 
 
+def _pack_uint(out: bytearray, n: int, fix_max: int, fix_base: int, codes) -> None:
+    """A length or count: in the fixed-size byte when it fits, else in the
+    smallest of ``codes`` ((code, struct format, limit), ...)."""
+    if fix_max is not None and n <= fix_max:
+        out.append(fix_base | n)
+        return
+    for code, fmt, limit in codes:
+        if n < limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object too large ({n})")
+
+
+def _pack(out: bytearray, x) -> None:
+    if x is None:
+        out.append(0xC0)
+    elif isinstance(x, bool):
+        out.append(0xC3 if x else 0xC2)
+    elif isinstance(x, int):
+        if 0 <= x <= 0x7F:
+            out.append(x)
+        elif -32 <= x < 0:
+            out += struct.pack(">b", x)
+        elif x > 0:
+            _pack_uint(out, x, None, 0, ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                         (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)))
+        else:
+            for code, fmt, lo in ((0xD0, ">b", -(1 << 7)), (0xD1, ">h", -(1 << 15)),
+                                  (0xD2, ">i", -(1 << 31)), (0xD3, ">q", -(1 << 63))):
+                if x >= lo:
+                    out.append(code)
+                    out += struct.pack(fmt, x)
+                    break
+    elif isinstance(x, float):
+        out.append(0xCB)
+        out += struct.pack(">d", x)
+    elif isinstance(x, str):
+        raw = x.encode("utf-8")
+        _pack_uint(out, len(raw), 31, 0xA0, ((0xD9, ">B", 1 << 8), (0xDA, ">H", 1 << 16),
+                                             (0xDB, ">I", 1 << 32)))
+        out += raw
+    elif isinstance(x, (bytes, bytearray)):
+        _pack_uint(out, len(x), None, 0, ((0xC4, ">B", 1 << 8), (0xC5, ">H", 1 << 16),
+                                          (0xC6, ">I", 1 << 32)))
+        out += x
+    elif isinstance(x, (list, tuple)):
+        _pack_uint(out, len(x), 15, 0x90, ((0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32)))
+        for v in x:
+            _pack(out, v)
+    elif isinstance(x, dict):
+        _pack_uint(out, len(x), 15, 0x80, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+        for k, v in x.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(x, torch.Tensor):
+        _pack_ext(out, _ndarray_payload(x))
+    else:
+        raise TypeError(f"cannot msgpack {type(x).__name__}")
+
+
+def _ndarray_payload(t: torch.Tensor) -> bytes:
+    """flax's ndarray encoding: msgpack [shape, dtype name, C-order bytes]."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        name, raw = "bfloat16", t.view(torch.int16).numpy().astype("<i2").tobytes()
+    else:
+        arr = t.numpy()
+        name, raw = arr.dtype.name, arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+    inner = bytearray()
+    _pack(inner, [list(t.shape), name, raw])
+    return bytes(inner)
+
+
+def _pack_ext(out: bytearray, payload: bytes) -> None:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _pack_uint(out, n, None, 0, ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16),
+                                     (0xC9, ">I", 1 << 32)))
+    out += struct.pack(">b", _EXT_NDARRAY)
+    out += payload
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a parameter tree (dicts, lists, None, tensors) as the JAX
+    package's ``save_checkpoint`` does: its tree map orders every dict's keys,
+    then flax turns each list into a map keyed "0".."n" in list order."""
+    def state_dict(node):
+        if isinstance(node, dict):
+            return {str(k): state_dict(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return {str(i): state_dict(v) for i, v in enumerate(node)}
+        return node
+
+    out = bytearray()
+    _pack(out, state_dict(tree))
+    return bytes(out)
+
+
+def save_checkpoint(path: str, params, config, vocab: MusicVocab, step: int = 0,
+                    extra: Optional[Dict] = None) -> str:
+    """Write ``params`` and the manifest in the JAX package's format
+    (``train/checkpoint.py::save_checkpoint``), so either package loads what
+    the other saved. The manifest records ``step``. No optimizer state is
+    written (the JAX package's trainers write none either)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, PARAMS), "wb") as f:
+        f.write(msgpack_serialize(params))
+    manifest = {
+        "kind": "txl" if isinstance(config, TXLConfig) else "multitask",
+        "config": config.to_dict(),
+        "vocab_layout": vocab.layout,
+        "step": int(step),
+        "format_version": 1,
+    }
+    if extra:
+        manifest["extra"] = extra
+    with open(os.path.join(path, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return path
+
+
 _CONFIGS = {"txl": TXLConfig, "multitask": MultitaskConfig}
 
 
@@ -154,13 +282,15 @@ _LAYER_KEYS = ("qkv_w", "qkv_b", "r_w", "r_b", "out_w", "out_b", "ln1_g",
                "ln1_b", "ff1_w", "ff1_b", "ff2_w", "ff2_b", "ln2_g", "ln2_b")
 
 
-def params_from_numpy(tree: Dict, cfg: TXLConfig, device="cpu") -> Dict:
+def params_from_numpy(tree: Dict, cfg: TXLConfig, device="cpu", master: bool = False) -> Dict:
     """Carry a JAX parameter tree into the port's parameter dict.
 
     ``tree`` is the JAX package's txl params — numpy arrays (bfloat16 as
     ml_dtypes arrays) or the tensors :func:`msgpack_restore` returns — with
     ``layers`` as a list or a map keyed ``"0".."n"``. Shapes are checked
-    against ``cfg``; dtypes are kept.
+    against ``cfg``; dtypes are kept, unless ``master``: then every leaf is a
+    float32 master copy with ``requires_grad``, the form training takes
+    (``models.precision.master_params``).
     """
     layers = tree["layers"]
     if isinstance(layers, dict):
@@ -187,7 +317,7 @@ def params_from_numpy(tree: Dict, cfg: TXLConfig, device="cpu") -> Dict:
             if tuple(lp[k].shape) != shape:
                 raise ValueError(f"layers/{i}/{k}: shape {tuple(lp[k].shape)} "
                                  f"!= {shape}")
-    return out
+    return master_params(out, device) if master else out
 
 
 _ATTN_KEYS = ("q_w", "q_b", "k_w", "k_b", "v_w", "v_b", "r_w", "r_b", "ln_g", "ln_b")

@@ -1,13 +1,20 @@
-"""Learners: checkpoint load and prediction through the decode engines.
+"""Learners: training, checkpoints, and prediction through the decode engines.
 
-The inference halves of the JAX package's ``MusicLearner`` (genre LM,
-``train/learner.py:59-130``) and ``MultitaskLearner`` (mask infill,
-seq2seq, next-word; ``:266-340``); training is still to port (ROADMAP.md).
+``MusicLearner`` is the JAX package's genre-LM learner
+(``train/learner.py:44-246``): fresh weights or a checkpoint, ``save``,
+``fit_one_cycle`` with the window-mask curriculum, early stopping, best
+checkpoint saving and per-epoch samples, ``evaluate``, and prediction.
+``MultitaskLearner`` is the inference half of the JAX package's
+(mask infill, seq2seq, next-word; ``:266-340``); multitask training is still
+to port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -15,38 +22,63 @@ import torch
 from ..codec.item import MusicItem
 from ..decode.engine import GenerationEngine
 from ..device import resolve_device
-from ..models.config import MultitaskConfig, TXLConfig, multitask_config
+from ..models import txl
+from ..models.config import MultitaskConfig, TXLConfig, btp_phase1_config, multitask_config
 from ..models.multitask import init_multitask
+from ..models.precision import master_params
 from ..vocab import MusicVocab
-from .checkpoint import load_checkpoint, multitask_params_from_numpy, params_from_numpy
+from .checkpoint import (load_checkpoint, multitask_params_from_numpy, params_from_numpy,
+                         save_checkpoint)
+from .data import LMStreamLoader
+from .loop import TrainState, cross_entropy, make_optimizer, make_train_step
+
+
+@dataclass
+class FitResult:
+    history: List[Dict[str, float]] = field(default_factory=list)
+    best_loss: float = float("inf")
+    stopped_early: bool = False
+    losses: List[float] = field(default_factory=list)   # every train step's loss
 
 
 class MusicLearner:
-    """Holds (params, cfg, vocab) and the generation engine on one device."""
+    """Holds (params, cfg, vocab), trains them, and predicts through the
+    generation engine on one device."""
 
-    def __init__(self, cfg: TXLConfig, vocab: MusicVocab, params: Dict,
-                 device=None):
-        """``device=None`` means the CUDA card; pass ``"cpu"`` explicitly."""
+    def __init__(self, cfg: TXLConfig, vocab: MusicVocab, params: Optional[Dict] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        """``params`` None draws fresh weights with ``txl.init_txl`` from
+        ``generator`` (seed 0 if None). ``device=None`` means the CUDA card;
+        pass ``"cpu"`` explicitly."""
         self.cfg = cfg
         self.vocab = vocab
-        self.params = params
+        self.params = params if params is not None else txl.init_txl(cfg, generator)
         self.device = device
+        self.step = 0              # optimizer steps the parameters have taken here
         self._engine = None
+
+    def save(self, path: str, step: Optional[int] = None) -> str:
+        """Write a checkpoint in the JAX package's format; the manifest
+        records ``step`` (default: the steps trained by :meth:`fit_one_cycle`)."""
+        return save_checkpoint(path, self.params, self.cfg, self.vocab,
+                               step=self.step if step is None else step)
 
     @classmethod
     def load(cls, path: str, device=None) -> "MusicLearner":
-        """Load a checkpoint directory written by the JAX package."""
+        """Load a checkpoint directory written by either package."""
         tree, cfg, vocab, manifest = load_checkpoint(path)
         if not isinstance(cfg, TXLConfig):
             raise ValueError(f"{path} holds a {manifest['kind']!r} checkpoint; load it "
                              "with MultitaskLearner")
-        return cls(cfg, vocab, params=params_from_numpy(tree, cfg), device=device)
+        learner = cls(cfg, vocab, params=params_from_numpy(tree, cfg), device=device)
+        learner.step = int(manifest.get("step", 0))
+        return learner
 
     @property
     def engine(self):
         if self._engine is None:
-            self._engine = GenerationEngine(self.params, self.cfg, self.vocab,
-                                            device=self.device)
+            self._engine = GenerationEngine(txl.tree_map(torch.Tensor.detach, self.params),
+                                            self.cfg, self.vocab, device=self.device)
         return self._engine
 
     def predict(self, item: MusicItem, n_words: int = 128,
@@ -62,6 +94,132 @@ class MusicLearner:
             mem_len=mem_len)
         pred = MusicItem(new, self.vocab, ins=item.ins)
         return pred, item.append(pred)
+
+    # -- training -----------------------------------------------------------
+    def fit_one_cycle(
+        self,
+        loader: LMStreamLoader,
+        epochs: int = 1,
+        lr: float = 5e-4,
+        clip: float = 0.5,
+        valid_loader: Optional[LMStreamLoader] = None,
+        early_stop_patience: Optional[int] = 5,
+        min_delta: float = 0.01,
+        save_best_to: Optional[str] = None,
+        sample_every_epoch: bool = False,
+        sample_seed_item: Optional[MusicItem] = None,
+        sample_dir: Optional[str] = None,
+        log_fn: Callable[[str], None] = print,
+        seed: int = 0,
+    ) -> FitResult:
+        """One-cycle training (``train/learner.py:104-226`` of the JAX
+        package, without its mesh). The curriculum draws each step's window
+        on the host from ``numpy.random.default_rng(seed)`` exactly as there
+        (with probability 0.2 a random window in 1..mask_steps, else plain
+        causal), so a seed gives JAX's window sequence; each step's dropout
+        seed comes from a CPU ``torch.Generator`` seeded with ``seed``.
+        Attention runs through the flash train kernels where
+        ``txl.flash_train_auto`` picks them (on the card, a bf16 config at
+        B >= 8). The learner's parameters
+        become float32 masters on the device and are updated in place."""
+        dev = resolve_device(self.device)
+        total_steps = len(loader) * epochs
+        optimizer = make_optimizer(total_steps, peak_lr=lr, clip=clip)
+        params = master_params(self.params, dev)
+        state = TrainState(params=params, opt_state=optimizer.init(params),
+                           mem=txl.init_state(self.cfg, loader.bs, device=dev), step=0)
+        step_fn = make_train_step(self.cfg, optimizer, self.vocab.pad_idx)
+        step_seeds = torch.Generator().manual_seed(seed)
+        host_rng = np.random.default_rng(seed)
+        result = FitResult()
+        patience_left = early_stop_patience
+        mask_steps = self.cfg.mask_steps
+
+        for epoch in range(epochs):
+            t0 = time.time()
+            train_loss, train_acc, n = 0.0, 0.0, 0
+            state = state._replace(mem=txl.init_state(self.cfg, loader.bs, device=dev))
+            for batch in loader:
+                sub = int(torch.randint(0, 2 ** 31 - 1, (), generator=step_seeds))
+                # rand_window_mask curriculum (genre:1586-1590): with p=0.2
+                # use a random window size <= mask_steps, else plain causal
+                win = (int(host_rng.integers(1, max(mask_steps, 1) + 1))
+                       if mask_steps and host_rng.random() < 0.2 else 1)
+                state, metrics = step_fn(state, batch, sub, win_size=win)
+                result.losses.append(float(metrics["loss"]))
+                train_loss += result.losses[-1]
+                train_acc += float(metrics["acc"])
+                n += 1
+            train_loss /= max(n, 1)
+            train_acc /= max(n, 1)
+            entry = {"epoch": epoch, "train_loss": train_loss, "train_acc": train_acc,
+                     "time_s": time.time() - t0}
+            if valid_loader is not None:
+                entry.update(self.evaluate(state.params, valid_loader))
+            val_loss = entry.get("valid_loss", train_loss)
+            result.history.append(entry)
+            log_fn(f"epoch {epoch}: loss {train_loss:.4f} acc {train_acc:.3f} "
+                   + (f"val {val_loss:.4f} " if valid_loader else "")
+                   + f"({entry['time_s']:.1f}s)")
+
+            if val_loss < result.best_loss - min_delta:
+                result.best_loss = val_loss
+                patience_left = early_stop_patience
+                if save_best_to:
+                    self.params, self._engine = state.params, None
+                    self.save(save_best_to, step=self.step + state.step)
+            elif early_stop_patience is not None:
+                patience_left -= 1
+                if patience_left <= 0:
+                    result.stopped_early = True
+                    log_fn(f"early stop at epoch {epoch}")
+                    break
+
+            if sample_every_epoch and sample_seed_item is not None:
+                self.params, self._engine = state.params, None
+                try:
+                    _, full = self.predict(sample_seed_item, n_words=256, seed=epoch)
+                    if sample_dir:
+                        os.makedirs(sample_dir, exist_ok=True)
+                        full.write_midi(os.path.join(sample_dir, f"pred_epoch_{epoch}.mid"))
+                except Exception as e:  # GenSamples catches too (notebook cell 65)
+                    log_fn(f"Invalid prediction generated at epoch {epoch}: {e}")
+
+        self.params, self._engine = state.params, None
+        self.step += state.step
+        return result
+
+    @torch.no_grad()
+    def evaluate(self, params, loader: LMStreamLoader) -> Dict[str, float]:
+        """Mean loss and accuracy over ``loader``, the XL memory threaded
+        through its batches (``train/learner.py:228-246``)."""
+        dev = resolve_device(self.device)
+        params = txl.tree_map(lambda t: t.detach().to(dev), params)
+        mem = txl.init_state(self.cfg, loader.bs, device=dev)
+        tot_l, tot_a, n = 0.0, 0.0, 0
+        for batch in loader:
+            x = torch.from_numpy(batch["x"]).to(dev)
+            logits, mem = txl.forward(params, self.cfg, x, state=mem)
+            loss, acc = cross_entropy(logits, torch.from_numpy(batch["y"]).to(dev),
+                                      self.vocab.pad_idx)
+            tot_l += float(loss)
+            tot_a += float(acc)
+            n += 1
+        return {"valid_loss": tot_l / max(n, 1), "valid_acc": tot_a / max(n, 1)}
+
+
+def music_model_learner(cfg: Optional[TXLConfig] = None, vocab: Optional[MusicVocab] = None,
+                        pretrained_path: Optional[str] = None, seed: int = 0,
+                        device=None) -> MusicLearner:
+    """Factory matching music_model_learner (genre:1784-1807): a checkpoint,
+    or fresh ``init_txl`` weights drawn from ``seed`` (the flagship config by
+    default)."""
+    if pretrained_path:
+        return MusicLearner.load(pretrained_path, device=device)
+    vocab = vocab or MusicVocab.create()
+    cfg = cfg or btp_phase1_config(len(vocab))
+    return MusicLearner(cfg, vocab, generator=torch.Generator().manual_seed(seed),
+                        device=device)
 
 
 class MultitaskLearner:

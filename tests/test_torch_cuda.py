@@ -331,3 +331,87 @@ def test_multitask_tasks_go_through_the_kernel(kernel):
                                     decode_kernel="auto" if kernel == "slab_w8" else kernel)
     counts = cs.mt_tasks(learner, "demo", 3, kernel, n_s2s=48, n_nw=40)
     assert counts == cs.only(**{f"s2s_{kernel}": 48, f"nw_{kernel}": 40})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("case", ["causal", "mem40", "win3", "pad", "dropout"])
+def test_flash_train_kernels_against_float64(case, Dh):
+    """The flash train forward and backward kernels against the plain version
+    by chip_smoke.py's float64 check (output and six gradients), at B 2,
+    L 256, K 512, four heads, in the smoke's five cases."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw, pad = {name: (c, p) for name, c, p in cs.TRAIN_CASES}[case]
+    kw = dict(kw, mem_valid=min(kw["mem_valid"], 256))
+    inp = cs.train_inputs(2, 256, 512, 4, Dh, dev, seed=Dh, pad=pad)
+    before = dict(ftr.flash_train_attention.launches)
+    ok, report = cs.train_check(ftr.flash_train_attention, ftr.flash_train_attention_plain,
+                                inp, 4, **kw, attn_seed=cs.TRAIN_SEED)
+    print(case, Dh, report)
+    assert ok, report
+    assert ftr.flash_train_attention.launches == {k: n + 1 for k, n in before.items()}
+
+
+@pytest.mark.cuda
+def test_flash_train_backward_is_reproducible():
+    """dWkr, du and dv are summed over the batch in a fixed order: two
+    backward passes on the same inputs give the same bits."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    inp = cs.train_inputs(4, 128, 256, 2, 64, dev, seed=1)
+    runs = [cs.train_run(ftr.flash_train_attention, inp, 2, 1, 1, 128, attn_p=0.1,
+                         attn_seed=7) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_train_refuses_what_the_kernels_do_not_take():
+    dev = _card()
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(s, dtype=dt, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        ftr.flash_train_attention(z(2, 128, 128, dt=torch.float32),
+                                  z(2, 256, 128, dt=torch.float32),
+                                  z(2, 256, 128, dt=torch.float32),
+                                  z(256, 128, dt=torch.float32), z(2, 64), z(2, 64), 1, 1, 0, 2)
+    with pytest.raises(ValueError, match="multiples"):
+        ftr.flash_train_attention(z(2, 96, 128), z(2, 192, 128), z(2, 192, 128), z(192, 128),
+                                  z(2, 64), z(2, 64), 1, 1, 0, 2)
+
+
+@pytest.mark.cuda
+def test_train_step_goes_through_the_kernels():
+    """A bf16 model at B = 8, L = M = 128: the train step's auto rule takes
+    the flash train kernels, one forward and one backward launch per layer,
+    and never the plain version; its loss equals the materialized branch's
+    within bf16 rounding."""
+    dev = _card()
+    from deepmusicgeneration_tpu_torch.models.config import small_test_config
+    from deepmusicgeneration_tpu_torch.models.precision import master_params
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    from deepmusicgeneration_tpu_torch.train import loop
+    cfg = small_test_config().replace(dtype="bfloat16", d_model=128, n_heads=2, d_head=64,
+                                      ctx_len=128, mem_len=128)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 300, (3, 8, 128)).astype(np.int32)
+    losses = {}
+    for flash in (None, False):
+        opt = loop.make_optimizer(10)
+        params = master_params(txl.init_txl(cfg), dev)
+        state = loop.TrainState(params, opt.init(params), txl.init_state(cfg, 8, device=dev), 0)
+        step = loop.make_train_step(cfg, opt, pad_idx=1, flash=flash)
+        before, calls = dict(ftr.flash_train_attention.launches), \
+            ftr.flash_train_attention_plain.calls
+        for i in range(2):
+            state, m = step(state, {"x": x[i], "y": x[i + 1]}, None, win_size=1 + 2 * i)
+        torch.cuda.synchronize()
+        losses[flash] = float(m["loss"])
+        got = {k: n - before[k] for k, n in ftr.flash_train_attention.launches.items()}
+        assert got == ({"fwd": 4, "bwd": 4} if flash is None else {"fwd": 0, "bwd": 0})
+        assert ftr.flash_train_attention_plain.calls == calls
+    assert abs(losses[None] - losses[False]) < 2e-2, losses
