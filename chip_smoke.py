@@ -80,6 +80,33 @@ non-zero without printing a result):
    batch), the plain version never called; the loss of the last 4 steps
    below that of the first 4 and finite; then ``save``, ``MusicLearner.load``
    on the card and 32 tokens through ``slab_w8``, whose MIDI re-parses.
+14. mt train kernel — the multitask train step's kernels against their plain
+   versions at the 85M flagship's train shape (B 16, 8 x 64 heads, bf16),
+   inputs drawn on the card: ``flash_bidir_attention`` (W 512: plain, key
+   padding, dropout 0.1), ``flash_cross_attention`` (L = K = 512; L 256
+   with K 512; dropout 0.1) and ``flash_train_attention`` with no memory
+   (L = K = 512: causal, and a window of 3 at diagonal 0), the output and
+   the six gradients each held to the float64 check (TRAIN_REL, PLAIN_K).
+15. mt train timing — CUDA-event medians of 100 forward and 100 backward
+   launches of the bidirectional and cross kernels and of
+   ``flash_train_attention`` at M = 0, and of their plain versions, beside
+   the bound.
+16. mt train — the main path of multitask training, as
+   ``examples/train_multitask.py`` builds it: mask batches
+   (``mask_lm_tfm_pitchdur`` over ``LMStreamLoader``, 8-16 of them) and
+   Piano / Bass seq2seq batches (``S2SLoader`` over 18 two-track synthetic
+   songs, repeated to as many), ``multitask_model_learner(multitask_config)``
+   with fresh weights on the card, ``fit(epochs=2, dataloaders=[mask,
+   s2s])`` at bs 16 x bptt 512: a mask step launches 10 bidirectional
+   forward and backward kernels and nothing else, an s2s step 20 of each of
+   the bidirectional, cross and train kernels' forward and backward, the
+   plain versions never; at least one step runs a curriculum window; the
+   loss is finite and the last 4 steps of each epoch below its first 4;
+   on a mask batch and on an s2s batch with key padding, the trained
+   model's ``multi_loss`` and its gradients through the kernels equal the
+   score path's (``flash_train=False``) within MT_ROUTE_LOSS_ATOL and
+   MT_ROUTE_GRAD_REL; then ``save``, ``MultitaskLearner.load`` on the card, and harmonize,
+   next-word (64 words, ``slab_w8``) and remix, whose MIDI re-parses.
 
 A ``time:`` line after each phase says how long it took. Then one JSON line
 with every kernel, and the last line
@@ -91,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import functools
 import json
 import math
 import subprocess
@@ -118,6 +146,7 @@ from deepmusicgeneration_tpu_torch.decode.engine import INT8_WEIGHT_KERNELS, _bu
 from deepmusicgeneration_tpu_torch.models import multitask as mt
 from deepmusicgeneration_tpu_torch.models import txl
 from deepmusicgeneration_tpu_torch.models.config import btp_phase1_config, multitask_config
+from deepmusicgeneration_tpu_torch.models.precision import master_params
 from deepmusicgeneration_tpu_torch.ops import _build
 from deepmusicgeneration_tpu_torch.ops import flash_prefill as fp
 from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
@@ -129,15 +158,18 @@ from deepmusicgeneration_tpu_torch.tasks.harmonize import (nw_predict_from_midi,
 from deepmusicgeneration_tpu_torch.tasks.remix import predict_mask_remix
 from deepmusicgeneration_tpu_torch.tasks.serve import GenerationService
 from deepmusicgeneration_tpu_torch.train import synthcorpus
-from deepmusicgeneration_tpu_torch.train.data import LMStreamLoader
-from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner, MusicLearner
+from deepmusicgeneration_tpu_torch.train.data import (LMStreamLoader, S2SLoader,
+                                                      mask_lm_tfm_pitchdur)
+from deepmusicgeneration_tpu_torch.train.learner import (MultitaskLearner, MusicLearner,
+                                                         multitask_model_learner)
+from deepmusicgeneration_tpu_torch.train.loop import _batch_to_device, multi_loss
 from deepmusicgeneration_tpu_torch.train.preprocess import load_corpus
 from deepmusicgeneration_tpu_torch.vocab import SAMPLE_FREQ, MusicVocab
 
 CKPT = Path(__file__).resolve().parent / "checkpoints" / "synth_genre_model"
 MT_DEMO = Path(__file__).resolve().parent / "checkpoints" / "demo_multitask_model"
 # every csrc/*.cu the slices run
-KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab", "flash_train")
+KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab", "flash_train", "flash_mt")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 
@@ -229,6 +261,24 @@ TRAIN_CASES = (
     ("pad", dict(win_size=1, win_k=1, mem_valid=TRAIN_M), True),
     ("dropout", dict(win_size=1, win_k=1, mem_valid=TRAIN_M, attn_p=0.1), False),
 )
+# The multitask train step's shapes: B 16, W = L = Le = 512 (the flagship's
+# ctx), its 8 x 64 heads. (name, kind, L, K, pad, case): kind "bidir" and
+# "cross" are the multitask kernels, "train" flash_train_attention with no
+# memory, as the decoder calls it.
+MT_TRAIN_B, MT_TRAIN_W = 16, 512
+MT_TRAIN_CASES = (
+    ("bidir", "bidir", 512, 512, False, {}),
+    ("bidir pad", "bidir", 512, 512, True, {}),
+    ("bidir dropout", "bidir", 512, 512, False, dict(attn_p=0.1)),
+    ("cross", "cross", 512, 512, False, {}),
+    ("cross L256", "cross", 256, 512, False, {}),
+    ("cross dropout", "cross", 512, 512, False, dict(attn_p=0.1)),
+    ("train M=0 causal", "train", 512, 512, True, dict(win_size=1, win_k=1, mem_valid=0)),
+    ("train M=0 win3", "train", 512, 512, False, dict(win_size=3, win_k=0, mem_valid=0)),
+)
+MT_TRAIN_FNS = {"bidir": (ftr.flash_bidir_attention, ftr.flash_bidir_attention_plain),
+                "cross": (ftr.flash_cross_attention, ftr.flash_cross_attention_plain),
+                "train": (ftr.flash_train_attention, ftr.flash_train_attention_plain)}
 
 
 def say(line: str) -> None:
@@ -708,16 +758,23 @@ def prompt_midi(seed: int, vocab, bars: int = 8) -> bytes:
 MT_WRAPPERS = {"s2s_": fs.fused_s2s_slab_core, "nw_": fs.fused_nw_slab_core}
 
 
+# the train attention wrappers' launch counts, keyed "<prefix><fwd|bwd>"
+TRAIN_WRAPPERS = {"flash_train_": ftr.flash_train_attention,
+                  "flash_bidir_": ftr.flash_bidir_attention,
+                  "flash_cross_": ftr.flash_cross_attention}
+
+
 def launches() -> dict:
     """Every kernel's launch count: the four genre slab modes, the flash
     prefill, the s2s / nw slab steps in both modes (s2s_slab_w8, s2s_slab,
-    nw_slab_w8, nw_slab), and the flash train forward and backward
-    (flash_train_fwd, flash_train_bwd)."""
+    nw_slab_w8, nw_slab), and the forward and backward of the flash train,
+    bidirectional and cross attention (flash_train_fwd, ..., flash_cross_bwd)."""
     return {**fd.fused_slab_core.launches, **fd.fused_slab_allrows_core.launches,
             "flash_prefill": fp.flash_prefill_attention.launches,
             **{prefix + mode: n for prefix, w in MT_WRAPPERS.items()
                for mode, n in w.launches.items()},
-            **{"flash_train_" + k: n for k, n in ftr.flash_train_attention.launches.items()}}
+            **{prefix + k: n for prefix, w in TRAIN_WRAPPERS.items()
+               for k, n in w.launches.items()}}
 
 
 def set_launches(counts: dict) -> None:
@@ -728,8 +785,9 @@ def set_launches(counts: dict) -> None:
     for prefix, wrapper in MT_WRAPPERS.items():
         for mode in wrapper.launches:
             wrapper.launches[mode] = counts[prefix + mode]
-    for k in ftr.flash_train_attention.launches:
-        ftr.flash_train_attention.launches[k] = counts["flash_train_" + k]
+    for prefix, wrapper in TRAIN_WRAPPERS.items():
+        for k in wrapper.launches:
+            wrapper.launches[k] = counts[prefix + k]
 
 
 def reset_launches() -> None:
@@ -1343,15 +1401,29 @@ def rel(x, ref) -> float:
     return float((x - ref).norm() / ref.norm().clamp_min(1e-300))
 
 
-def train_check(kernel, plain, inp, H, **case):
+def mt_run(fn, inp, H, kind, attn_p=0.0, attn_seed=None, **acc) -> list:
+    """``fn``'s output and its gradients as :func:`train_run` gives them, for
+    the multitask attention of ``kind`` ("bidir", with the key padding
+    ``inp["pad"]``, or "cross")."""
+    leaves = [inp[n].detach().clone().requires_grad_(True)
+              for n in ("q", "k", "v", "wkr", "u", "vb")]
+    pad = {"pad_mask": inp["pad"]} if kind == "bidir" else {}
+    out = fn(*leaves, H, **pad, attn_p=attn_p, attn_seed=attn_seed if attn_p else None, **acc)
+    out.backward(inp["do"])
+    grads = [torch.zeros_like(x) if x.grad is None else x.grad for x in leaves]
+    return [t.detach().double() for t in (out, *grads)]
+
+
+def train_check(kernel, plain, inp, H, run=train_run, **case):
     """The float64 check of the train attention (TRAIN_REL): ``kernel``'s
     output and gradients against a float64 run of ``plain``, each within
-    TRAIN_REL + PLAIN_K x the float32 plain version's distance. Returns
+    TRAIN_REL + PLAIN_K x the float32 plain version's distance; ``run``
+    (:func:`train_run`, or :func:`mt_run` with its kind) calls them. Returns
     (ok, {output: (distance, float32 plain distance, bound, max |kernel -
     float32 plain|)})."""
-    got = train_run(kernel, inp, H, **case)
-    ref64 = train_run(plain, inp, H, **case, acc=torch.float64)
-    ref32 = train_run(plain, inp, H, **case, acc=torch.float32)
+    got = run(kernel, inp, H, **case)
+    ref64 = run(plain, inp, H, **case, acc=torch.float64)
+    ref32 = run(plain, inp, H, **case, acc=torch.float32)
     report, ok = {}, True
     for name, g, r64, r32 in zip(TRAIN_OUTPUTS, got, ref64, ref32):
         d_plain = rel(r32, r64)
@@ -1404,14 +1476,15 @@ def train_bytes_and_flops(inp, vecs, B, L, K, H, Dh, blocked):
     return (fwd_bytes, 3 * 2 * pairs * Dh), (bwd_bytes, 8 * 2 * pairs * Dh), pairs
 
 
-def train_timing_phase(cfg, dev, seed):
+def train_timing_phase(cfg, dev, seed, M=TRAIN_M, prefix="train"):
     """CUDA-event medians of the forward and backward kernels (the wrapper's
     launches, 100 each) and of the plain version's forward and backward, at
-    the flagship's train shape: causal, full memory, dropout 0.1, as the
-    main path trains."""
-    H, Dh, B, L, K = cfg.n_heads, cfg.d_head, TRAIN_B, TRAIN_L, TRAIN_M + TRAIN_L
+    the flagship's train shape: causal, full memory of M slots (M = 0: the
+    multitask decoder's call), dropout 0.1, as the main path trains. Keys
+    ``<prefix>_fwd``, ``<prefix>_bwd``."""
+    H, Dh, B, L, K = cfg.n_heads, cfg.d_head, TRAIN_B, TRAIN_L, M + TRAIN_L
     inp = train_inputs(B, L, K, H, Dh, dev, seed)
-    vecs = ftr.mask_vectors(B, L, K, 1, 1, TRAIN_M, device=dev)
+    vecs = ftr.mask_vectors(B, L, K, 1, 1, M, device=dev)
     sc = float(np.float32(1.0 / math.sqrt(Dh)))
     ops = [inp[n].contiguous() for n in ("q", "k", "v", "wkr")] + [
         inp["u"].reshape(-1), inp["vb"].reshape(-1)]
@@ -1421,26 +1494,40 @@ def train_timing_phase(cfg, dev, seed):
     fwd = lambda: ftr._launch_fwd(*ops, vecs, **args)
     bwd = lambda: ftr._launch_bwd(*ops, vecs, inp["do"], delta, m, l, **args)
     leaves = [t.detach().clone().requires_grad_(True) for t in ops]
-    plain = lambda: ftr.flash_train_attention_plain(*leaves, 1, 1, TRAIN_M, H, None, True,
+    plain = lambda: ftr.flash_train_attention_plain(*leaves, 1, 1, M, H, None, True,
                                                     cfg.attn_p, TRAIN_SEED)
-    graph = plain()
-    plain_bwd = lambda: torch.autograd.grad(graph, leaves, inp["do"], retain_graph=True)
-    times = {"train_fwd": time_ms(fwd, 100), "train_bwd": time_ms(bwd, 100)}
-    plain_ms = {"train_fwd": time_ms(plain, 10), "train_bwd": time_ms(plain_bwd, 10)}
-    again = {"train_fwd": time_ms(fwd, 100), "train_bwd": time_ms(bwd, 100)}
     blocked = ftr.blocked_mask(*vecs)
     (fb, ff), (bb, bf), pairs = train_bytes_and_flops(inp, vecs, B, L, K, H, Dh, blocked)
     dense = 2 * B * H * L * K * Dh
-    result = {}
-    for key, nbytes, flops in (("train_fwd", fb, ff), ("train_bwd", bb, bf)):
-        bound_ms, bound_by = bound(nbytes, flops)
-        result[key] = dict(ms=min(times[key], again[key]), plain_ms=plain_ms[key],
-                        bound_ms=bound_ms, bound_by=bound_by)
-        say(f"timing: flash_train {key[6:]} B={B} L={L} K={K} kernel median "
-            f"{times[key]:.4f} ms (again {again[key]:.4f}) plain {plain_ms[key]:.4f} ms "
+    result = timed_pair(prefix, fwd, bwd, plain, leaves, inp["do"], (fb, ff), (bb, bf))
+    for key, nbytes, flops in ((f"{prefix}_fwd", fb, ff), (f"{prefix}_bwd", bb, bf)):
+        bound_ms, bound_by, times, again = (result[key][k] for k in (
+            "bound_ms", "bound_by", "ms_first", "ms_again"))
+        say(f"timing: flash_train {key[-3:]} B={B} L={L} K={K} kernel median "
+            f"{times:.4f} ms (again {again:.4f}) plain {result[key]['plain_ms']:.4f} ms "
             f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP over "
             f"{pairs / (B * H):.0f} visible pairs a head, by {bound_by}; dense L x K "
-            f"products: {(3 if key == 'train_fwd' else 8) * dense / 1e9:.2f} GFLOP)")
+            f"products: {(3 if key.endswith('fwd') else 8) * dense / 1e9:.2f} GFLOP)")
+    return result
+
+
+def timed_pair(prefix, fwd, bwd, plain, leaves, do, fwd_work, bwd_work) -> dict:
+    """The forward and backward kernels' CUDA-event medians of 100 launches
+    (taken twice, in turns with the plain version's 10), the plain version's
+    forward and backward, and the bound of each from its (bytes, flops).
+    Returns {"<prefix>_fwd" / "_bwd": dict(ms, plain_ms, bound_ms, bound_by,
+    ms_first, ms_again)}."""
+    graph = plain()
+    plain_bwd = lambda: torch.autograd.grad(graph, leaves, do, retain_graph=True)
+    times = {"fwd": time_ms(fwd, 100), "bwd": time_ms(bwd, 100)}
+    plain_ms = {"fwd": time_ms(plain, 10), "bwd": time_ms(plain_bwd, 10)}
+    again = {"fwd": time_ms(fwd, 100), "bwd": time_ms(bwd, 100)}
+    result = {}
+    for part, (nbytes, flops) in (("fwd", fwd_work), ("bwd", bwd_work)):
+        bound_ms, bound_by = bound(nbytes, flops)
+        result[f"{prefix}_{part}"] = dict(
+            ms=min(times[part], again[part]), plain_ms=plain_ms[part], bound_ms=bound_ms,
+            bound_by=bound_by, ms_first=times[part], ms_again=again[part])
     return result
 
 
@@ -1512,6 +1599,236 @@ def train_phase(seed: int):
     return counts
 
 
+def mt_train_kernel_phase(cfg, dev, seed):
+    """The multitask train step's kernels against their plain versions on
+    each of MT_TRAIN_CASES; returns {"<kind>_fwd" / "_bwd": (largest |kernel -
+    float32 plain|, largest distance over its bound)}, kind "bidir", "cross"
+    or "train0" (flash_train_attention at M = 0)."""
+    H, Dh, B = cfg.n_heads, cfg.d_head, MT_TRAIN_B
+    worst = {}
+    before = launches()
+    for i, (name, kind, L, K, pad, case) in enumerate(MT_TRAIN_CASES):
+        inp = train_inputs(B, L, K, H, Dh, dev, seed + 100 + i, pad)
+        kernel, plain = MT_TRAIN_FNS[kind]
+        run = train_run if kind == "train" else functools.partial(mt_run, kind=kind)
+        ok, report = train_check(kernel, plain, inp, H, run=run, **case, attn_seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        say(f"kernel: {name} B={B} L={L} K={K} pad={pad} {case}: " + "; ".join(
+            f"{k} |d|/|ref| {d:.3e} (plain f32 {dp:.2e}, bound {b:.3e}, max|d| {m:.2e})"
+            for k, (d, dp, b, m) in report.items()))
+        if not ok:
+            raise AssertionError(f"the {kind} train kernels disagree with their plain version "
+                                 f"on case {name}")
+        kind = "train0" if kind == "train" else kind
+        for part, names in (("fwd", TRAIN_OUTPUTS[:1]), ("bwd", TRAIN_OUTPUTS[1:])):
+            key = f"{kind}_{part}"
+            for k in names:
+                d, _, b, m = report[k]
+                w = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(w[0], m), max(w[1], d / b))
+    set_launches(before)
+    return worst
+
+
+def mt_bytes_and_flops_train(inp, B, L, K, H, Dh, vis_pairs, bd_pairs):
+    """Bytes each pass of a multitask train kernel must move (inputs read
+    once, outputs written once) and its products' operations (2 per
+    multiply-add) over the pairs this data needs: AC, P.V and, in the
+    backward, dP, dV, dK and dQ's AC term over the pairs with a visible key;
+    BD and, in the backward, dQ's BD term and dWkr over the pairs whose BD
+    the function keeps."""
+    nbytes = lambda t: t.numel() * t.element_size()
+    ins = sum(nbytes(inp[n]) for n in ("q", "k", "v", "wkr", "u", "vb"))
+    stats = 2 * B * H * L * 4
+    fwd_bytes = ins + nbytes(inp["q"]) + stats
+    bwd_bytes = (ins + nbytes(inp["do"]) + B * L * H * 4 + stats
+                 + nbytes(inp["q"]) + 2 * nbytes(inp["k"]) + (K + 2) * H * Dh * 4)
+    return ((fwd_bytes, 2 * Dh * (2 * vis_pairs + bd_pairs)),
+            (bwd_bytes, 2 * Dh * (5 * vis_pairs + 3 * bd_pairs)))
+
+
+def mt_train_timing_phase(cfg, dev, seed):
+    """CUDA-event medians of the bidirectional and cross kernels' forward and
+    backward (100 launches each) and of their plain versions, at the
+    multitask train step's shape (B 16, W 512, no padding, dropout 0.1 as
+    the main path trains), beside the bound; then flash_train_attention at
+    M = 0. Keys bidir_*, cross_*, train0_*."""
+    H, Dh, B, W = cfg.n_heads, cfg.d_head, MT_TRAIN_B, MT_TRAIN_W
+    sc = float(np.float32(1.0 / math.sqrt(Dh)))
+    result = {}
+    for kind in ("bidir", "cross"):
+        bidir = kind == "bidir"
+        inp = train_inputs(B, W, W, H, Dh, dev, seed)
+        ops = [inp[n].contiguous() for n in ("q", "k", "v", "wkr")] + [
+            inp["u"].reshape(-1), inp["vb"].reshape(-1)]
+        kp = torch.zeros((B, W), dtype=torch.int32, device=dev) if bidir else None
+        args = dict(H=H, sc=sc, attn_p=cfg.attn_p, seed=TRAIN_SEED)
+        out, m, l = ftr._mt_launch_fwd(bidir, *ops, kp, **args)
+        delta = (inp["do"].float() * out.float()).reshape(B, W, H, Dh).sum(-1).contiguous()
+        fwd = lambda: ftr._mt_launch_fwd(bidir, *ops, kp, **args)
+        bwd = lambda: ftr._mt_launch_bwd(bidir, *ops, kp, inp["do"], delta, m, l, **args)
+        leaves = [t.detach().clone().requires_grad_(True) for t in ops]
+        pad = {"pad_mask": None} if bidir else {}
+        plain_fn = MT_TRAIN_FNS[kind][1]
+        plain = lambda: plain_fn(*leaves, H, **pad, attn_p=cfg.attn_p, attn_seed=TRAIN_SEED)
+        pairs = B * H * W * W
+        # bidir: every key visible, BD zero on one column; cross: BD kept on the
+        # band j <= i + K - L, here the lower triangle with the diagonal
+        bd_pairs = B * H * (W * (W - 1) if bidir else W * (W + 1) // 2)
+        work = mt_bytes_and_flops_train(inp, B, W, W, H, Dh, pairs, bd_pairs)
+        got = timed_pair(kind, fwd, bwd, plain, leaves, inp["do"], *work)
+        for key, r in got.items():
+            nbytes, flops = work[0] if key.endswith("fwd") else work[1]
+            say(f"timing: flash_{key} B={B} W={W} {H}x{Dh} dropout {cfg.attn_p} kernel median "
+                f"{r['ms_first']:.4f} ms (again {r['ms_again']:.4f}) plain {r['plain_ms']:.4f} "
+                f"ms bound {r['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.2f} GFLOP, by {r['bound_by']})")
+        result.update(got)
+    result.update(train_timing_phase(cfg, dev, seed, M=0, prefix="train0"))
+    return result
+
+
+def mt_train_corpus(root: Path, seed: int, vocab):
+    """A synthetic corpus of 3 songs a genre on disk (the mask task's LM
+    stream), and 18 two-track Piano + Bass items (6 songs of each genre
+    whose melody or comping is a piano) for the seq2seq task."""
+    synthcorpus.make_corpus(root, songs_per_genre=3, val_per_genre=0, base_seed=seed)
+    styles = synthcorpus.GENRE_STYLES
+    piano = [g for g, st in styles.items()
+             if synthcorpus.PIANO in (st["melody_ins"], st["comp_ins"])]
+    items = [MultitrackItem.from_npenc(synthcorpus.generate_song(g, seed + 50_000 + i), vocab)
+             for g in piano for i in range(6)]
+    items = [it for it in items
+             if len(it.first_instrument) > 16 and len(it.second_instrument) > 16]
+    return load_corpus(root / "train", vocab), items
+
+
+# the multitask flash kernels a task batch launches a step, forward and backward
+MT_STEP_LAUNCHES = {"msk": {"flash_bidir": 10}, "s2s": {"flash_bidir": 20, "flash_cross": 20,
+                                                         "flash_train": 20}}
+MT_START_WINDOW = 3
+# The flash route's wiring (mt._flash_train_block: the wkr slices, the (H,
+# Dh) biases, which padding reaches which kernel, the post-norms, the blocks
+# without a feed-forward) against the score path at the flagship's width: the
+# trained model's multi_loss on one batch, window 3 at diagonal 0, no
+# dropout, and its gradient over every parameter (relative Frobenius
+# distance of all the leaves together). The two routes differ by bf16
+# roundings only (each rounds its attention output, the score path its
+# probabilities where the kernels round q + u, q + v and P). On an H100
+# (PERF.md) the gaps were 9.5e-7 and 5.3e-5 in the loss, 4.6e-4 and 2.3e-3
+# in the gradient (mask, padded s2s); the bounds leave 38x and 8.6x the
+# larger. A wiring fault moves the gradient by O(1).
+MT_ROUTE_LOSS_ATOL = 2e-3
+MT_ROUTE_GRAD_REL = 2e-2
+MT_ROUTE_PAD = 40          # key-padded columns of the s2s batch's row 1
+
+
+def mt_route_check(params, cfg, batch, pad_idx, dev):
+    """(flash loss, score-path loss, relative gradient distance) of
+    ``multi_loss`` on ``batch`` through ``flash_train=None`` (the kernels on
+    the card) and ``flash_train=False``."""
+    xd, yd = batch
+    xs = {task: _batch_to_device(d, dev) for task, d in xd.items() if d is not None}
+    ys = _batch_to_device(yd, dev)
+    losses, grads = [], []
+    for flash in (None, False):
+        p = master_params(params, dev)
+        out = mt.forward(p, cfg, xs, pad_idx=pad_idx, win_size=3, win_k=0, flash_train=flash)
+        loss, _ = multi_loss(out, ys, pad_idx)
+        leaves = txl.tree_leaves(p)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads.append(torch.cat([(torch.zeros_like(t) if gi is None else gi).flatten()
+                                for t, gi in zip(leaves, g)]))
+        losses.append(float(loss.detach()))
+    rel = float(torch.linalg.vector_norm(grads[0] - grads[1])
+                / torch.linalg.vector_norm(grads[1]))
+    return losses[0], losses[1], rel
+
+
+def mt_train_phase(seed: int):
+    """The main path of multitask training on the 85M flagship (see the
+    module docstring); returns the launch counts of the fit."""
+    vocab = MusicVocab.create()
+    cfg = multitask_config(len(vocab))
+    B, L = MT_TRAIN_B, cfg.ctx_len
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, items = mt_train_corpus(Path(tmp) / "corpus", seed, vocab)
+        rng = np.random.default_rng(seed)
+        loader = LMStreamLoader(corpus, vocab, bs=B, bptt=L, seed=seed)
+        mask_batches = [mask_lm_tfm_pitchdur(b, vocab, rng) for b in loader]
+        s2s_loader = S2SLoader(items, vocab, bs=min(B, len(items)), bptt=L, seed=seed)
+        s2s_batches = []
+        for _ in range(max(len(mask_batches) // max(len(s2s_loader), 1), 1)):
+            s2s_batches.extend(list(s2s_loader))
+        n_mask, n_s2s = len(mask_batches), len(s2s_batches)
+        if not (8 <= n_mask <= 16 and len(items) >= 16 and s2s_loader.bs == B):
+            raise AssertionError(f"{n_mask} mask batches (8-16 wanted), {len(items)} two-track "
+                                 f"items (16 wanted), s2s batch {s2s_loader.bs}")
+        learner = multitask_model_learner(cfg, vocab, seed=seed)     # device=None: the card
+        torch.cuda.synchronize()
+        reset_launches()
+        plain_calls = [f.calls for f in (ftr.flash_train_attention_plain,
+                                         ftr.flash_bidir_attention_plain,
+                                         ftr.flash_cross_attention_plain)]
+        result = learner.fit(mask_batches, epochs=2, seed=seed,
+                             dataloaders=[mask_batches, s2s_batches],
+                             starting_mask_window=MT_START_WINDOW,
+                             log_fn=lambda line: say(f"mt train: {line}"))
+        torch.cuda.synchronize()
+        counts = launches()
+        say(f"mt train: windows (win_size, win_k) a step: {result.windows}")
+        want = only(**{f"{k}_{part}": n_mask * MT_STEP_LAUNCHES["msk"].get(k, 0)
+                       + n_s2s * MT_STEP_LAUNCHES["s2s"].get(k, 0)
+                       for k in MT_STEP_LAUNCHES["s2s"] for part in ("fwd", "bwd")})
+        plain_now = [f.calls for f in (ftr.flash_train_attention_plain,
+                                       ftr.flash_bidir_attention_plain,
+                                       ftr.flash_cross_attention_plain)]
+        for entry, n, toks in ((result.history[0], n_mask, n_mask * B * L),
+                               (result.history[1], n_s2s, n_s2s * 2 * B * L)):
+            losses = result.losses[:n] if entry["epoch"] == 0 else result.losses[n_mask:]
+            first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+            say(f"mt train: epoch {entry['epoch']} ({'mask' if entry['epoch'] == 0 else 's2s'}) "
+                f"85M flagship B={B} bptt={L}: {n} steps in {entry['time_s']:.2f} s, "
+                f"{n / entry['time_s']:.3f} steps/s, {toks / entry['time_s']:.0f} target tok/s; "
+                f"loss first 4 {first:.4f} last 4 {last:.4f}")
+            if not (np.isfinite(losses).all() and last < first):
+                raise AssertionError(f"the loss of epoch {entry['epoch']} did not fall: "
+                                     f"first 4 {first}, last 4 {last}")
+        say(f"mt train: launches {counts}; plain version calls "
+            f"{[b - a for a, b in zip(plain_calls, plain_now)]}")
+        if counts != want:
+            raise AssertionError(f"multitask training launched {counts}, expected {want}")
+        if plain_now != plain_calls:
+            raise AssertionError("multitask training called a plain train attention on the card")
+        if not any(w > 1 for w, _ in result.windows[n_mask:]):
+            raise AssertionError("no seq2seq step ran a curriculum window")
+        xd, yd = s2s_batches[0]
+        padded = {}
+        for task, d in xd.items():
+            pad = np.zeros((B, L), bool)
+            pad[1, -MT_ROUTE_PAD:] = True
+            padded[task] = {**d, "enc_pad": pad, "dec_pad": pad}
+        for name, batch in (("mask", mask_batches[0]), ("s2s padded", (padded, yd))):
+            fl, sc, rel = mt_route_check(learner.params, cfg, batch, vocab.pad_idx,
+                                         torch.device("cuda"))
+            say(f"mt train: route check on a {name} batch, window 3: loss kernels {fl:.6f} "
+                f"score path {sc:.6f} (|gap| {abs(fl - sc):.3e}, bound "
+                f"{MT_ROUTE_LOSS_ATOL}); gradient relative distance {rel:.3e} (bound "
+                f"{MT_ROUTE_GRAD_REL})")
+            if not (abs(fl - sc) <= MT_ROUTE_LOSS_ATOL and rel <= MT_ROUTE_GRAD_REL):
+                raise AssertionError(f"the flash route's loss or gradient on the {name} batch "
+                                     f"differs from the score path's")
+        path = Path(tmp) / "mt_ckpt"
+        learner.save(str(path))
+        back = MultitaskLearner.load(str(path))
+        if back.step != n_mask + n_s2s:
+            raise AssertionError(f"the manifest records step {back.step}, not {n_mask + n_s2s}")
+        gen = mt_tasks(back, "trained", seed + 3, "slab_w8", n_s2s=64, n_nw=64)
+        say(f"mt train: saved {path.name} step {back.step}, reloaded on the card; "
+            f"generation launched {gen}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1560,13 +1877,19 @@ def main(argv=None) -> int:
     err.update(timed("train kernel", train_kernel_phase, train_cfg, dev, args.seed))
     timing.update(timed("train timing", train_timing_phase, train_cfg, dev, args.seed))
     n_train = timed("train", train_phase, args.seed)
+    mt_cfg = flagship.cfg
+    err.update(timed("mt train kernel", mt_train_kernel_phase, mt_cfg, dev, args.seed))
+    timing.update(timed("mt train timing", mt_train_timing_phase, mt_cfg, dev, args.seed))
+    n_mt_train = timed("mt train", mt_train_phase, args.seed)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     csrc = "deepmusicgeneration_tpu_torch/ops/csrc/"
     src = "deepmusicgeneration_tpu/ops/"
     entry = lambda name, source, replaces, launched, key: {
         "name": name, "route": "cuda", "source": csrc + source,
         "replaces": src + replaces, "launches": launched, "max_abs_err": err[key][0],
-        "max_err_over_bound": err[key][1], **timing[key], "library_ms": None}
+        "max_err_over_bound": err[key][1],
+        **{k: timing[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None}
     say(json.dumps({"kernels": [
         entry("fused_slab_core[slab_w8]", "slab_decode.cu", "fused_decode.py:1163",
               n_single, "slab_w8"),
@@ -1584,7 +1907,12 @@ def main(argv=None) -> int:
                                       ("nw", "fused_nw_slab_core", 736))
           for mode in MT_MODES],
         *[entry(f"flash_train_attention[{part}]", "flash_train.cu", "flash_train.py:804",
-                n_train[f"flash_train_{part}"], f"train_{part}") for part in ("fwd", "bwd")]]}))
+                n_train[f"flash_train_{part}"], f"train_{part}") for part in ("fwd", "bwd")],
+        *[entry(f"{wrapper}[{part}]", "flash_mt.cu", f"flash_train.py:{line}",
+                n_mt_train[f"flash_{kind}_{part}"], f"{kind}_{part}")
+          for kind, wrapper, line in (("bidir", "flash_bidir_attention", 772),
+                                      ("cross", "flash_cross_attention", 789))
+          for part in ("fwd", "bwd")]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,9 @@
-"""MultiTransformer inference: the multitask encoder-decoder (mask infill,
-next-word continuation, seq2seq harmonization) as plain functions of a
-parameter dict.
+"""MultiTransformer: the multitask encoder-decoder (mask infill, next-word
+continuation, seq2seq harmonization) as plain functions of a parameter dict,
+for training and inference.
 
-The inference half of the JAX package's ``models/multitask.py``, with its
-structural quirks of the reference architecture:
+The JAX package's ``models/multitask.py``, with its structural quirks of the
+reference architecture:
 
 * separate q/k/v projections with biases, **no output projection**
   (d_model == n_heads * d_head), post-norm ``ln(q + attn)``,
@@ -23,7 +23,19 @@ structural quirks of the reference architecture:
 "beat_enc", "bar_enc", "head_b", "encoder"/"decoder": {"u", "v", "layers":
 [{"mha1", "mha2": {"q_w", "q_b", "k_w", "k_b", "v_w", "v_b", "r_w", "r_b",
 "ln_g", "ln_b"}, "ff1_w", "ff1_b", "ff2_w", "ff2_b", "ff_ln_g",
-"ff_ln_b"}]}}``. Inference only: no dropout, no training kernels, no remat.
+"ff_ln_b"}]}}``.
+
+Training (:func:`forward` over a task dict with ``train=True``) applies the
+reference's dropouts (embed_p, attn_p, resid_p, ff_p, output_p) and the
+decoder's window-mask curriculum. Its random draws come from int seeds
+folded per module (:func:`_fold`), each dropout from a ``torch.Generator``
+seeded on the tensors' device, so a block recomputed under ``remat``
+(``torch.utils.checkpoint``) draws the same masks again; the numbers differ
+from JAX's ``jax.random``. On the card, a bf16 config at B >= 8 runs every
+attention of the step through the flash train kernels
+(:func:`_flash_train_ok`): the decoder's causal-window attention, the
+encoder's bidirectional attention and the cross attention, with attn_p
+inside the kernels.
 """
 
 from __future__ import annotations
@@ -31,12 +43,15 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from ..ops import flash_train as ft
 from ..ops.rel_attention import (NEG_INF, backwards_pos_enc, causal_window_mask,
                                  rel_attention)
 from .config import MultitaskConfig
-from .txl import PAD_G, _layer_norm, _logits
+from .txl import PAD_G, _dropout, _layer_norm, _logits
 
 F32 = torch.float32
 
@@ -86,10 +101,33 @@ def init_multitask(cfg: MultitaskConfig, generator: Optional[torch.Generator] = 
     return params
 
 
+def _fold(seed: Optional[int], i: int) -> Optional[int]:
+    """A seed for sub-module ``i`` of the module seeded ``seed`` (JAX's
+    ``fold_in``; None stays None): a non-negative int32."""
+    if seed is None:
+        return None
+    return int(np.random.SeedSequence([int(seed), i]).generate_state(1)[0] & 0x7FFFFFFF)
+
+
+def _gen(seed: Optional[int], device) -> Optional[torch.Generator]:
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
+def _rnn_dropout(x, rate: float, generator: Optional[torch.Generator], train: bool):
+    """fastai RNNDropout: one (B, 1, D) mask broadcast over the sequence."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand((x.shape[0], 1, x.shape[-1]), generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def embed_tokens(params: Dict, cfg: MultitaskConfig, x: torch.Tensor,
-                 pos: Optional[torch.Tensor], pad_idx: int = 1) -> torch.Tensor:
+                 pos: Optional[torch.Tensor], pad_idx: int = 1, rng: Optional[int] = None,
+                 train: bool = False) -> torch.Tensor:
     """Token + beat + bar embeddings, each zero at its padding index (the
-    pad token, beat 0, bar 0)."""
+    pad token, beat 0, bar 0); embed_p dropout on the sum when ``train``
+    with a seed ``rng``."""
     dt = cfg.act_dtype
     emb = params["embed"][x].to(dt)
     emb = torch.where((x == pad_idx)[..., None], 0.0, emb).to(dt)
@@ -101,7 +139,7 @@ def embed_tokens(params: Dict, cfg: MultitaskConfig, x: torch.Tensor,
         be = torch.where((beat == 0)[..., None], 0.0, params["beat_enc"][beat].to(dt))
         ba = torch.where((bar == 0)[..., None], 0.0, params["bar_enc"][bar].to(dt))
         emb = emb + be.to(dt) + ba.to(dt)
-    return emb
+    return _dropout(emb, cfg.embed_p, _gen(rng, x.device), train)
 
 
 def _lin(x, w, b):
@@ -121,18 +159,25 @@ def _wkr_of(ap, r, H: int, Dh: int):
     return _lin(r, ap["r_w"], ap["r_b"]).reshape(r.shape[0], H, Dh).transpose(0, 1)
 
 
-def _attn_apply(ap, cfg: MultitaskConfig, q_in, kv_in, r, u, v, mask, r_mask: bool):
-    """ln(q_in + rel_attention(q_in, kv_in)) with no output projection."""
+def _attn_apply(ap, cfg: MultitaskConfig, q_in, kv_in, r, u, v, mask, r_mask: bool,
+                rng: Optional[int] = None, train: bool = False):
+    """ln(q_in + drop_res(rel_attention(q_in, kv_in))) with no output
+    projection; with ``train`` and a seed, attn_p dropout on the
+    probabilities and resid_p on the attention output."""
     H, Dh = cfg.n_heads, cfg.d_head
     B, Lq, _ = q_in.shape
     K = kv_in.shape[1]
     q = _proj(q_in, ap["q_w"], ap["q_b"], H, Dh)
     k = _proj(kv_in, ap["k_w"], ap["k_b"], H, Dh)
     vv = _proj(kv_in, ap["v_w"], ap["v_b"], H, Dh)
+    tr = train and rng is not None
     attn = rel_attention(q, k, vv, _wkr_of(ap, r[-K:], H, Dh), u, v,
                          mask=None if mask is None else mask[..., -K:],
-                         scale=cfg.scale, shift=True, r_mask=r_mask)
+                         scale=cfg.scale, shift=True, r_mask=r_mask,
+                         attn_p=cfg.attn_p if tr else 0.0,
+                         generator=_gen(_fold(rng, 0), q_in.device) if tr else None)
     attn = attn.to(q_in.dtype).transpose(1, 2).reshape(B, Lq, H * Dh)
+    attn = _dropout(attn, cfg.resid_p, _gen(_fold(rng, 1), q_in.device), tr)
     return _layer_norm(q_in + attn, ap["ln_g"], ap["ln_b"])
 
 
@@ -144,50 +189,204 @@ def _act(x, kind: str):
     raise ValueError(kind)
 
 
-def _ff(bp, cfg: MultitaskConfig, h):
+def _ff(bp, cfg: MultitaskConfig, h, rng: Optional[int] = None, train: bool = False):
+    """fastai feed_forward(double_drop=True): act, drop(ff_p), linear,
+    drop(ff_p), residual, LayerNorm."""
+    tr = train and rng is not None
     y = _act(_lin(h, bp["ff1_w"], bp["ff1_b"]), cfg.act)
+    y = _dropout(y, cfg.ff_p, _gen(_fold(rng, 0), h.device), tr)
     y = _lin(y, bp["ff2_w"], bp["ff2_b"])
+    y = _dropout(y, cfg.ff_p, _gen(_fold(rng, 1), h.device), tr)
     return _layer_norm(h + y, bp["ff_ln_g"], bp["ff_ln_b"])
 
 
-def _causal_mask(L: int, device=None) -> torch.Tensor:
-    """(1, 1, L, L) causal mask (True = blocked); column 0 always visible."""
-    return causal_window_mask(L, 0, 1, 1, device=device)
+def _causal_mask(L: int, win_size: int = 1, win_k: int = 1, device=None) -> torch.Tensor:
+    """(1, 1, L, L) block-causal window mask (True = blocked; the
+    ``rand_window_mask`` curriculum); column 0 always visible."""
+    return causal_window_mask(L, 0, win_size, win_k, device=device)
 
 
 def _stack_uv(stack: Dict, dt):
     return stack["u"].to(dt), stack["v"].to(dt)
 
 
-def stack_forward(stack: Dict, cfg: MultitaskConfig, h: torch.Tensor, is_decoder: bool,
-                  enc_out: Optional[torch.Tensor] = None,
-                  self_mask: Optional[torch.Tensor] = None,
-                  pad_cols: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One stack over an embedded (B, L, D) input: causal self-attention for
-    the decoder, bidirectional for the encoder, with ``pad_cols`` (B, L)
-    blocked as keys; cross-attention and the feed-forward only with
-    ``enc_out``."""
-    B, L, D = h.shape
-    dt = h.dtype
-    Le = enc_out.shape[1] if enc_out is not None else 0
-    r = backwards_pos_enc(max(L, Le) + cfg.mem_len, D, dtype=dt, device=h.device)
-    u, v = _stack_uv(stack, dt)
-    if self_mask is None and is_decoder:
-        self_mask = _causal_mask(L, h.device)
-    if pad_cols is not None:
-        pc = pad_cols[:, None, None, :]
-        self_mask = pc if self_mask is None else (self_mask | pc)
-    for bp in stack["layers"]:
-        h = _attn_apply(bp["mha1"], cfg, h, h, r, u, v, self_mask, r_mask=False)
-        if enc_out is not None:
-            h = _attn_apply(bp["mha2"], cfg, h, enc_out, r, u, v, None, r_mask=True)
-            h = _ff(bp, cfg, h)
+def _flash_train_ok(cfg: MultitaskConfig, B: int, L: int, Le: Optional[int],
+                    flag: Optional[bool], device) -> bool:
+    """The JAX package's rule for the flash train kernels in the multitask
+    step (``models/multitask.py:275-286``) with "TPU" read as a CUDA device:
+    a bf16 config, B >= 8, L (and the encoder length Le) multiples of 128 and
+    at most 512. ``flag`` overrides it. Where the rule holds but the CUDA
+    kernels do not take the shapes, it raises rather than let the card run
+    the score path."""
+    if flag is not None:
+        return flag
+    if not (torch.device(device).type == "cuda" and cfg.act_dtype == torch.bfloat16
+            and B >= 8 and L % 128 == 0 and L <= 512
+            and (Le is None or (Le % 128 == 0 and Le <= 512))):
+        return False
+    HD = cfg.n_heads * cfg.d_head
+    why = (ft.kernel_supports(B, L, L, cfg.n_heads, HD, cfg.act_dtype)
+           or ft.mt_kernel_supports("bidir", B, L, L, cfg.n_heads, HD, cfg.act_dtype)
+           or (Le is not None and ft.mt_kernel_supports("cross", B, L, Le, cfg.n_heads, HD,
+                                                        cfg.act_dtype)))
+    if why:
+        raise NotImplementedError(
+            f"the flash train kernels have no CUDA version for B={B}, L={L}, Le={Le}, "
+            f"{cfg.n_heads} x {cfg.d_head} heads: {why}")
+    return True
+
+
+def _wkr_flat(ap, r, K: int):
+    """The last K rows of the sinusoid table through r_w: (K, H * Dh)."""
+    return _lin(r[-K:], ap["r_w"], ap["r_b"])
+
+
+def _flash_train_block(bp, cfg: MultitaskConfig, h, is_decoder: bool, enc_out, r, u, v,
+                       win_size: int, win_k: int, pad_cols, rng: Optional[int] = None,
+                       train: bool = False):
+    """One block on the flash train kernels: the decoder's self-attention
+    through ``flash_train_attention`` with no memory (M = 0) under the window
+    curriculum, the encoder's through ``flash_bidir_attention``, the cross
+    attention through ``flash_cross_attention``; projections, post-norms,
+    resid_p / ff_p dropout and the feed-forward outside (the math of
+    :func:`_attn_apply` / :func:`_ff`), attn_p inside the kernels, seeded
+    from ``rng``."""
+    L = h.shape[1]
+    H, Dh = cfg.n_heads, cfg.d_head
+    u2, v2 = u.reshape(H, Dh), v.reshape(H, Dh)
+    tr = train and rng is not None
+    attn_p = cfg.attn_p if tr else 0.0
+    seed_of = lambda i: _fold(rng, i) if attn_p > 0.0 else None
+    ap = bp["mha1"]
+    q, k, vv = _lin(h, ap["q_w"], ap["q_b"]), _lin(h, ap["k_w"], ap["k_b"]), \
+        _lin(h, ap["v_w"], ap["v_b"])
+    wkr = _wkr_flat(ap, r, L)
+    if is_decoder:
+        attn = ft.flash_train_attention(q, k, vv, wkr, u2, v2, win_size, win_k, 0, H,
+                                        pad_mask=pad_cols, scale=cfg.scale, attn_p=attn_p,
+                                        attn_seed=seed_of(13))
+    else:
+        attn = ft.flash_bidir_attention(q, k, vv, wkr, u2, v2, H, pad_mask=pad_cols,
+                                        scale=cfg.scale, attn_p=attn_p, attn_seed=seed_of(13))
+    attn = _dropout(attn, cfg.resid_p, _gen(_fold(rng, 10), h.device), tr)
+    h = _layer_norm(h + attn, ap["ln_g"], ap["ln_b"])
+    if enc_out is not None:
+        ap2 = bp["mha2"]
+        q2 = _lin(h, ap2["q_w"], ap2["q_b"])
+        k2, vv2 = _lin(enc_out, ap2["k_w"], ap2["k_b"]), _lin(enc_out, ap2["v_w"], ap2["v_b"])
+        attn2 = ft.flash_cross_attention(q2, k2, vv2, _wkr_flat(ap2, r, enc_out.shape[1]), u2,
+                                         v2, H, scale=cfg.scale, attn_p=attn_p,
+                                         attn_seed=seed_of(14))
+        attn2 = _dropout(attn2, cfg.resid_p, _gen(_fold(rng, 11), h.device), tr)
+        h = _layer_norm(h + attn2, ap2["ln_g"], ap2["ln_b"])
+        h = _ff(bp, cfg, h, rng=_fold(rng, 12), train=train)
     return h
 
 
-def head(params: Dict, cfg: MultitaskConfig, h: torch.Tensor) -> torch.Tensor:
-    """The tied linear head: float32 logits."""
-    return _logits(params, h)
+def stack_forward(stack: Dict, cfg: MultitaskConfig, h: torch.Tensor, is_decoder: bool,
+                  enc_out: Optional[torch.Tensor] = None,
+                  self_mask: Optional[torch.Tensor] = None,
+                  pad_cols: Optional[torch.Tensor] = None, win_size: int = 1, win_k: int = 1,
+                  remat: bool = False, flash_train: Optional[bool] = None, mesh=None,
+                  rng: Optional[int] = None, train: bool = False) -> torch.Tensor:
+    """One stack over an embedded (B, L, D) input: causal self-attention for
+    the decoder (under the ``win_size`` / ``win_k`` window curriculum),
+    bidirectional for the encoder, with ``pad_cols`` (B, L) blocked as keys;
+    cross-attention and the feed-forward only with ``enc_out`` (the
+    reference's quirk: without it a block is attention only).
+
+    ``flash_train`` routes every attention through the flash train kernels
+    (None: :func:`_flash_train_ok`'s rule; never on the CPU). ``remat``
+    recomputes each block in the backward (``torch.utils.checkpoint``)
+    instead of keeping its activations. ``rng``: the stack's int seed of the
+    training dropouts, folded per layer."""
+    if mesh is not None:
+        raise NotImplementedError("mesh (sharded) multitask training is not ported yet; "
+                                  "see ROADMAP.md Queue 1 item 14")
+    B, L, D = h.shape
+    dt = h.dtype
+    Le = enc_out.shape[1] if enc_out is not None else None
+    r = backwards_pos_enc(max(L, Le or 0) + cfg.mem_len, D, dtype=dt, device=h.device)
+    u, v = _stack_uv(stack, dt)
+    if self_mask is None and _flash_train_ok(cfg, B, L, Le, flash_train, h.device):
+        def one_block(bp, h, lrng):
+            return _flash_train_block(bp, cfg, h, is_decoder, enc_out, r, u, v, win_size,
+                                      win_k, pad_cols, rng=lrng, train=train)
+    else:
+        if self_mask is None and is_decoder:
+            self_mask = _causal_mask(L, win_size, win_k, h.device)
+        if pad_cols is not None:
+            pc = pad_cols[:, None, None, :]
+            self_mask = pc if self_mask is None else (self_mask | pc)
+
+        def one_block(bp, h, lrng):
+            h = _attn_apply(bp["mha1"], cfg, h, h, r, u, v, self_mask, r_mask=False,
+                            rng=_fold(lrng, 0), train=train)
+            if enc_out is not None:
+                h = _attn_apply(bp["mha2"], cfg, h, enc_out, r, u, v, None, r_mask=True,
+                                rng=_fold(lrng, 1), train=train)
+                h = _ff(bp, cfg, h, rng=_fold(lrng, 2), train=train)
+            return h
+
+    tr = train and rng is not None
+    for i, bp in enumerate(stack["layers"]):
+        lrng = _fold(rng, i) if tr else None
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(one_block, bp, h, lrng, use_reentrant=False)
+        else:
+            h = one_block(bp, h, lrng)
+    return h
+
+
+def head(params: Dict, cfg: MultitaskConfig, h: torch.Tensor, rng: Optional[int] = None,
+         train: bool = False) -> torch.Tensor:
+    """RNNDropout(output_p) when ``train`` with a seed, then the tied linear
+    head: float32 logits."""
+    return _logits(params, _rnn_dropout(h, cfg.output_p, _gen(rng, h.device), train))
+
+
+def forward(params: Dict, cfg: MultitaskConfig, inp: Dict[str, Dict[str, torch.Tensor]],
+            pad_idx: int = 1, win_size: int = 1, win_k: int = 1, remat: bool = False,
+            flash_train: Optional[bool] = None, mesh=None, rng: Optional[int] = None,
+            train: bool = False) -> Dict[str, torch.Tensor]:
+    """Task dict to logits dict (MultiTransformer.forward): 'msk' through the
+    encoder, 'lm' through the decoder alone, 's2f' / 'f2s' / 'c2m' / 'm2c'
+    through the encoder and the decoder with cross-attention. Each task's
+    dict holds 'x' (and 'pos'), or 'enc', 'dec' (and 'enc_pos', 'dec_pos',
+    'enc_pad', 'dec_pad'), as tensors on the parameters' device. ``rng``:
+    the int seed of the training dropouts (None: none); ``flash_train``,
+    ``remat``, ``win_size`` / ``win_k`` as :func:`stack_forward` takes
+    them."""
+    out = {}
+    tr = train and rng is not None
+    sub = (lambda i: _fold(rng, i)) if tr else (lambda i: None)
+    kw = dict(remat=remat, flash_train=flash_train, mesh=mesh, train=train)
+    if inp.get("msk") is not None:
+        d = inp["msk"]
+        h = embed_tokens(params, cfg, d["x"], d.get("pos"), pad_idx, rng=sub(0), train=train)
+        h = stack_forward(params["encoder"], cfg, h, is_decoder=False, rng=sub(1), **kw)
+        out["msk"] = head(params, cfg, h, rng=sub(2), train=train)
+    if inp.get("lm") is not None:
+        d = inp["lm"]
+        h = embed_tokens(params, cfg, d["x"], d.get("pos"), pad_idx, rng=sub(3), train=train)
+        h = stack_forward(params["decoder"], cfg, h, is_decoder=True, win_size=win_size,
+                          win_k=win_k, rng=sub(4), **kw)
+        out["lm"] = head(params, cfg, h, rng=sub(5), train=train)
+    for j, key in enumerate(("s2f", "f2s", "c2m", "m2c")):
+        if inp.get(key) is None:
+            continue
+        d = inp[key]
+        eh = embed_tokens(params, cfg, d["enc"], d.get("enc_pos"), pad_idx,
+                          rng=sub(10 + 10 * j), train=train)
+        eh = stack_forward(params["encoder"], cfg, eh, is_decoder=False,
+                           pad_cols=d.get("enc_pad"), rng=sub(11 + 10 * j), **kw)
+        dh = embed_tokens(params, cfg, d["dec"], d.get("dec_pos"), pad_idx,
+                          rng=sub(12 + 10 * j), train=train)
+        dh = stack_forward(params["decoder"], cfg, dh, is_decoder=True, enc_out=eh,
+                           pad_cols=d.get("dec_pad"), win_size=win_size, win_k=win_k,
+                           rng=sub(13 + 10 * j), **kw)
+        out[key] = head(params, cfg, dh, rng=sub(14 + 10 * j), train=train)
+    return out
 
 
 def encode(params: Dict, cfg: MultitaskConfig, x, pos, pad_cols=None,
@@ -218,7 +417,7 @@ def _prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out, enc_pad,
     Le = enc_out.shape[1] if enc_out is not None else 0
     r = backwards_pos_enc(max(W, Le) + cfg.mem_len, cfg.d_model, dtype=dt, device=x.device)
     u, v = _stack_uv(params["decoder"], dt)
-    mask = _causal_mask(W, x.device) | pad_mask[:, None, None, :]
+    mask = _causal_mask(W, device=x.device) | pad_mask[:, None, None, :]
     cross_mask = enc_pad[:, None, None, :] if enc_pad is not None else None
     ks, vs = [], []
     for bp in params["decoder"]["layers"]:

@@ -48,7 +48,7 @@
 //     lower half of the next's, so a warp keeps its rows in registers until
 //     they are complete) and writes them to a per-(batch row, query tile)
 //     partial slot; du and dv likewise;
-//   - flash_train_reduce_kernel sums the slots in a fixed order, so a
+//   - partials_reduce_kernel (flash_common.cuh) sums the slots in a fixed order, so a
 //     training step is reproducible (the TPU kernel adds them over a
 //     sequential grid; f32 atomics would vary from run to run).
 //
@@ -63,107 +63,9 @@
 // at mma.sync's rate, below wgmma's. wgmma/TMA pipelines and skipping fully
 // masked tiles are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;       // 8 warps
-constexpr int kTile = 64;           // query rows and key columns per tile
-constexpr int kBand = 2 * kTile;    // wkr rows a tile pair reads (127 used)
-constexpr int kSS = kTile + 1;      // f32 stride of a score tile row
-constexpr int kSP = kTile + 8;      // bf16 stride of a probability tile row
-constexpr int kSB = kBand + 8;      // bf16 stride of a band-gradient tile row
-constexpr uint32_t kCB = 0x632be59bu;
-constexpr uint32_t kCH = 0x9E3779B9u;
-
-// bf16 stride of a (rows x DH) operand tile: DH plus 8, a 16-byte multiple
-// whose rows start 4 banks apart, so ldmatrix's 8 rows hit distinct banks.
-template <int DH>
-__host__ __device__ constexpr int stride() { return DH + 8; }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t w) {
-  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-
-// --- warp-level bf16 tensor-core products ----------------------------------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c (16 x 8 NB, NB even) += A (16 x KD) . B (KD x 8 NB), operands in shared
-// memory. A_T: A is stored k-major (A[m][k] at pa[k * sa + m]), else m-major
-// (pa[m * sa + k]). B_NK: B is stored n-major (B[k][n] at pb[n * sb + k], as
-// the key rows of q . k^T), else k-major (pb[k * sb + n], as V in p . V).
-// Fragment layout of c: c[nb][e] is row lane / 4 + 8 (e / 2), column
-// nb * 8 + 2 (lane % 4) + e % 2.
-template <int KD, int NB, bool A_T, bool B_NK>
-__device__ __forceinline__ void warp_mma(float (&c)[NB][4], const bf16* pa, int sa,
-                                         const bf16* pb, int sb) {
-  static_assert(KD % 16 == 0 && NB % 2 == 0, "warp_mma shape");
-  const int lane = threadIdx.x & 31;
-  const int r8 = lane & 7, m1 = (lane >> 3) & 1, m2 = (lane >> 4) & 1;
-#pragma unroll
-  for (int k0 = 0; k0 < KD; k0 += 16) {
-    uint32_t a[4];
-    if (A_T)
-      ldsm_x4_t(a, pa + (k0 + r8 + 8 * m2) * sa + 8 * m1);
-    else
-      ldsm_x4(a, pa + (lane & 15) * sa + k0 + 8 * m2);
-#pragma unroll
-    for (int nb = 0; nb < NB; nb += 2) {
-      uint32_t b[4];
-      if (B_NK)
-        ldsm_x4(b, pb + (nb * 8 + r8 + 8 * m2) * sb + k0 + 8 * m1);
-      else
-        ldsm_x4_t(b, pb + (k0 + r8 + 8 * m1) * sb + nb * 8 + 8 * m2);
-      mma16816(c[nb], a, b[0], b[1]);
-      mma16816(c[nb + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int NB>
-__device__ __forceinline__ void zero(float (&c)[NB][4]) {
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
-}
 
 // --- operands ---------------------------------------------------------------
 
@@ -180,59 +82,15 @@ struct Params {
 
 // The dropout factor of (b, h, i, j): 0 or keep_scale (1 without dropout).
 __device__ __forceinline__ float keep_factor(const Params& a, int b, int h, int i, int j) {
-  if (!a.dropout) return 1.f;
-  uint32_t x = a.seed + (uint32_t)b * kCB + (uint32_t)(h + 1) * kCH + (uint32_t)i * (uint32_t)a.K +
-               (uint32_t)j;
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return (int32_t)x > a.thresh ? a.keep_scale : 0.f;
+  return a.dropout ? hash_keep(a.seed, a.thresh, a.keep_scale, b, h, i, a.K, j) : 1.f;
 }
 
-// Rows first .. first + n_rows - 1 (mod `mod`) of a bf16 matrix whose row t
-// starts at src + t * ld, one head's DH columns, into shared memory (16-byte
-// copies).
+// The qu / qv tile of query rows i0 .. i0 + 63.
 template <int DH>
-__device__ void load_rows(bf16* dst, const bf16* src, size_t ld, int first, int n_rows,
-                          int mod) {
-  constexpr int VPR = DH / 8;
-  for (int x = threadIdx.x; x < n_rows * VPR; x += kThreads) {
-    const int r = x / VPR, c = x % VPR;
-    int t = first + r;
-    if (t >= mod) t -= mod;
-    *reinterpret_cast<uint4*>(dst + r * stride<DH>() + 8 * c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)t * ld + 8 * c);
-  }
-}
-
-// The qu / qv tile of query rows i0 .. i0 + 63: bf16(f32(q) + f32(bias)).
-template <int DH>
-__device__ void load_q_biased(bf16* s_qu, bf16* s_qv, const Params& a, int b, int h, int i0) {
-  constexpr int VPR = DH / 8;
+__device__ void load_q_tile(bf16* s_qu, bf16* s_qv, const Params& a, int b, int h, int i0) {
   const int HD = a.H * DH;
-  for (int x = threadIdx.x; x < kTile * VPR; x += kThreads) {
-    const int r = x / VPR, c = x % VPR;
-    const uint4 qq = *reinterpret_cast<const uint4*>(
-        a.q + ((size_t)b * a.L + i0 + r) * HD + h * DH + 8 * c);
-    const uint4 uu = *reinterpret_cast<const uint4*>(a.u + h * DH + 8 * c);
-    const uint4 vv = *reinterpret_cast<const uint4*>(a.vb + h * DH + 8 * c);
-    const uint32_t q4[4] = {qq.x, qq.y, qq.z, qq.w};
-    const uint32_t u4[4] = {uu.x, uu.y, uu.z, uu.w};
-    const uint32_t v4[4] = {vv.x, vv.y, vv.z, vv.w};
-    uint32_t ou[4], ov[4];
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float2 qf = unpack(q4[w]), uf = unpack(u4[w]), vf = unpack(v4[w]);
-      ou[w] = pack(qf.x + uf.x, qf.y + uf.y);
-      ov[w] = pack(qf.x + vf.x, qf.y + vf.y);
-    }
-    *reinterpret_cast<uint4*>(s_qu + r * stride<DH>() + 8 * c) =
-        make_uint4(ou[0], ou[1], ou[2], ou[3]);
-    *reinterpret_cast<uint4*>(s_qv + r * stride<DH>() + 8 * c) =
-        make_uint4(ov[0], ov[1], ov[2], ov[3]);
-  }
+  load_q_biased<DH>(s_qu, s_qv, a.q + (size_t)b * a.L * HD + h * DH, a.u + h * DH,
+                    a.vb + h * DH, HD, a.L, i0, kTile);
 }
 
 // The key tile's column flags: s_cw[c] = cw[j], s_cb[c] = cb[j] | kp[b, j].
@@ -246,12 +104,8 @@ __device__ void load_cols(int* s_cw, int* s_cb, const Params& a, int b, int j0) 
 
 // The first band row of the tile pair (i0, j0).
 __device__ __forceinline__ int band_first(const Params& a, int i0, int j0) {
-  return (j0 + a.L - kTile - i0) % a.K;
+  return band_first(a.L, a.K, i0, j0);
 }
-
-// Warp w's block of a 64 x 64 tile: rows 16 (w % 4) .., columns 32 (w / 4) ..
-__device__ __forceinline__ int warp_row0() { return 16 * ((threadIdx.x >> 5) & 3); }
-__device__ __forceinline__ int warp_col0() { return 32 * (threadIdx.x >> 7); }
 
 // The scores of a tile pair before masking, s = qu . k^T + BD (f32), as this
 // warp's fragments (4 column blocks of 8). BD goes through s_bd (64 x kSS
@@ -299,23 +153,6 @@ __device__ __forceinline__ float masked(float acc, float scale, int cw, int rt, 
   return (cw >= rt || cb) ? -1e9f : __fmul_rn(acc, scale);
 }
 
-__device__ __forceinline__ float prob(float s, float m, float l) {
-  return __fdiv_rn(expf(__fsub_rn(s, m)), l);
-}
-
-// Stores a warp's (16 x 8 NB) f32 fragments as bf16 rows of a global matrix
-// whose (row, col) element is at dst[row * ld + col].
-template <int NB>
-__device__ __forceinline__ void store_bf16(bf16* dst, size_t ld, const float (&c)[NB][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    *reinterpret_cast<uint32_t*>(dst + (size_t)g * ld + nb * 8 + t2) = pack(c[nb][0], c[nb][1]);
-    *reinterpret_cast<uint32_t*>(dst + (size_t)(g + 8) * ld + nb * 8 + t2) =
-        pack(c[nb][2], c[nb][3]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
@@ -358,7 +195,7 @@ flash_train_fwd_kernel(Params a, bf16* __restrict__ out, float* __restrict__ m_o
   const bf16* kb = a.k + (size_t)b * a.K * HD + h * DH;
   const bf16* vbase = a.v + (size_t)b * a.K * HD + h * DH;
 
-  load_q_biased<DH>(s_qu, s_qv, a, b, h, i0);
+  load_q_tile<DH>(s_qu, s_qv, a, b, h, i0);
   if (tid < kTile) {
     s_m[tid] = -INFINITY;
     s_l[tid] = 0.f;
@@ -384,26 +221,7 @@ flash_train_fwd_kernel(Params a, bf16* __restrict__ out, float* __restrict__ m_o
         s_s[i * kSS + j] = masked(s[nb][e], a.scale, s_cw[j], s_rt[i], s_cb[j]);
       }
     __syncthreads();
-    {
-      const int r = tid >> 2, part = tid & 3;
-      const float* row = s_s + r * kSS + 16 * part;
-      const float m_old = s_m[r];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int x = 0; x < 16; ++x) mx = fmaxf(mx, row[x]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int x = 0; x < 16; ++x) sum += expf(row[x] - m_new);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        s_l[r] = s_l[r] * expf(m_old - m_new) + sum;   // expf(-inf) = 0 on the first tile
-        s_m[r] = m_new;
-      }
-    }
+    update_row_stats(s_s, s_m, s_l);
   }
 
   // pass 2: normalised, dropped-out, bf16-rounded probabilities times V
@@ -461,7 +279,7 @@ __device__ void load_query_side(bf16* s_qu, bf16* s_qv, bf16* s_do, float* s_m, 
                                 float* s_dl, int* s_rt, const Params& a, const Grads& g,
                                 int b, int h, int i0) {
   const int HD = a.H * DH;
-  load_q_biased<DH>(s_qu, s_qv, a, b, h, i0);
+  load_q_tile<DH>(s_qu, s_qv, a, b, h, i0);
   load_rows<DH>(s_do, g.dout + (size_t)b * a.L * HD + h * DH, HD, i0, kTile, a.L);
   if (threadIdx.x < kTile) {
     const int i = i0 + threadIdx.x;
@@ -574,12 +392,6 @@ __host__ __device__ constexpr size_t dq_smem() {
          (size_t)3 * kTile * 4 + (size_t)3 * kTile * 4;
 }
 
-struct Partials {
-  float *w;    // (B * L / 64, K, HD): dWkr of each (batch row, query tile)
-  float *u;    // (B * L / 64, HD): du
-  float *v;    // (B * L / 64, HD): dv
-};
-
 // grid (L / 64, H, B): dQ of one query tile, (B, L, HD) bf16, and its
 // partial sums of dWkr, du and dv.
 template <int DH>
@@ -684,7 +496,6 @@ flash_train_dq_kernel(Params a, Grads g, bf16* __restrict__ dq, Partials part) {
                                           band_block(nk - 1), true);
 
   // dQ, and the tile's column sums of dQu and dQv (du, dv partials)
-  float su[NO][2], sv[NO][2];
 #pragma unroll
   for (int nb = 0; nb < NO; ++nb) {
     bf16* dst = dq + ((size_t)b * a.L + i0 + rb) * HD + h * DH + oc + nb * 8 + t2;
@@ -692,63 +503,10 @@ flash_train_dq_kernel(Params a, Grads g, bf16* __restrict__ dq, Partials part) {
         pack(aqu[nb][0] + aqv[nb][0], aqu[nb][1] + aqv[nb][1]);
     *reinterpret_cast<uint32_t*>(dst + (size_t)(g8 + 8) * HD) =
         pack(aqu[nb][2] + aqv[nb][2], aqu[nb][3] + aqv[nb][3]);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float x = aqu[nb][c] + aqu[nb][c + 2], y = aqv[nb][c] + aqv[nb][c + 2];
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {             // over the 8 row groups
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-        y += __shfl_xor_sync(0xffffffffu, y, o);
-      }
-      su[nb][c] = x;
-      sv[nb][c] = y;
-    }
   }
-  float* s_su = s_bd;           // s_bd is free after the sync above
-  float* s_sv = s_bd + 4 * DH;
-  if (g8 == 0) {
-#pragma unroll
-    for (int nb = 0; nb < NO; ++nb)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        s_su[(warp & 3) * DH + oc + nb * 8 + t2 + c] = su[nb][c];
-        s_sv[(warp & 3) * DH + oc + nb * 8 + t2 + c] = sv[nb][c];
-      }
-  }
-  __syncthreads();
-  if (tid < DH) {
-    float tu = 0.f, tv = 0.f;
-    for (int r = 0; r < 4; ++r) {
-      tu += s_su[r * DH + tid];
-      tv += s_sv[r * DH + tid];
-    }
-    part.u[slot * HD + h * DH + tid] = tu;
-    part.v[slot * HD + h * DH + tid] = tv;
-  }
-}
-
-// dwkr (K, HD), du, dv (HD) f32: the partial slots summed in slot order.
-__global__ void __launch_bounds__(kThreads)
-flash_train_reduce_kernel(Partials part, int n_slots, int K, int HD, float* __restrict__ dwkr,
-                          float* __restrict__ du, float* __restrict__ dv) {
-  const size_t n_w = (size_t)K * HD;
-  const size_t x = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (x < n_w) {
-    float s = 0.f;
-    for (int p = 0; p < n_slots; ++p) s += part.w[(size_t)p * n_w + x];
-    dwkr[x] = s;
-  } else if (x < n_w + 2 * (size_t)HD) {
-    const int c = (int)(x - n_w) % HD;
-    const float* src = x - n_w < (size_t)HD ? part.u : part.v;
-    float s = 0.f;
-    for (int p = 0; p < n_slots; ++p) s += src[(size_t)p * HD + c];
-    (x - n_w < (size_t)HD ? du : dv)[c] = s;
-  }
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  // s_bd is free after the sync above
+  tile_column_sums<DH, NO>(aqu, aqv, oc, s_bd, part.u + slot * HD + h * DH,
+                           part.v + slot * HD + h * DH);
 }
 
 template <int DH>
@@ -776,11 +534,7 @@ cudaError_t launch_bwd(const Params& a, const Grads& g, void* dq, void* dk, void
       a, g, static_cast<bf16*>(dq), part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int HD = a.H * DH;
-  const size_t n = (size_t)a.K * HD + 2 * (size_t)HD;
-  flash_train_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      part, a.B * (a.L / kTile), a.K, HD, dwkr, du, dvb);
-  return cudaGetLastError();
+  return launch_reduce(part, a.B * (a.L / kTile), a.K, a.H * DH, dwkr, du, dvb, st);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* wkr, const void* u,

@@ -1,4 +1,5 @@
-"""Differentiable Transformer-XL attention for training, over [memory, window].
+"""Differentiable relative attention for training: the genre model's over
+[memory, window], and the multitask model's bidirectional and cross attention.
 
 ``flash_train_attention`` computes the masked ``AC + skew(BD)`` relative
 attention of the window's L queries against K = M + L keys (the XL memory,
@@ -30,6 +31,19 @@ entries are masked only in the two regimes the train step emits (``win_size
 == 1`` with ``win_k >= 1``, and ``win_size > 1`` with ``win_k == 0``); there
 the result equals ``rel_attention`` under ``causal_window_mask`` with its
 exact ``rel_shift`` spill.
+
+The multitask train step's two other shapes replace the TPU kernels
+``flash_bidir_attention`` and ``flash_cross_attention`` (``_make_flash_mt``)
+with ``csrc/flash_mt.cu``, under the same rules (dropout by the same hash,
+bf16 roundings where the TPU kernels round):
+
+* :func:`flash_bidir_attention`, the encoder's self-attention over a square
+  (W, W) grid with the EXACT ``rel_shift`` spill: ``BD[i, j]`` is the skew
+  of row i for j <= i, 0 for j = i + 1, and row i + 1's for j >= i + 2;
+  padded keys get -1e9.
+* :func:`flash_cross_attention`, the decoder's attention to the encoder
+  output: the skew of BD times the band ``j <= i + K - L`` (the band zeroes
+  BD, it masks nothing), and no mask at all, not even for encoder padding.
 """
 
 from __future__ import annotations
@@ -160,6 +174,74 @@ def skew_index(L: int, K: int, device=None) -> torch.Tensor:
     return (j + L - 1 - i) % K
 
 
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the gradient to ``dtype`` (kept in
+    the working type): where the TPU kernels' backward rounds dS to bf16
+    before its products."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def _round_grad(x, dtype):
+    return x if dtype == x.dtype else _RoundGrad.apply(x, dtype)
+
+
+class _Block(torch.autograd.Function):
+    """Fills blocked scores with -1e9; the gradient passes through every
+    entry, blocked ones too, as the TPU kernels' backward forms dS = P (dP -
+    delta) scale on the whole grid. It differs from the gradient of a plain
+    ``torch.where`` only on a row whose keys are all blocked: P is uniform
+    there, so its dS is not zero."""
+
+    @staticmethod
+    def forward(ctx, score, blocked):
+        return torch.where(blocked, NEG_INF, score)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _rel_scores(q, k, wkr, u_bias, v_bias, H, dt, acc):
+    """Per-head (ac, bd_rows) of the plain versions, ``bd_rows[..., i, c] =
+    qv_i . wkr[c]``, with the biased q + u and q + v rounded to ``dt`` as the
+    TPU kernels round them."""
+    B, L, HD = q.shape
+    K = k.shape[1]
+    Dh = HD // H
+    heads = lambda t, n: t.reshape(B, n, H, Dh).transpose(1, 2).to(acc)
+    qh = heads(q, L)
+    qu = _round(qh + u_bias.reshape(H, 1, Dh).to(acc), dt)
+    qv = _round(qh + v_bias.reshape(H, 1, Dh).to(acc), dt)
+    wh = wkr.reshape(K, H, Dh).transpose(0, 1).to(acc)              # (H, K, Dh)
+    return qu @ heads(k, K).transpose(-1, -2), torch.einsum("bhld,hkd->bhlk", qv, wh)
+
+
+def _softmax_pv(score, v, H, scale, dt, acc, attn_p, attn_seed, blocked=None):
+    """dS rounded to ``dt`` in the backward, the scaled score masked, softmax,
+    dropout, P rounded to ``dt``, P . V; returns (B, L, HD) in ``dt``."""
+    B, _, L, K = score.shape
+    Dh = v.shape[-1] // H
+    sc = float(np.float32(1.0 / math.sqrt(Dh))) if scale else 1.0
+    score = _round_grad(score, dt) * sc
+    if blocked is not None:
+        score = _Block.apply(score, blocked)
+    e = torch.exp(score - score.amax(-1, keepdim=True))
+    pf = e / e.sum(-1, keepdim=True)
+    if attn_p > 0.0:
+        pf = pf * keep_mask(B, H, L, K, attn_p, attn_seed or 0, score.device).to(acc)
+    vh = v.reshape(B, K, H, Dh).transpose(1, 2).to(acc)
+    out = _round(pf, dt) @ vh
+    return out.transpose(1, 2).reshape(B, L, H * Dh).to(dt)
+
+
 def flash_train_attention_plain(q, k, v, wkr, u_bias, v_bias, win_size, win_k,
                                 mem_valid, n_heads: int, pad_mask=None,
                                 scale: bool = True, attn_p: float = 0.0,
@@ -168,34 +250,18 @@ def flash_train_attention_plain(q, k, v, wkr, u_bias, v_bias, win_size, win_k,
     """Plain PyTorch version, differentiable by autograd: it materializes the
     (B, H, L, K) scores, gathers the skewed BD with :func:`skew_index`, and
     rounds to the inputs' dtype where the kernel does: q + u and q + v, the
-    dropped-out probabilities before P.V, the output. Everything else runs
-    in ``acc`` (float32, or float64 for the card's check). Returns
-    (B, L, HD) in the inputs' dtype."""
+    dropped-out probabilities before P.V, dS in the backward, the output.
+    Everything else runs in ``acc`` (float32, or float64 for the card's
+    check). The mask passes the gradient through (:class:`_Block`), as the
+    kernels' backward does. Returns (B, L, HD) in the inputs' dtype."""
     flash_train_attention_plain.calls += 1
     B, L, HD = q.shape
     K = k.shape[1]
-    H = n_heads
-    Dh = HD // H
-    dt, dev = q.dtype, q.device
-    rt, cw, cb, kp = mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, dev)
-    blocked = blocked_mask(rt, cw, cb, kp)
-    heads = lambda t, n: t.reshape(B, n, H, Dh).transpose(1, 2).to(acc)
-    qh = heads(q, L)
-    qu = _round(qh + u_bias.reshape(H, 1, Dh).to(acc), dt)
-    qv = _round(qh + v_bias.reshape(H, 1, Dh).to(acc), dt)
-    kh, vh = heads(k, K), heads(v, K)
-    wh = wkr.reshape(K, H, Dh).transpose(0, 1).to(acc)              # (H, K, Dh)
-    ac = qu @ kh.transpose(-1, -2)                                  # (B, H, L, K)
-    bd_rows = torch.einsum("bhld,hkd->bhlk", qv, wh)
+    H, dt, dev = n_heads, q.dtype, q.device
+    blocked = blocked_mask(*mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, dev))
+    ac, bd_rows = _rel_scores(q, k, wkr, u_bias, v_bias, H, dt, acc)
     bd = torch.gather(bd_rows, -1, skew_index(L, K, dev).expand(B, H, L, K))
-    sc = float(np.float32(1.0 / math.sqrt(Dh))) if scale else 1.0
-    score = torch.where(blocked, NEG_INF, (ac + bd) * sc)
-    e = torch.exp(score - score.amax(-1, keepdim=True))
-    pf = e / e.sum(-1, keepdim=True)
-    if attn_p > 0.0:
-        pf = pf * keep_mask(B, H, L, K, attn_p, attn_seed or 0, dev).to(acc)
-    out = _round(pf, dt) @ vh                                       # (B, H, L, Dh)
-    return out.transpose(1, 2).reshape(B, L, HD).to(dt)
+    return _softmax_pv(ac + bd, v, H, scale, dt, acc, attn_p, attn_seed, blocked)
 
 
 flash_train_attention_plain.calls = 0   # calls of the plain version
@@ -306,6 +372,36 @@ class _FlashTrain(torch.autograd.Function):
                 None, None, None, None, None, None, None, None)
 
 
+def _check_operands(q, k, v, wkr, u_bias, v_bias, pad_mask, pad_len, attn_p, attn_seed):
+    """Raises on operands no version takes: k, v, wkr of (B, K, HD), (B, K,
+    HD), (K, HD) on q's device, pad_mask of (B, pad_len), H * Dh bias
+    values, a seed with dropout."""
+    B, L, HD = q.shape
+    K = k.shape[1]
+    for name, t, shape in (("k", k, (B, K, HD)), ("v", v, (B, K, HD)),
+                           ("wkr", wkr, (K, HD))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: on {t.device}, expected {q.device}")
+    if pad_mask is not None and tuple(pad_mask.shape) != (B, pad_len):
+        raise ValueError(f"pad_mask: shape {tuple(pad_mask.shape)}, expected {(B, pad_len)}")
+    if u_bias.numel() != HD or v_bias.numel() != HD:
+        raise ValueError(f"u_bias / v_bias must hold H*Dh = {HD} values")
+    if attn_p > 0.0 and attn_seed is None:
+        raise ValueError("attn_p > 0 needs an attn_seed")
+
+
+def _bf16_operands(q, k, v, wkr, u_bias, v_bias):
+    """The kernels' operands: contiguous bf16, the biases flat."""
+    HD = q.shape[-1]
+    ops = [t.contiguous() for t in (q, k, v, wkr, u_bias.reshape(HD), v_bias.reshape(HD))]
+    for t in ops:
+        if t.dtype != BF16:
+            raise TypeError(f"dtype {t.dtype}, expected {BF16}")
+    return ops
+
+
 def kernel_supports(B: int, L: int, K: int, n_heads: int, HD: int, dtype) -> Optional[str]:
     """None if the CUDA kernels take these shapes, else the reason."""
     Dh = HD // n_heads
@@ -343,18 +439,7 @@ def flash_train_attention(
     B, L, HD = q.shape
     K = k.shape[1]
     H = n_heads
-    for name, t, shape in (("k", k, (B, K, HD)), ("v", v, (B, K, HD)),
-                           ("wkr", wkr, (K, HD))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if t.device != q.device:
-            raise ValueError(f"{name}: on {t.device}, expected {q.device}")
-    if pad_mask is not None and tuple(pad_mask.shape) != (B, L):
-        raise ValueError(f"pad_mask: shape {tuple(pad_mask.shape)}, expected {(B, L)}")
-    if u_bias.numel() != HD or v_bias.numel() != HD:
-        raise ValueError(f"u_bias / v_bias must hold H*Dh = {HD} values")
-    if attn_p > 0.0 and attn_seed is None:
-        raise ValueError("attn_p > 0 needs an attn_seed")
+    _check_operands(q, k, v, wkr, u_bias, v_bias, pad_mask, L, attn_p, attn_seed)
     if q.device.type == "cpu":
         return flash_train_attention_plain(q, k, v, wkr, u_bias, v_bias, win_size,
                                            win_k, mem_valid, H, pad_mask, scale,
@@ -364,11 +449,7 @@ def flash_train_attention(
     why = kernel_supports(B, L, K, H, HD, q.dtype)
     if why:
         raise ValueError(f"flash_train_attention: {why}")
-    operands = [t.contiguous() for t in (q, k, v, wkr, u_bias.reshape(HD),
-                                         v_bias.reshape(HD))]
-    for t in operands:
-        if t.dtype != BF16:
-            raise TypeError(f"dtype {t.dtype}, expected {BF16}")
+    operands = _bf16_operands(q, k, v, wkr, u_bias, v_bias)
     vecs = mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, q.device)
     sc = float(np.float32(1.0 / math.sqrt(HD // H))) if scale else 1.0
     return _FlashTrain.apply(*operands, *vecs, H, sc, float(attn_p), int(attn_seed or 0))
@@ -376,3 +457,235 @@ def flash_train_attention(
 
 # CUDA kernel launches (CUDA tensors only): "fwd" per forward, "bwd" per backward
 flash_train_attention.launches = {"fwd": 0, "bwd": 0}
+
+
+# ---------------------------------------------------------------------------
+# The multitask train step's bidirectional and cross attention
+# ---------------------------------------------------------------------------
+
+def flash_bidir_attention_plain(q, k, v, wkr, u_bias, v_bias, n_heads: int, pad_mask=None,
+                                scale: bool = True, attn_p: float = 0.0,
+                                attn_seed: Optional[int] = None,
+                                acc: torch.dtype = torch.float32):
+    """Plain PyTorch version of :func:`flash_bidir_attention`, differentiable
+    by autograd, with the TPU kernel's exact skew (``_skew_bidir``): for
+    query row i, ``BD[i, j] = bd[i, j + W - 1 - i]`` (j <= i), 0 (j = i + 1),
+    ``bd[i + 1, j - i - 2]`` (j >= i + 2). Rounds to the inputs' dtype where
+    the kernels do: q + u and q + v, the dropped-out probabilities, dS in the
+    backward, the output; the rest runs in ``acc``."""
+    flash_bidir_attention_plain.calls += 1
+    B, W, HD = q.shape
+    H, dt, dev = n_heads, q.dtype, q.device
+    ac, bd_rows = _rel_scores(q, k, wkr, u_bias, v_bias, H, dt, acc)
+    # the spill reads the next query row's relative scores
+    bd_next = torch.cat([bd_rows[:, :, 1:], torch.zeros_like(bd_rows[:, :, :1])], dim=2)
+    i = torch.arange(W, device=dev)[:, None]
+    j = torch.arange(W, device=dev)[None, :]
+    idx = skew_index(W, W, dev).expand(B, H, W, W)
+    bd = torch.where(j <= i, torch.gather(bd_rows, -1, idx),
+                     torch.where(j == i + 1, 0.0, torch.gather(bd_next, -1, (idx - 1) % W)))
+    blocked = None if pad_mask is None else pad_mask[:, None, None, :].to(torch.bool)
+    return _softmax_pv(ac + bd, v, H, scale, dt, acc, attn_p, attn_seed, blocked)
+
+
+flash_bidir_attention_plain.calls = 0
+
+
+def flash_cross_attention_plain(q, k, v, wkr, u_bias, v_bias, n_heads: int,
+                                scale: bool = True, attn_p: float = 0.0,
+                                attn_seed: Optional[int] = None,
+                                acc: torch.dtype = torch.float32):
+    """Plain PyTorch version of :func:`flash_cross_attention`, differentiable
+    by autograd: the skew of :func:`skew_index` times the band ``j <= i + K -
+    L`` (``_skew(bd, L, K) * band``), no mask; rounds as
+    :func:`flash_bidir_attention_plain`."""
+    flash_cross_attention_plain.calls += 1
+    B, L, HD = q.shape
+    K = k.shape[1]
+    H, dt, dev = n_heads, q.dtype, q.device
+    ac, bd_rows = _rel_scores(q, k, wkr, u_bias, v_bias, H, dt, acc)
+    band = (torch.arange(K, device=dev)[None, :]
+            <= torch.arange(L, device=dev)[:, None] + (K - L)).to(acc)
+    bd = torch.gather(bd_rows, -1, skew_index(L, K, dev).expand(B, H, L, K)) * band
+    return _softmax_pv(ac + bd, v, H, scale, dt, acc, attn_p, attn_seed)
+
+
+flash_cross_attention_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _mt_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_mt")
+    lib.flash_mt_fwd.restype = ctypes.c_int
+    lib.flash_mt_fwd.argtypes = ([_I] + [_P] * 7 + [_P] * 3 + [_I] * 5
+                                 + [_F, _I, ctypes.c_uint32, _I, _F, _P])
+    lib.flash_mt_bwd.restype = ctypes.c_int
+    lib.flash_mt_bwd.argtypes = ([_I] + [_P] * 7 + [_P] * 4 + [_P] * 6 + [_P] * 5
+                                 + [_I] * 5 + [_F, _I, ctypes.c_uint32, _I, _F, _P])
+    lib.flash_mt_error_string.restype = ctypes.c_char_p
+    lib.flash_mt_error_string.argtypes = [_I]
+    return lib
+
+
+def _mt_check(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"flash mt {what} kernel failed: CUDA error {err} "
+                           f"({lib.flash_mt_error_string(err).decode()})")
+
+
+def _mt_launch_fwd(bidir, q, k, v, wkr, u, vb, kp, H, sc, attn_p, seed):
+    lib = _mt_lib()
+    B, L, HD = q.shape
+    K = k.shape[1]
+    out = torch.empty_like(q)
+    m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_mt_fwd(
+            int(bidir), q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(),
+            u.data_ptr(), vb.data_ptr(), kp.data_ptr() if bidir else None, out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, L, K, H, HD // H, sc,
+            *_dropout_args(attn_p, seed), stream)
+    _mt_check(lib, err, "forward")
+    return out, m, l
+
+
+def _mt_launch_bwd(bidir, q, k, v, wkr, u, vb, kp, do, delta, m, l, H, sc, attn_p, seed):
+    lib = _mt_lib()
+    B, L, HD = q.shape
+    K = k.shape[1]
+    dev = q.device
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dwkr = torch.empty((K, HD), dtype=torch.float32, device=dev)
+    du = torch.empty((HD,), dtype=torch.float32, device=dev)
+    dvb = torch.empty_like(du)
+    n_part = B * (L // TILE)      # per (batch row, query tile) partial sums
+    part_w = torch.empty((n_part, K, HD), dtype=torch.float32, device=dev)
+    part = torch.empty((4, n_part, HD), dtype=torch.float32, device=dev)  # u, v, seam
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_mt_bwd(
+            int(bidir), q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(),
+            u.data_ptr(), vb.data_ptr(), kp.data_ptr() if bidir else None, do.data_ptr(),
+            delta.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dwkr.data_ptr(), du.data_ptr(), dvb.data_ptr(),
+            part_w.data_ptr(), *(part[i].data_ptr() for i in range(4)),
+            B, L, K, H, HD // H, sc, *_dropout_args(attn_p, seed), stream)
+    _mt_check(lib, err, "backward")
+    return dq, dk, dv, dwkr, du, dvb
+
+
+class _FlashMT(torch.autograd.Function):
+    """The CUDA forward and backward kernels of the bidirectional (``kp`` a
+    (B, K) int32 padding tensor) or cross (``kp`` None) attention as one
+    differentiable op; delta = sum_d dO * O from the bf16 output, as the TPU
+    kernels' backward takes it (``flash_train.py:752-754``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wkr, u, vb, kp, H, sc, attn_p, seed):
+        bidir = kp is not None
+        out, m, l = _mt_launch_fwd(bidir, q, k, v, wkr, u, vb, kp, H, sc, attn_p, seed)
+        (flash_bidir_attention if bidir else flash_cross_attention).launches["fwd"] += 1
+        ctx.save_for_backward(q, k, v, wkr, u, vb, out, m, l)
+        ctx.meta = (kp, H, sc, attn_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, wkr, u, vb, out, m, l = ctx.saved_tensors
+        kp, H, sc, attn_p, seed = ctx.meta
+        B, L, HD = q.shape
+        delta = (do.float() * out.float()).reshape(B, L, H, HD // H).sum(-1).contiguous()
+        dq, dk, dv, dwkr, du, dvb = _mt_launch_bwd(
+            kp is not None, q, k, v, wkr, u, vb, kp, do.to(q.dtype).contiguous(), delta,
+            m, l, H, sc, attn_p, seed)
+        (flash_bidir_attention if kp is not None else flash_cross_attention).launches["bwd"] += 1
+        return (dq, dk, dv, dwkr.to(wkr.dtype), du.to(u.dtype), dvb.to(vb.dtype),
+                None, None, None, None, None)
+
+
+def mt_kernel_supports(mode: str, B: int, L: int, K: int, n_heads: int, HD: int,
+                       dtype) -> Optional[str]:
+    """None if the CUDA kernels of ``mode`` ("bidir" or "cross") take these
+    shapes, else the reason."""
+    if mode == "bidir" and K != L:
+        return f"L={L}, K={K}: the bidirectional kernels need a square grid"
+    return kernel_supports(B, L, K, n_heads, HD, dtype)
+
+
+def _mt_wrapper(name, mode, q, k, v, wkr, u_bias, v_bias, n_heads, pad_mask, scale, attn_p,
+                attn_seed, plain):
+    B, L, HD = q.shape
+    K = k.shape[1]
+    _check_operands(q, k, v, wkr, u_bias, v_bias, pad_mask, K, attn_p, attn_seed)
+    if q.device.type == "cpu":
+        return plain()
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    why = mt_kernel_supports(mode, B, L, K, n_heads, HD, q.dtype)
+    if why:
+        raise ValueError(f"{name}: {why}")
+    if not scale:
+        raise ValueError(f"{name}: the kernels scale the scores (scale=True)")
+    operands = _bf16_operands(q, k, v, wkr, u_bias, v_bias)
+    kp = None
+    if mode == "bidir":
+        kp = (torch.zeros((B, K), dtype=torch.int32, device=q.device) if pad_mask is None
+              else pad_mask.to(torch.int32).contiguous())
+    sc = float(np.float32(1.0 / math.sqrt(HD // n_heads)))
+    return _FlashMT.apply(*operands, kp, n_heads, sc, float(attn_p), int(attn_seed or 0))
+
+
+def flash_bidir_attention(
+    q: torch.Tensor,          # (B, W, HD): queries, heads side by side
+    k: torch.Tensor,          # (B, W, HD)
+    v: torch.Tensor,          # (B, W, HD)
+    wkr: torch.Tensor,        # (W, HD): backwards sinusoid through r_w
+    u_bias: torch.Tensor,     # (H, Dh) or any shape of H * Dh values
+    v_bias: torch.Tensor,
+    n_heads: int,
+    pad_mask: Optional[torch.Tensor] = None,   # (B, W) bool, True = pad (key blocked)
+    scale: bool = True,
+    attn_p: float = 0.0,
+    attn_seed: Optional[int] = None,           # int32 seed, used when attn_p > 0
+) -> torch.Tensor:
+    """Differentiable bidirectional rel-attention with the exact ``rel_shift``
+    spill the reference's encoder reads; returns (B, W, HD).
+
+    On the card: the CUDA kernels (bf16, d_head in :data:`KERNEL_HEAD_DIMS`,
+    W a multiple of :data:`TILE` and at least 128; anything else raises). On
+    the CPU: :func:`flash_bidir_attention_plain`."""
+    return _mt_wrapper(
+        "flash_bidir_attention", "bidir", q, k, v, wkr, u_bias, v_bias, n_heads, pad_mask,
+        scale, attn_p, attn_seed,
+        lambda: flash_bidir_attention_plain(q, k, v, wkr, u_bias, v_bias, n_heads, pad_mask,
+                                            scale, attn_p, attn_seed))
+
+
+def flash_cross_attention(
+    q: torch.Tensor,          # (B, L, HD): decoder queries
+    k: torch.Tensor,          # (B, K, HD): encoder keys, K >= L
+    v: torch.Tensor,          # (B, K, HD)
+    wkr: torch.Tensor,        # (K, HD)
+    u_bias: torch.Tensor,
+    v_bias: torch.Tensor,
+    n_heads: int,
+    scale: bool = True,
+    attn_p: float = 0.0,
+    attn_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Differentiable cross rel-attention: an unmasked softmax over every
+    encoder key, BD zeroed above the band ``j <= i + K - L``; returns (B, L,
+    HD). On the card the CUDA kernels (as :func:`flash_bidir_attention`, K >=
+    L); on the CPU :func:`flash_cross_attention_plain`."""
+    return _mt_wrapper(
+        "flash_cross_attention", "cross", q, k, v, wkr, u_bias, v_bias, n_heads, None, scale,
+        attn_p, attn_seed,
+        lambda: flash_cross_attention_plain(q, k, v, wkr, u_bias, v_bias, n_heads, scale,
+                                            attn_p, attn_seed))
+
+
+# CUDA kernel launches (CUDA tensors only): "fwd" per forward, "bwd" per backward
+flash_bidir_attention.launches = {"fwd": 0, "bwd": 0}
+flash_cross_attention.launches = {"fwd": 0, "bwd": 0}

@@ -328,14 +328,17 @@ def _layer_list(layers):
     return [layers[str(i)] for i in range(len(layers))] if isinstance(layers, dict) else layers
 
 
-def multitask_params_from_numpy(tree: Dict, cfg: MultitaskConfig, device="cpu") -> Dict:
+def multitask_params_from_numpy(tree: Dict, cfg: MultitaskConfig, device="cpu",
+                                master: bool = False) -> Dict:
     """Carry a JAX multitask parameter tree into the port's parameter dict
     (the layout of :mod:`..models.multitask`).
 
     ``tree`` holds numpy arrays (bfloat16 as ml_dtypes arrays) or the
     tensors :func:`msgpack_restore` returns; ``layers`` are a list or a map
     keyed ``"0".."n"``; absent biases are None. Shapes are checked against
-    ``cfg``; dtypes are kept.
+    ``cfg``; dtypes are kept, unless ``master``: then every leaf is a float32
+    master copy with ``requires_grad``, the form training takes
+    (``models.precision.master_params``).
     """
     H, Dh, D, V, Dff = cfg.n_heads, cfg.d_head, cfg.d_model, cfg.vocab_size, cfg.d_inner
     HD = H * Dh
@@ -370,4 +373,4 @@ def multitask_params_from_numpy(tree: Dict, cfg: MultitaskConfig, device="cpu") 
             node = node[int(part)] if isinstance(node, list) else node[part]
         if node is not None and tuple(node.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(node.shape)} != {shape}")
-    return out
+    return master_params(out, device) if master else out

@@ -4,9 +4,11 @@
 (``train/learner.py:44-246``): fresh weights or a checkpoint, ``save``,
 ``fit_one_cycle`` with the window-mask curriculum, early stopping, best
 checkpoint saving and per-epoch samples, ``evaluate``, and prediction.
-``MultitaskLearner`` is the inference half of the JAX package's
-(mask infill, seq2seq, next-word; ``:266-340``); multitask training is still
-to port (ROADMAP.md).
+``MultitaskLearner`` is the JAX package's multitask learner
+(``:266-434``): mask infill, seq2seq and next-word prediction through the
+engines, ``save``, and ``fit`` over the mask / next-word / seq2seq task
+batches with the window-mask curriculum and loader rotation, without its
+mesh.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,15 +24,16 @@ import torch
 from ..codec.item import MusicItem
 from ..decode.engine import GenerationEngine
 from ..device import resolve_device
+from ..models import multitask as mt
 from ..models import txl
 from ..models.config import MultitaskConfig, TXLConfig, btp_phase1_config, multitask_config
-from ..models.multitask import init_multitask
 from ..models.precision import master_params
 from ..vocab import MusicVocab
 from .checkpoint import (load_checkpoint, multitask_params_from_numpy, params_from_numpy,
                          save_checkpoint)
 from .data import LMStreamLoader
-from .loop import TrainState, cross_entropy, make_optimizer, make_train_step
+from .loop import (TrainState, _batch_to_device, cross_entropy, make_optimizer,
+                   make_train_step, multi_loss)
 
 
 @dataclass
@@ -39,6 +42,7 @@ class FitResult:
     best_loss: float = float("inf")
     stopped_early: bool = False
     losses: List[float] = field(default_factory=list)   # every train step's loss
+    windows: List[Tuple[int, int]] = field(default_factory=list)  # (win_size, win_k) a step
 
 
 class MusicLearner:
@@ -223,8 +227,8 @@ def music_model_learner(cfg: Optional[TXLConfig] = None, vocab: Optional[MusicVo
 
 
 class MultitaskLearner:
-    """The multitask model's (params, cfg, vocab) and its three engines on
-    one device: the inference half of the JAX package's MultitaskLearner."""
+    """The multitask model's (params, cfg, vocab), its training, and its
+    three engines on one device."""
 
     def __init__(self, cfg: MultitaskConfig, vocab: MusicVocab, params: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -235,11 +239,19 @@ class MultitaskLearner:
         engines (``decode.multitask_engine._pick_dec_kernel``)."""
         self.cfg = cfg
         self.vocab = vocab
-        self.params = params if params is not None else init_multitask(cfg, generator)
+        self.params = params if params is not None else mt.init_multitask(cfg, generator)
         self.device = device
         self.decode_kernel = decode_kernel
+        self.step = 0              # optimizer steps the parameters have taken here
         self._device_params = None
         self._engines = {}
+
+    def save(self, path: str, step: Optional[int] = None) -> str:
+        """Write a checkpoint in the JAX package's format (kind
+        ``multitask``); the manifest records ``step`` (default: the steps
+        trained by :meth:`fit`)."""
+        return save_checkpoint(path, self.params, self.cfg, self.vocab,
+                               step=self.step if step is None else step)
 
     @classmethod
     def load(cls, path: str, device=None, decode_kernel: str = "auto") -> "MultitaskLearner":
@@ -248,8 +260,10 @@ class MultitaskLearner:
         if not isinstance(cfg, MultitaskConfig):
             raise ValueError(f"{path} holds a {manifest['kind']!r} checkpoint; load it "
                              "with MusicLearner")
-        return cls(cfg, vocab, params=multitask_params_from_numpy(tree, cfg),
-                   device=device, decode_kernel=decode_kernel)
+        learner = cls(cfg, vocab, params=multitask_params_from_numpy(tree, cfg),
+                      device=device, decode_kernel=decode_kernel)
+        learner.step = int(manifest.get("step", 0))
+        return learner
 
     def engine(self, kind: str):
         """The 'mask', 's2s' or 'nw' engine, built on first use; the three
@@ -258,7 +272,8 @@ class MultitaskLearner:
             from ..decode import multitask_engine as me
             dev = resolve_device(self.device)
             if self._device_params is None:
-                self._device_params = me.inference_params(self.params, self.cfg, dev)
+                self._device_params = me.inference_params(
+                    txl.tree_map(torch.Tensor.detach, self.params), self.cfg, dev)
             p = self._device_params
             self._engines[kind] = (
                 me.MaskEngine(p, self.cfg, self.vocab, device=dev) if kind == "mask" else
@@ -296,6 +311,77 @@ class MultitaskLearner:
                                            top_k=top_k, top_p=top_p, greedy=greedy, seed=seed)
         pred = MusicItem(new.astype(np.int64), self.vocab)
         return pred, item.append(pred)
+
+    # -- training -----------------------------------------------------------
+    def fit(self, batches, epochs: int = 1, lr: float = 5e-4, clip: float = 0.5,
+            log_fn: Callable[[str], None] = print, seed: int = 0, dataloaders=None,
+            starting_mask_window: int = 1, mesh=None, remat: bool = False) -> FitResult:
+        """Train on (x_dict, y_dict) multitask batches (``train/learner.py:
+        341-434`` of the JAX package, without its mesh).
+
+        MTTrainer semantics: each epoch the decoder's window curriculum
+        grows (``mask_steps = max(epoch + starting_mask_window, 1)``) and,
+        with ``dataloaders``, training rotates between them (epoch e runs
+        ``dataloaders[e % len(dataloaders)]``); ``batches`` may be a list or
+        a loader. The host draws exactly as JAX's: per step
+        ``numpy.random.default_rng(seed).random() < cfg.mask_p`` (with
+        mask_steps > 1) for a window ``integers(1, mask_steps + 1)`` at
+        diagonal 0, else plain causal, then the step's dropout seed
+        ``integers(2**31)``; so a seed gives JAX's window sequence. One-cycle
+        AdamW (``loop.make_optimizer``) over float32 masters on the device,
+        updated in place. On the card, a bf16 config at B >= 8 runs every
+        attention through the flash train kernels (``multitask.
+        _flash_train_ok``). ``remat``: per-block recomputation in the
+        backward. Afterwards the engines and their device copy of the
+        weights are dropped, so prediction uses the trained weights."""
+        if mesh is not None:
+            raise NotImplementedError("mesh (sharded) multitask training is not ported yet; "
+                                      "see ROADMAP.md Queue 1 item 14")
+        loaders = dataloaders if dataloaders is not None else [
+            batches if isinstance(batches, list) else list(batches)]
+        total_steps = sum(len(l) for l in loaders) // max(len(loaders), 1) * epochs
+        optimizer = make_optimizer(max(total_steps, 1), peak_lr=lr, clip=clip)
+        dev = resolve_device(self.device)
+        cfg, pad_idx = self.cfg, self.vocab.pad_idx
+        params = master_params(self.params, dev)
+        opt = optimizer.init(params)
+        leaves = txl.tree_leaves(params)
+        host_rng = np.random.default_rng(seed)
+        result = FitResult()
+        for epoch in range(epochs):
+            t0 = time.time()
+            tot, n = 0.0, 0
+            mask_steps = max(epoch + starting_mask_window, 1)
+            for xd, yd in loaders[epoch % len(loaders)]:
+                # rand_window_mask: active with p = mask_p, window <= mask_steps
+                if host_rng.random() < cfg.mask_p and mask_steps > 1:
+                    win, wk = int(host_rng.integers(1, mask_steps + 1)), 0
+                else:
+                    win, wk = 1, 1
+                step_seed = int(host_rng.integers(2 ** 31))
+                xs = {task: _batch_to_device(d, dev) for task, d in xd.items() if d is not None}
+                out = mt.forward(params, cfg, xs, pad_idx=pad_idx, win_size=win, win_k=wk,
+                                 remat=remat, rng=step_seed, train=True)
+                loss, _ = multi_loss(out, _batch_to_device(yd, dev), pad_idx)
+                # a task reaches only its stacks: the others' gradients are zero,
+                # and AdamW still decays them, as in JAX
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+                # the schedule reads the updates taken in this fit, as optax's count
+                optimizer.step(opt, grads, len(result.losses))
+                result.losses.append(float(loss.detach()))
+                result.windows.append((win, wk))
+                tot += result.losses[-1]
+                n += 1
+            self.step += n
+            entry = {"epoch": epoch, "train_loss": tot / max(n, 1), "steps": n,
+                     "time_s": time.time() - t0}
+            result.history.append(entry)
+            result.best_loss = min(result.best_loss, entry["train_loss"])
+            log_fn(f"epoch {epoch}: loss {entry['train_loss']:.4f} ({entry['time_s']:.1f}s)")
+        self.params = params
+        self._engines, self._device_params = {}, None
+        return result
 
 
 def multitask_model_learner(cfg: Optional[MultitaskConfig] = None,

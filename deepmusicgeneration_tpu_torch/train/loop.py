@@ -1,4 +1,4 @@
-"""Training step, loss, metrics, optimizer for the genre LM.
+"""Training step, losses, metrics, optimizer.
 
 The JAX package's recipe (``train/loop.py``; the reference's notebook cells
 62, 70-73): cross-entropy next-token loss with pad ignored, gradient clipping
@@ -8,8 +8,8 @@ learning-rate schedule, bf16 activations over float32 master parameters and
 optimizer state. The train step differentiates ``models/txl.py::forward``,
 whose attention runs through the flash train kernels on the card.
 
-Multitask training (``multi_loss``) and the sharded steps are still to port
-(ROADMAP.md).
+The multitask learner sums its tasks' losses with :func:`multi_loss`. The
+sharded steps are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,6 +38,20 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     mask = (targets != ignore_index).float()
     denom = torch.clamp(mask.sum(), min=1.0)
     return (nll * mask).sum() / denom, (correct * mask).sum() / denom
+
+
+def multi_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
+               pad_idx: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MultiLoss (``train/loop.py:60-70``): the sum of each task's
+    cross-entropy with pad ignored; metrics ``<task>_loss`` and
+    ``<task>_acc``."""
+    total, metrics = 0.0, {}
+    for key, y in targets.items():
+        loss, acc = cross_entropy(outputs[key], y, ignore_index=pad_idx)
+        total = total + loss
+        metrics[f"{key}_loss"] = loss
+        metrics[f"{key}_acc"] = acc
+    return total, metrics
 
 
 def one_cycle_schedule(total_steps: int, peak_lr: float = 5e-4,

@@ -415,3 +415,117 @@ def test_train_step_goes_through_the_kernels():
         assert got == ({"fwd": 4, "bwd": 4} if flash is None else {"fwd": 0, "bwd": 0})
         assert ftr.flash_train_attention_plain.calls == calls
     assert abs(losses[None] - losses[False]) < 2e-2, losses
+
+
+MT_CASES = {   # (kind, L, K, pad, case): chip_smoke.py's multitask cases at B 2, 4 heads
+    "bidir": ("bidir", 256, 256, False, {}),
+    "bidir_pad": ("bidir", 256, 256, True, {}),
+    "bidir_dropout": ("bidir", 256, 256, False, dict(attn_p=0.1)),
+    "cross": ("cross", 256, 256, False, {}),
+    "cross_l128_k256": ("cross", 128, 256, False, {}),
+    "cross_dropout": ("cross", 256, 256, False, dict(attn_p=0.1)),
+    "train_m0_pad": ("train", 256, 256, True, dict(win_size=1, win_k=1, mem_valid=0)),
+    "train_m0_win3": ("train", 256, 256, False, dict(win_size=3, win_k=0, mem_valid=0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("case", list(MT_CASES))
+def test_flash_mt_kernels_against_float64(case, Dh):
+    """The bidirectional and cross train kernels, and the train kernel with
+    no memory (the multitask decoder's call), against their plain versions
+    by chip_smoke.py's float64 check (output and six gradients)."""
+    import functools
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind, L, K, pad, kw = MT_CASES[case]
+    inp = cs.train_inputs(2, L, K, 4, Dh, dev, seed=Dh + 1, pad=pad)
+    kernel, plain = cs.MT_TRAIN_FNS[kind]
+    run = cs.train_run if kind == "train" else functools.partial(cs.mt_run, kind=kind)
+    before = dict(kernel.launches)
+    ok, report = cs.train_check(kernel, plain, inp, 4, run=run, **kw, attn_seed=cs.TRAIN_SEED)
+    print(case, Dh, report)
+    assert ok, report
+    assert kernel.launches == {k: n + 1 for k, n in before.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bidir", "cross"])
+def test_flash_mt_backward_is_reproducible(kind):
+    """dWkr, du and dv (and the bidirectional dQ seam) are summed in a fixed
+    order: two backward passes on the same inputs give the same bits."""
+    dev = _card()
+    import chip_smoke as cs
+    inp = cs.train_inputs(4, 256, 256, 2, 64, dev, seed=2, pad=True)
+    runs = [cs.mt_run(cs.MT_TRAIN_FNS[kind][0], inp, 2, kind, attn_p=0.1, attn_seed=7)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mt_train_step_goes_through_the_kernels():
+    """A bf16 multitask model at B = 8, L = 128 on the card: one fit step of
+    a mask batch launches one bidirectional forward and backward a layer, an
+    s2s batch one of each kernel a layer and task; never a plain version."""
+    dev = _card()
+    from deepmusicgeneration_tpu_torch.models.config import MultitaskConfig
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    from deepmusicgeneration_tpu_torch.vocab import MusicVocab
+    vocab = MusicVocab.create()
+    cfg = MultitaskConfig(vocab_size=len(vocab), enc_layers=2, dec_layers=2, d_model=128,
+                          d_inner=256, n_heads=2, d_head=64, ctx_len=128, mem_len=128)
+    rng = np.random.default_rng(0)
+    tok = lambda: rng.integers(4, len(vocab), (8, 128)).astype(np.int32)
+    s2s = ({"s2f": {"enc": tok(), "dec": tok()}, "f2s": {"enc": tok(), "dec": tok()}},
+           {"s2f": tok(), "f2s": tok()})
+    batches = [({"msk": {"x": tok()}}, {"msk": tok()}), s2s] * 2
+    wrappers = (ftr.flash_bidir_attention, ftr.flash_cross_attention, ftr.flash_train_attention)
+    before = [dict(w.launches) for w in wrappers]
+    plains = (ftr.flash_bidir_attention_plain, ftr.flash_cross_attention_plain,
+              ftr.flash_train_attention_plain)
+    calls = [p.calls for p in plains]
+    learner = MultitaskLearner(cfg, vocab, generator=torch.Generator().manual_seed(0))
+    result = learner.fit(batches, epochs=1, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    got = [{k: n - b[k] for k, n in w.launches.items()} for w, b in zip(wrappers, before)]
+    # per epoch: 2 mask steps (2 layers) + 2 s2s steps (2 tasks x 2 layers)
+    assert got == [{"fwd": 4 + 8, "bwd": 4 + 8}, {"fwd": 8, "bwd": 8}, {"fwd": 8, "bwd": 8}]
+    assert [p.calls for p in plains] == calls
+    assert np.isfinite(result.losses).all()
+
+
+@pytest.mark.cuda
+def test_mt_flash_route_matches_the_score_path():
+    """A bf16 multitask model at B = 8, L = 128 on the card: the multi_loss
+    and its gradients through the flash kernels against the score path
+    (``flash_train=False``), window 3, on a mask batch and on an s2s batch
+    with key padding, by chip_smoke.py's route check and its bounds."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.models.config import MultitaskConfig
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    from deepmusicgeneration_tpu_torch.vocab import MusicVocab
+    vocab = MusicVocab.create()
+    cfg = MultitaskConfig(vocab_size=len(vocab), enc_layers=2, dec_layers=2, d_model=128,
+                          d_inner=256, n_heads=2, d_head=64, ctx_len=128, mem_len=128)
+    params = MultitaskLearner(cfg, vocab, generator=torch.Generator().manual_seed(0)).params
+    rng = np.random.default_rng(1)
+    tok = lambda: rng.integers(4, len(vocab), (8, 128)).astype(np.int32)
+    pad = np.zeros((8, 128), bool)
+    pad[1, -40:] = True
+    s2s = {t: {"enc": tok(), "dec": tok(), "enc_pad": pad, "dec_pad": pad}
+           for t in ("s2f", "f2s")}
+    wrappers = (ftr.flash_bidir_attention, ftr.flash_cross_attention, ftr.flash_train_attention)
+    before = [w.launches["bwd"] for w in wrappers]
+    for name, batch in (("mask", ({"msk": {"x": tok()}}, {"msk": tok()})),
+                        ("s2s", (s2s, {"s2f": tok(), "f2s": tok()}))):
+        fl, sc, rel = cs.mt_route_check(params, cfg, batch, vocab.pad_idx, dev)
+        print(name, fl, sc, rel)
+        assert abs(fl - sc) <= cs.MT_ROUTE_LOSS_ATOL, (name, fl, sc)
+        assert rel <= cs.MT_ROUTE_GRAD_REL, (name, rel)
+    assert [w.launches["bwd"] - b for w, b in zip(wrappers, before)] == [2 + 4, 4, 4]

@@ -225,10 +225,10 @@ def test_kernel_shape_limits():
 
 # --- chip_smoke.py's check has teeth ---------------------------------------
 
-def _mutant(old: str, new: str, extra=None):
-    """flash_train_attention_plain recompiled with the one line ``old``
-    replaced (and ``extra`` names added to its globals)."""
-    fn = ft.flash_train_attention_plain
+def _mutant(old: str, new: str, extra=None, fn=None):
+    """``fn`` (flash_train_attention_plain by default) recompiled with the
+    one line ``old`` replaced (and ``extra`` names added to its globals)."""
+    fn = fn or ft.flash_train_attention_plain
     src = textwrap.dedent(inspect.getsource(fn))
     assert src.count(old) == 1, old
     namespace = {**fn.__globals__, **(extra or {})}
@@ -257,9 +257,8 @@ class _GatherWrongUnskew(torch.autograd.Function):
 
 GATHER = "bd = torch.gather(bd_rows, -1, skew_index(L, K, dev).expand(B, H, L, K))"
 FAULTS = {
-    "dropout_mask": ("keep_mask(B, H, L, K, attn_p, attn_seed or 0, dev)",
-                     "keep_mask(B, H, L, K, attn_p, (attn_seed or 0) + 1, dev)", "dropout"),
-    "bd_dropped": ("(ac + bd) * sc", "ac * sc", "causal"),
+    "dropout_mask": ("_softmax_pv(ac + bd,", "_softmax_other_seed(ac + bd,", "dropout"),
+    "bd_dropped": ("_softmax_pv(ac + bd,", "_softmax_pv(ac,", "causal"),
     "wrong_unskew": (GATHER, "bd = _GatherWrongUnskew.apply(bd_rows, skew_index(L, K, dev)"
                              ".expand(B, H, L, K).contiguous())", "causal"),
 }
@@ -275,7 +274,11 @@ def _smoke_case(case):
 def test_train_check_fails_a_faulty_kernel(fault):
     old, new, case = FAULTS[fault]
     inputs, kw = _smoke_case(case)
-    mutant = _mutant(old, new, {"_GatherWrongUnskew": _GatherWrongUnskew})
+    other_seed = _mutant("keep_mask(B, H, L, K, attn_p, attn_seed or 0, score.device)",
+                         "keep_mask(B, H, L, K, attn_p, (attn_seed or 0) + 1, score.device)",
+                         fn=ft._softmax_pv)
+    mutant = _mutant(old, new, {"_GatherWrongUnskew": _GatherWrongUnskew,
+                                "_softmax_other_seed": other_seed})
     ok, report = cs.train_check(mutant, ft.flash_train_attention_plain, inputs, H, **kw)
     assert not ok, report
     # the true plain version, run in the kernel's place, passes the same check
