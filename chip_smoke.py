@@ -107,6 +107,30 @@ non-zero without printing a result):
    score path's (``flash_train=False``) within MT_ROUTE_LOSS_ATOL and
    MT_ROUTE_GRAD_REL; then ``save``, ``MultitaskLearner.load`` on the card, and harmonize,
    next-word (64 words, ``slab_w8``) and remix, whose MIDI re-parses.
+17. mt prefill kernel — ``flash_encoder_attention`` against its float32
+   plain version by flash_check's exact-float32 check (MT_PREFILL_CASES):
+   bidirectional at B 16, W 512 with right-padded keys, with a fully padded
+   row, at W 64, at W 96 (a tail tile) and at W 40 (less than a tile), every
+   query row held; causal at B 16, W 512, left-padded, its real rows held.
+18. mt prefill — on the flagship's shapes at B 16, W 512, under the auto
+   rule: ``encode`` (10 bidirectional launches), ``decoder_prefill`` and
+   ``lm_prefill`` (10 causal launches each) against their ``flash=False``
+   branch; at B = 1 none of them launches a kernel.
+19. mt prefill timing — CUDA-event medians of both variants and of their
+   plain version at B 16, W 512, beside the bound.
+20. mt fused kernel — ``fused_s2s_step_core`` / ``fused_nw_step_core`` (the
+   exact bf16 sweep) against ``s2s_fused_plain(acc=float64)`` by the float64
+   check on h_out and the written K/V slot (within_fused_bounds), at the
+   flagship's widths with non-zero biases (Le in {64, 512, 1024}, padded
+   encoder columns) and at the demo's, ptr in {0, 31, M - 1} on each kind of
+   RINGS.
+21. mt fused timing — CUDA-event medians of both fused steps and of their
+   plain version at B = 1, M = 512, Le = 512, beside the bound.
+22. mt fused tasks — harmonize (200 words), next-word (256) and remix with
+   ``decode_kernel='fused'`` on the flagship's shapes and on the demo: one
+   fused launch a token step; every output re-parses with no grammar
+   violation; 64 greedy steps of each task on the demo equal those of the
+   exact ring step, or diverge first at a near-tie (FUSED_LOGITS_ATOL / RTOL).
 
 A ``time:`` line after each phase says how long it took. Then one JSON line
 with every kernel, and the last line
@@ -169,7 +193,8 @@ from deepmusicgeneration_tpu_torch.vocab import SAMPLE_FREQ, MusicVocab
 CKPT = Path(__file__).resolve().parent / "checkpoints" / "synth_genre_model"
 MT_DEMO = Path(__file__).resolve().parent / "checkpoints" / "demo_multitask_model"
 # every csrc/*.cu the slices run
-KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab", "flash_train", "flash_mt")
+KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab", "flash_train", "flash_mt",
+                  "flash_encoder", "s2s_fused")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 
@@ -520,9 +545,10 @@ def kernel_phase(engine, wkr_mt, rng, dev, mode, batches):
     return worst[mode]
 
 
-def flash_inputs(B, W, pads, H, Dh, dev, seed):
+def flash_inputs(B, W, pads, H, Dh, dev, seed, right=False):
     """bf16 q, k, v (B, W, H * Dh), wkr (W, H * Dh), u and v biases (H, Dh),
-    and a pad mask whose row b is left-padded by pads[b % len(pads)].
+    and a pad mask whose row b is left-padded (``right``: right-padded) by
+    pads[b % len(pads)].
 
     q, k and wkr have std 1.3, so the scores have std ~2.5 and a query's
     softmax peaks on a few keys: a wrong skew, mask, skipped tile or rescale
@@ -536,7 +562,8 @@ def flash_inputs(B, W, pads, H, Dh, dev, seed):
     bf = lambda std, *s: randn(std, *s).to(torch.bfloat16)
     pad = torch.zeros((B, W), dtype=torch.bool, device=dev)
     for b in range(B):
-        pad[b, :pads[b % len(pads)]] = True
+        n = pads[b % len(pads)]
+        pad[b, W - n if right else 0:W if right else n] = True
     return (eighths(1.3, 200, B, W, HD), bf(1.3, B, W, HD), bf(1.0, B, W, HD),
             bf(1.3, W, HD), eighths(0.5, 50, H, Dh), eighths(0.5, 50, H, Dh), pad)
 
@@ -755,7 +782,8 @@ def prompt_midi(seed: int, vocab, bars: int = 8) -> bytes:
 
 
 # the multitask wrappers' launch counts, keyed "<prefix><mode>"
-MT_WRAPPERS = {"s2s_": fs.fused_s2s_slab_core, "nw_": fs.fused_nw_slab_core}
+MT_WRAPPERS = (("s2s_", fs.fused_s2s_slab_core), ("nw_", fs.fused_nw_slab_core),
+               ("s2s_", fs.fused_s2s_step_core), ("nw_", fs.fused_nw_step_core))
 
 
 # the train attention wrappers' launch counts, keyed "<prefix><fwd|bwd>"
@@ -766,12 +794,15 @@ TRAIN_WRAPPERS = {"flash_train_": ftr.flash_train_attention,
 
 def launches() -> dict:
     """Every kernel's launch count: the four genre slab modes, the flash
-    prefill, the s2s / nw slab steps in both modes (s2s_slab_w8, s2s_slab,
-    nw_slab_w8, nw_slab), and the forward and backward of the flash train,
-    bidirectional and cross attention (flash_train_fwd, ..., flash_cross_bwd)."""
+    prefill, the multitask flash prefill (flash_encoder_bidir,
+    flash_encoder_causal), the s2s / nw steps in the slab modes and the fused
+    one (s2s_slab_w8, s2s_slab, s2s_fused, nw_slab_w8, nw_slab, nw_fused), and
+    the forward and backward of the flash train, bidirectional and cross
+    attention (flash_train_fwd, ..., flash_cross_bwd)."""
     return {**fd.fused_slab_core.launches, **fd.fused_slab_allrows_core.launches,
             "flash_prefill": fp.flash_prefill_attention.launches,
-            **{prefix + mode: n for prefix, w in MT_WRAPPERS.items()
+            **{"flash_encoder_" + k: n for k, n in fp.flash_encoder_attention.launches.items()},
+            **{prefix + mode: n for prefix, w in MT_WRAPPERS
                for mode, n in w.launches.items()},
             **{prefix + k: n for prefix, w in TRAIN_WRAPPERS.items()
                for k, n in w.launches.items()}}
@@ -782,7 +813,9 @@ def set_launches(counts: dict) -> None:
         for mode in wrapper.launches:
             wrapper.launches[mode] = counts[mode]
     fp.flash_prefill_attention.launches = counts["flash_prefill"]
-    for prefix, wrapper in MT_WRAPPERS.items():
+    for k in fp.flash_encoder_attention.launches:
+        fp.flash_encoder_attention.launches[k] = counts["flash_encoder_" + k]
+    for prefix, wrapper in MT_WRAPPERS:
         for mode in wrapper.launches:
             wrapper.launches[mode] = counts[prefix + mode]
     for prefix, wrapper in TRAIN_WRAPPERS.items():
@@ -1123,9 +1156,12 @@ def mt_kernel_phase(learner, label, rng, dev, le_values, bias_std):
     return worst
 
 
-def mt_bytes_and_flops(task, cfg, weights, wkr_mt, kv, cross):
+def mt_bytes_and_flops(task, cfg, weights, wkr_mt, kv, cross, slot_bytes=None):
     """Bytes one step must move (each input it reads once, each output
-    written once) and its multiply-adds counted as 2 operations."""
+    written once) and its multiply-adds counted as 2 operations; the layouts
+    of the slab steps, or of the fused ones when ``slot_bytes`` (the bytes
+    of a layer's written K/V slot) is given. The last entry of ``cross`` is
+    the (1, Le) encoder padding in both."""
     stacked, w_scales = weights
     L, D, Dff, H, Dh = cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
     M, HD = cfg.mem_len, H * Dh
@@ -1135,7 +1171,7 @@ def mt_bytes_and_flops(task, cfg, weights, wkr_mt, kv, cross):
     cols = 3 * HD                                                 # column scales read
     flops = D * 3 * HD + H * ((M + 1) * Dh + 2 * M * Dh)
     if task == "s2s":
-        Le = cross[0].shape[1]
+        Le = cross[-1].shape[1]
         read += nbytes(stacked.q2_w, stacked.q2_b, stacked.ln2_g, stacked.ln2_b,
                        stacked.ff1_w, stacked.ff1_b, stacked.ff2_w, stacked.ff2_b,
                        stacked.ff3_g, stacked.ff3_b, *cross)
@@ -1143,7 +1179,7 @@ def mt_bytes_and_flops(task, cfg, weights, wkr_mt, kv, cross):
         flops += D * HD + D * Dff + Dff * D + H * 3 * Le * Dh
     if w_scales is not None:
         read += 4 * L * cols
-    written = 4 * D + L * 2 * (HD + 4)
+    written = 4 * D + L * (2 * (HD + 4) if slot_bytes is None else slot_bytes)
     return read + written, 2 * L * flops
 
 
@@ -1829,6 +1865,424 @@ def mt_train_phase(seed: int):
     return counts
 
 
+# The multitask flash prefill kernels against their plain version, by
+# flash_check's exact-float32 check (FLASH_RTOL, FLASH_ATOL): (name, causal,
+# B, W, pads). The bidirectional cases pad on the right, as the encoder's
+# windows are padded, and every query row counts (the encoder output at a
+# padded position feeds the cross-attention keys): a row whose keys are all
+# padding averages V over all W keys. The causal case pads on the left, as
+# flash_check's.
+MT_PREFILL_CASES = (
+    ("bidir", False, 16, 512, (0, 17, 300)),
+    ("bidir, a fully padded row", False, 4, 512, (0, 512, 100)),
+    ("bidir W=64", False, 16, 64, (0, 5, 40)),
+    ("bidir W=96 (tail tile)", False, 8, 96, (0, 17, 50)),
+    ("bidir W=40 (one partial tile)", False, 4, 40, (0, 9, 40)),
+    ("causal", True, 16, 512, (0, 17, 300)),
+)
+MT_PREFILL_B, MT_PREFILL_W = 16, 512   # the batched prefill the auto rule takes
+
+
+def encoder_check(args, H, causal):
+    """``flash_encoder_attention`` on ``args`` (from flash_inputs) against its
+    float32 plain version on the same values. Returns (max |d| over the rows
+    checked, the largest |d| / (FLASH_RTOL |ref| + FLASH_ATOL) there, every
+    row finite); the rows checked are all of them (bidirectional) or the
+    real query rows (causal, as flash_check)."""
+    pad = args[-1]
+    ref = fp.flash_encoder_attention_plain(*[t.float() for t in args[:-1]], pad, H,
+                                           causal=causal)
+    got = fp.flash_encoder_attention(*args, H, causal=causal)
+    torch.cuda.synchronize()
+    rows = ~pad if causal else torch.ones_like(pad)
+    d = (got.float() - ref).abs()[rows]
+    ratio = (d / (FLASH_RTOL * ref.abs()[rows] + FLASH_ATOL)).max().item()
+    return d.max().item(), ratio, bool(torch.isfinite(got.float()).all())
+
+
+def mt_prefill_kernel_phase(cfg, dev, seed):
+    """``flash_encoder_attention`` (bidirectional and causal) against its
+    plain version in the MT_PREFILL_CASES; returns each variant's largest
+    error and largest error over its bound."""
+    worst = {}
+    for i, (name, causal, B, W, pads) in enumerate(MT_PREFILL_CASES):
+        args = flash_inputs(B, W, pads, cfg.n_heads, cfg.d_head, dev, seed + 100 + i,
+                            right=not causal)
+        err, ratio, finite = encoder_check(args, cfg.n_heads, causal)
+        say(f"kernel: flash_encoder {name} B={B} W={W} pads={pads} "
+            f"{'real' if causal else 'all'} rows: max|d| {err:.3e}, max |d| / "
+            f"({FLASH_RTOL:.3e} |ref| + {FLASH_ATOL}) = {ratio:.3f} (must be <= 1); "
+            f"all rows finite={finite}")
+        if not (ratio <= 1.0 and finite):
+            raise AssertionError(f"flash_encoder_attention ({name}) disagrees with its "
+                                 "plain version")
+        worse(worst, "mt_causal" if causal else "mt_bidir", (err, ratio))
+    return worst
+
+
+def mt_windows(cfg, B, W, seed, dev):
+    """Random (B, W) token windows on the card: encoder tokens right-padded
+    and decoder tokens left-padded by 0, 17 or 300 (rows in turn), with
+    positions that advance by 0-2 a token."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = lambda: torch.randint(5, 300, (B, W), generator=g, device=dev)
+    pos = lambda: torch.cumsum(torch.randint(0, 3, (B, W), generator=g, device=dev), 1)
+    n = torch.tensor([(0, 17, 300)[b % 3] for b in range(B)], device=dev)[:, None]
+    col = torch.arange(W, device=dev)[None]
+    enc_pad, dec_pad = col >= W - n, col < n
+    xe, xd = toks(), toks()
+    xe[enc_pad], xd[dec_pad] = 1, 1
+    return xe, pos(), enc_pad, xd, pos(), dec_pad
+
+
+def mt_prefill_phase(learner, label, dev, seed, B=MT_PREFILL_B, W=MT_PREFILL_W):
+    """``encode``, ``decoder_prefill`` and ``lm_prefill`` at (B, W) under the
+    auto rule (which must take the flash kernels: one launch a layer, the
+    bidirectional kernel for the encoder, the causal one for each prefill),
+    held to their ``flash=False`` branch: the encoder output over every
+    position and the caches by layer over the valid slots in relative
+    (Frobenius) norm within l * PREFILL_LAYER_RTOL at depth l, the logits
+    within PREFILL_LOGITS_ATOL / RTOL with the same argmax; then the three
+    at B = 1, which must launch nothing. Returns the launch counts."""
+    cfg, p = learner.cfg, learner.engine("s2s").params
+    M = cfg.mem_len
+    xe, pe, enc_pad, xd, pd, dec_pad = mt_windows(cfg, B, W, seed, dev)
+    reset_launches()
+    enc = mt.encode(p, cfg, xe, pe, pad_cols=enc_pad)
+    torch.cuda.synchronize()
+    n_enc = launches()
+    if n_enc != only(flash_encoder_bidir=cfg.enc_layers):
+        raise AssertionError(f"{label} encode at B={B} W={W} launched {n_enc}")
+    ref_enc = mt.encode(p, cfg, xe, pe, pad_cols=enc_pad, flash=False)
+    enc_rel = ((enc.float() - ref_enc.float()).norm() / ref_enc.float().norm()).item()
+    enc_ok = enc_rel <= cfg.enc_layers * PREFILL_LAYER_RTOL and bool(
+        torch.isfinite(enc.float()).all())
+    say(f"mt prefill {label}: encode B={B} W={W} launches {n_enc['flash_encoder_bidir']}; "
+        f"output |d| / |ref| over every position {enc_rel:.3e} within "
+        f"{cfg.enc_layers} * {PREFILL_LAYER_RTOL:.3e}={enc_ok}")
+    ok = enc_ok
+    total = dict(n_enc)
+    for name, fn, extra in (("decoder_prefill", mt.decoder_prefill, (enc,)),
+                            ("lm_prefill", mt.lm_prefill, ())):
+        kw = dict(enc_pad=enc_pad) if extra else {}
+        reset_launches()
+        logits, cache = fn(p, cfg, xd, pd, dec_pad, *extra, **kw)
+        torch.cuda.synchronize()
+        counts = launches()
+        if counts != only(flash_encoder_causal=cfg.dec_layers):
+            raise AssertionError(f"{label} {name} at B={B} W={W} launched {counts}")
+        total["flash_encoder_causal"] += counts["flash_encoder_causal"]
+        ref_logits, ref_cache = fn(p, cfg, xd, pd, dec_pad, *extra, flash=False, **kw)
+        logits, ref_logits = logits.float(), ref_logits.float()
+        logit_ok = bool((logits - ref_logits).abs().le(
+            PREFILL_LOGITS_ATOL + PREFILL_LOGITS_RTOL * ref_logits.abs()).all())
+        same_argmax = bool(torch.equal(logits.argmax(-1), ref_logits.argmax(-1)))
+        valid = (~dec_pad)[:, -M:]
+        if W < M:                 # the cache's first M - W slots hold no token
+            valid = torch.cat([torch.zeros((B, M - W), dtype=torch.bool, device=dev), valid], 1)
+        rel, cache_err = cache_diff_by_layer(cache, ref_cache, valid)
+        cache_ok = all(r <= l * PREFILL_LAYER_RTOL for l, r in enumerate(rel))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (logits, cache.k, cache.v))
+        say(f"mt prefill {label}: {name} B={B} W={W} launches "
+            f"{counts['flash_encoder_causal']}; max|d logits| "
+            f"{(logits - ref_logits).abs().max().item():.3e} within atol "
+            f"{PREFILL_LOGITS_ATOL} rtol {PREFILL_LOGITS_RTOL}={logit_ok}, same argmax="
+            f"{same_argmax}; cache on valid slots |d| / |ref| by layer "
+            f"{' '.join(f'{r:.2e}' for r in rel)} within l * {PREFILL_LAYER_RTOL:.3e}="
+            f"{cache_ok} (max|d| {cache_err:.3e}); finite={finite}")
+        ok = ok and logit_ok and same_argmax and cache_ok and finite
+    if not ok:
+        raise AssertionError(f"{label}: the multitask flash prefill disagrees with its "
+                             "flash=False branch")
+    reset_launches()
+    one = [t[:1] for t in (xe, pe, enc_pad, xd, pd, dec_pad)]
+    enc1 = mt.encode(p, cfg, *one[:2], pad_cols=one[2])
+    mt.decoder_prefill(p, cfg, *one[3:], enc1, enc_pad=one[2])
+    mt.lm_prefill(p, cfg, *one[3:])
+    torch.cuda.synchronize()
+    if launches() != only():
+        raise AssertionError(f"{label}: the B=1 prefills launched {launches()}")
+    say(f"mt prefill {label}: encode, decoder_prefill, lm_prefill at B=1 launch nothing")
+    return total
+
+
+def mt_prefill_timing_phase(cfg, dev, seed, B=MT_PREFILL_B, W=MT_PREFILL_W):
+    """CUDA-event medians of 100 launches of each flash_encoder_attention
+    variant at (B, W) with no padding (every pair is work the data needs) and
+    of 100 calls of its plain version, beside the bound. No single PyTorch
+    call computes the skewed bias with its spill (library_ms null). These
+    launches do not count as the main path's."""
+    before = launches()
+    H, Dh = cfg.n_heads, cfg.d_head
+    HD = H * Dh
+    q, k, v, wkr, u, vb, pad = flash_inputs(B, W, (0,), H, Dh, dev, seed + 7)
+    times = {}
+    for causal in (False, True):
+        kernel = lambda: fp.flash_encoder_attention(q, k, v, wkr, u, vb, pad, H, causal=causal)
+        plain = lambda: fp.flash_encoder_attention_plain(q, k, v, wkr, u, vb, pad, H,
+                                                         causal=causal)
+        ms = time_ms(kernel, 100)
+        plain_ms = time_ms(plain, 100)
+        ms_again = time_ms(kernel, 100)
+        nbytes = 2 * (4 * B * W * HD + W * HD + 2 * HD) + B * W   # q k v out, wkr, u v, pad
+        pairs = B * H * (W * (W + 1) // 2 if causal else W * W)
+        flops = 3 * 2 * pairs * Dh                                # AC, BD and P.V products
+        bound_ms, bound_by = bound(nbytes, flops)
+        name = "causal" if causal else "bidir"
+        say(f"timing: flash_encoder[{name}] B={B} W={W} {H}x{Dh} kernel median {ms:.4f} ms "
+            f"(again {ms_again:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, by {bound_by}); library: none")
+        times[f"mt_{name}"] = dict(ms=min(ms, ms_again), plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by)
+    set_launches(before)
+    return times
+
+
+# The fused (exact bf16) s2s / nw step against a float64 run of its plain
+# version, the float64 check of check_case on the fused step's outputs:
+# |dh_out| and the largest difference of the written bf16 K/V slot entries,
+# each within its fixed bound + PLAIN_K x the float32 plain version's, every
+# other slot byte-identical. FUSED_SLOT_ATOL is the cache tolerance that the
+# JAX package's tests hold this kernel's written slot to
+# (tests/test_fused_s2s.py); H_ATOL as the slab steps'.
+FUSED_SLOT_ATOL = 5e-2
+FUSED_METRICS = (("dh", 0), ("slot", 1))
+FUSED_PTRS = lambda M: (0, 31, M - 1)
+
+
+def fused_ring(cfg, kind, rng, dev):
+    """A random bf16 head-major ring (K, V each (L, 1, H, M, Dh)) drawn on
+    the card: entries of std 0.5, each slot scaled by exp(N(0, 0.7^2)) on a
+    short ring (as ring_kv)."""
+    L, H, Dh, M = cfg.dec_layers, cfg.n_heads, cfg.d_head, cfg.mem_len
+
+    def ring():
+        x = normal((L, 1, H, M, Dh), 0.5, rng, dev)
+        if kind == "short":
+            x.mul_(torch.exp(normal((L, 1, 1, M, 1), 0.7, rng, dev)))
+        return x.to(torch.bfloat16)
+    return [ring(), ring()]
+
+
+def fused_cross(cfg, Le, rng, dev):
+    """A random bf16 encode-time context of Le slots (K, V and relative keys
+    of std 0.5, (L, H, Le, Dh), drawn on the card), its last Le / 4 columns
+    padded: (ck, cv, cwkr, cblocked)."""
+    L, H, Dh = cfg.dec_layers, cfg.n_heads, cfg.d_head
+    ck, cv, cwkr = (normal((L, H, Le, Dh), 0.5, rng, dev).to(torch.bfloat16) for _ in range(3))
+    cblocked = (torch.arange(Le, device=dev)[None] >= Le - Le // 4).to(torch.int32)
+    return ck, cv, cwkr, cblocked
+
+
+def fused_wkr(learner):
+    eng = learner.engine("s2s")
+    return mt.precompute_dec_wkr(eng.params, eng.cfg, eng.cfg.mem_len)
+
+
+def fused_step(task, cfg, stacked, wkr, kv, cross, blocked, h_in, ptr, acc=None):
+    """One launch of the task's fused kernel (``acc`` None) or of its plain
+    version in ``acc``, on copies of the ring ``kv``."""
+    kv = [t.clone() for t in kv]
+    M = cfg.mem_len
+    if acc is not None:
+        return fs.s2s_fused_plain(stacked, cfg, h_in, wkr, *kv, *(cross or (None,) * 4),
+                                  blocked, ptr, M, acc=acc)
+    if task == "s2s":
+        return fs.fused_s2s_step_core(stacked, cfg, h_in, wkr, *kv, *cross, blocked, ptr, M)
+    return fs.fused_nw_step_core(stacked, cfg, h_in, wkr, *kv, blocked, ptr, M)
+
+
+def fused_diff(got, ref, kv, ptr):
+    """One fused step's result ``got`` against ``ref`` (both (h_out, kc,
+    vc), from the ring ``kv``): max |dh_out|, the largest difference of the
+    written K/V slot entries, and whether every other slot of ``got`` is
+    byte-identical to ``kv``."""
+    M = kv[0].shape[3]
+    other = torch.arange(M, device=kv[0].device) != ptr
+    untouched = all(torch.equal(g[:, :, :, other], t[:, :, :, other])
+                    for g, t in zip(got[1:], kv))
+    dh = (got[0].double() - ref[0].double()).abs().max().item()
+    slot = max((g[:, :, :, ptr].double() - r[:, :, :, ptr].double()).abs().max().item()
+               for g, r in zip(got[1:], ref[1:]))
+    return dh, slot, untouched
+
+
+def fused_bounds(plain_diff) -> dict:
+    fixed = {"dh": H_ATOL, "slot": FUSED_SLOT_ATOL}
+    return {m: fixed[m] + PLAIN_K * plain_diff[i] for m, i in FUSED_METRICS}
+
+
+def within_fused_bounds(diff, plain_diff) -> bool:
+    """The float64 check of one fused_diff against the float32 plain
+    version's ``plain_diff`` on the same case; the other slots must be
+    byte-identical."""
+    limit = fused_bounds(plain_diff)
+    return all(diff[i] <= limit[m] for m, i in FUSED_METRICS) and diff[2]
+
+
+def mt_fused_kernel_phase(learner, label, rng, dev, le_values, bias_std):
+    """The fused s2s / nw kernels on the card against a float64 run of their
+    plain version (within_fused_bounds), ptr in FUSED_PTRS on each kind of
+    RINGS, each s2s case at every Le of ``le_values`` with padded encoder
+    columns; with ``bias_std`` non-zero biases. Returns the largest |dh_out|
+    and the largest |dh_out| over its bound, by variant."""
+    cfg = learner.cfg
+    stacked, _ = mt_weights(learner, "fused", rng, dev, bias_std)
+    wkr = fused_wkr(learner)
+    embed32 = learner.engine("s2s").params["embed"].float()
+    worst = {}
+    for task in MT_TASKS:
+        for Le in (le_values if task == "s2s" else (0,)):
+            cross = fused_cross(cfg, Le, rng, dev) if task == "s2s" else None
+            for ptr in FUSED_PTRS(cfg.mem_len):
+                for kind in RINGS:
+                    kv = fused_ring(cfg, kind, rng, dev)
+                    blocked = torch.from_numpy(ring_blocked(1, cfg.mem_len, ptr, kind)).to(dev)
+                    h_in = embed32[torch.from_numpy(rng.integers(12, 140, 1)).to(dev)]
+                    args = (task, cfg, stacked, wkr, kv, cross, blocked, h_in, ptr)
+                    ref = fused_step(*args, acc=torch.float64)
+                    f32 = fused_step(*args, acc=torch.float32)
+                    got = fused_step(*args)
+                    torch.cuda.synchronize()
+                    diff, plain_diff = fused_diff(got, ref, kv, ptr), fused_diff(f32, ref, kv, ptr)
+                    limit = fused_bounds(plain_diff)
+                    say(f"kernel: {task}[fused] vs float64 {label} Le={Le} ptr={ptr:3d} "
+                        f"ring={kind} max|dh_out|={diff[0]:.3e} (plain_f32 {plain_diff[0]:.3e}, "
+                        f"bound {limit['dh']:.3e}) max|d slot|={diff[1]:.3e} (plain_f32 "
+                        f"{plain_diff[1]:.3e}, bound {limit['slot']:.3e}) "
+                        f"other_slots_identical={diff[2]}")
+                    if not within_fused_bounds(diff, plain_diff):
+                        raise AssertionError(f"{task}[fused] kernel disagrees with its plain "
+                                             "version")
+                    worse(worst, f"{task}_fused", (diff[0], diff[0] / limit["dh"]))
+    return worst
+
+
+def mt_fused_timing_phase(learner, rng, dev):
+    """The fused s2s (Le = 512) and nw steps at B = 1, M = 512 on the
+    flagship's widths: CUDA-event medians of 100 kernel launches and of 100
+    calls of the plain version, beside the bound from the bytes the step must
+    move. These launches do not count as the main path's."""
+    cfg = learner.cfg
+    stacked, _ = mt_weights(learner, "fused", rng, dev, 0.1)
+    wkr = fused_wkr(learner)
+    h_in = learner.engine("s2s").params["embed"].float()[:1]
+    M, L, HD = cfg.mem_len, cfg.dec_layers, cfg.n_heads * cfg.d_head
+    before = launches()
+    times = {}
+    for task in MT_TASKS:
+        kv = fused_ring(cfg, "full", rng, dev)
+        cross = fused_cross(cfg, 512, rng, dev) if task == "s2s" else None
+        blocked = torch.from_numpy(ring_blocked(1, M, 100, "full")).to(dev)
+        args = (task, cfg, stacked, wkr, kv, cross, blocked, h_in, 100)
+        ms = time_ms(lambda: fused_step(*args), 100)
+        plain_ms = time_ms(lambda: fused_step(*args, acc=torch.float32), 100)
+        ms_again = time_ms(lambda: fused_step(*args), 100)
+        nbytes, flops = mt_bytes_and_flops(task, cfg, (stacked, None), wkr, kv, cross,
+                                           slot_bytes=2 * 2 * HD)
+        bound_ms, bound_by = bound(nbytes, flops)
+        say(f"timing: {task}[fused] B=1 M={M} Le={512 if cross else 0} kernel median "
+            f"{ms:.4f} ms (again {ms_again:.4f}) plain {plain_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP, by "
+            f"{bound_by}); library: none; 1 wrapper launch = "
+            f"{fs.fused_kernels_per_step(L, task == 's2s')} CUDA kernels")
+        times[f"{task}_fused"] = dict(ms=min(ms, ms_again), plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
+    set_launches(before)
+    return times
+
+
+# The fused step's greedy tokens against the exact ring step's ('xla') on
+# the trained demo: equal, or, where a logit tie broke the other way, the two
+# chosen tokens' logits (from the 'xla' route's model functions on the common
+# prefix) within the JAX package's logit tolerance for this kernel against
+# the ring step (tests/test_fused_s2s.py: atol 0.08, rtol 0.02).
+FUSED_LOGITS_ATOL, FUSED_LOGITS_RTOL = 0.08, 0.02
+
+
+def next_logits(engine, kind, inp, toks):
+    """The logits after ``toks`` (the target so far) from the model
+    functions, as the engine builds its windows: the next-word prefill, or
+    the encoder over ``inp`` and the seq2seq prefill."""
+    from deepmusicgeneration_tpu_torch.codec.index import position_enc
+    from deepmusicgeneration_tpu_torch.decode.multitask_engine import _bucket as mt_bucket
+    p, cfg, v = engine.params, engine.cfg, engine.vocab
+    x, pos, pad = engine._left_window(toks, position_enc(toks, v).astype(np.int64))
+    if kind == "nw":
+        return mt.lm_prefill(p, cfg, x, pos, pad)[0][0].float()
+    inp = np.asarray(inp[:1024], np.int64)
+    We = mt_bucket(len(inp))
+    ib, ipb, ipad = (np.full((1, We), v.pad_idx, np.int64), np.zeros((1, We), np.int64),
+                     np.ones((1, We), bool))
+    ib[0, :len(inp)], ipb[0, :len(inp)], ipad[0, :len(inp)] = \
+        inp, position_enc(inp, v).astype(np.int64), False
+    ib, ipb, ipad = (engine._tensor(a) for a in (ib, ipb, ipad))
+    enc = mt.encode(p, cfg, ib, ipb, pad_cols=ipad)
+    return mt.decoder_prefill(p, cfg, x, pos, pad, enc, enc_pad=ipad)[0][0].float()
+
+
+def fused_greedy_phase(demo, seed, n_words=64):
+    """64 greedy steps of harmonize and next-word on the demo with the fused
+    kernel and with the exact ring step: the tokens must be equal, or the
+    first divergence must be a near-tie (FUSED_LOGITS_ATOL / RTOL). Returns
+    the fused launches."""
+    vocab = demo.vocab
+    multi = MultitrackItem.from_file(two_track_midi(seed, vocab), vocab)
+    inp = multi.first_instrument.data
+    targ = multi.second_instrument.trim_to_beat(8).remove_eos().data
+    learners = {k: MultitaskLearner(demo.cfg, vocab, demo.params, device=demo.device,
+                                    decode_kernel=k) for k in ("fused", "xla")}
+    total = dict.fromkeys(launches(), 0)
+    for kind in ("s2s", "nw"):
+        out = {}
+        for k, lr in learners.items():
+            reset_launches()
+            eng = lr.engine(kind)
+            out[k] = (eng.predict_s2s(inp, targ, n_words=n_words, greedy=True)[len(targ):]
+                      if kind == "s2s" else eng.predict_nw(targ, n_words=n_words, greedy=True))
+            torch.cuda.synchronize()
+            if k == "fused":
+                if launches() != only(**{f"{kind}_fused": n_words}):
+                    raise AssertionError(f"fused {kind} launched {launches()}")
+                total[f"{kind}_fused"] += n_words
+        a, b = np.asarray(out["fused"]), np.asarray(out["xla"])
+        n = min(len(a), len(b))
+        diverged = np.nonzero(a[:n] != b[:n])[0]
+        if len(diverged) == 0 and len(a) == len(b):
+            say(f"mt fused greedy: {kind} {len(a)} tokens, fused equal to xla")
+            continue
+        i = int(diverged[0]) if len(diverged) else n
+        if i == n:
+            raise AssertionError(f"fused {kind}: {len(a)} tokens against xla's {len(b)}")
+        logits = next_logits(learners["xla"].engine(kind), kind, inp,
+                             np.concatenate([targ, b[:i]]).astype(np.int64))
+        la, lb = logits[int(a[i])].item(), logits[int(b[i])].item()
+        near_tie = abs(la - lb) <= FUSED_LOGITS_ATOL + FUSED_LOGITS_RTOL * abs(lb)
+        say(f"mt fused greedy: {kind} first divergence at step {i} of {n}: fused "
+            f"{int(a[i])} xla {int(b[i])}, their logits {la:.4f} / {lb:.4f}, gap "
+            f"{abs(la - lb):.4f} within atol {FUSED_LOGITS_ATOL} rtol "
+            f"{FUSED_LOGITS_RTOL}={near_tie}")
+        if not near_tie:
+            raise AssertionError(f"fused {kind} diverged from xla beyond a near-tie")
+    return total
+
+
+def mt_fused_phase(flagship, demo, seed: int) -> dict:
+    """harmonize (200 words), next-word (256) and remix on the flagship's
+    shapes and on the demo with ``decode_kernel='fused'``: one fused launch a
+    token step and no other kernel (mt_tasks); then the greedy comparison
+    with the exact ring step on the demo. Returns the launch counts of the
+    task runs."""
+    total = dict.fromkeys(launches(), 0)
+    for i, (label, lr) in enumerate((("flagship", flagship), ("demo", demo))):
+        fused = MultitaskLearner(lr.cfg, lr.vocab, lr.params, device=lr.device,
+                                 decode_kernel="fused")
+        for key, n in mt_tasks(fused, f"{label} fused", seed + 10 + i, "fused").items():
+            total[key] += n
+    fused_greedy_phase(demo, seed)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1881,6 +2335,17 @@ def main(argv=None) -> int:
     err.update(timed("mt train kernel", mt_train_kernel_phase, mt_cfg, dev, args.seed))
     timing.update(timed("mt train timing", mt_train_timing_phase, mt_cfg, dev, args.seed))
     n_mt_train = timed("mt train", mt_train_phase, args.seed)
+    err.update(timed("mt prefill kernel", mt_prefill_kernel_phase, mt_cfg, dev, args.seed))
+    n_mt_prefill = timed("mt prefill", mt_prefill_phase, flagship, "flagship", dev, args.seed)
+    timing.update(timed("mt prefill timing", mt_prefill_timing_phase, mt_cfg, dev, args.seed))
+    fused_rng = np.random.default_rng(args.seed + 1)
+    for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),
+                                                   ("demo", demo, (64, 128), 0.0)):
+        for key, e in timed(f"mt fused kernel {label}", mt_fused_kernel_phase, learner_mt,
+                            label, fused_rng, dev, le_values, bias_std).items():
+            worse(err, key, e)
+    timing.update(timed("mt fused timing", mt_fused_timing_phase, flagship, fused_rng, dev))
+    n_fused = timed("mt fused tasks", mt_fused_phase, flagship, demo, args.seed)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     csrc = "deepmusicgeneration_tpu_torch/ops/csrc/"
     src = "deepmusicgeneration_tpu/ops/"
@@ -1912,7 +2377,14 @@ def main(argv=None) -> int:
                 n_mt_train[f"flash_{kind}_{part}"], f"{kind}_{part}")
           for kind, wrapper, line in (("bidir", "flash_bidir_attention", 772),
                                       ("cross", "flash_cross_attention", 789))
-          for part in ("fwd", "bwd")]]}))
+          for part in ("fwd", "bwd")],
+        *[entry(f"flash_encoder_attention[{kind}]", source, "flash_prefill.py:240",
+                n_mt_prefill[f"flash_encoder_{kind}"], f"mt_{kind}")
+          for kind, source in (("bidir", "flash_encoder.cu"), ("causal", "flash_prefill.cu"))],
+        *[entry(f"{wrapper}[fused]", "s2s_fused.cu", f"fused_s2s.py:{line}",
+                n_fused[f"{task}_fused"], f"{task}_fused")
+          for task, wrapper, line in (("s2s", "fused_s2s_step_core", 248),
+                                      ("nw", "fused_nw_step_core", 346))]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,9 +19,10 @@ Every engine builds a batch-1 window. The decode step is picked by
 :func:`_pick_dec_kernel`: on the card, with a bf16 config and mem_len a
 multiple of 32 (and widths the CUDA kernel takes), ``slab_w8``
 (``ops.fused_s2s``: int8 weights, an int8 self ring and cross context);
-elsewhere ``xla``, the exact ring step of ``models.multitask``. The loops run
-eagerly, ``n_words`` steps, with no value read back to the host between
-tokens.
+elsewhere ``xla``, the exact ring step of ``models.multitask``. ``fused``
+(the exact bf16 sweep of ``ops.fused_s2s``: bf16 weights, ring and cross
+context) runs on request. The loops run eagerly, ``n_words`` steps, with no
+value read back to the host between tokens.
 """
 
 from __future__ import annotations
@@ -39,9 +40,10 @@ from ..models import multitask as mt
 from ..models.config import MultitaskConfig
 from ..models.precision import cast_params_for_inference
 from ..ops.fused_decode import quantize_kv_slot_major
-from ..ops.fused_s2s import (SLAB, fused_nw_slab_core, fused_s2s_slab_core,
-                             kernel_accepts, quantize_cross_slot_major,
-                             quantize_mt_weights, stack_mt_dec_layers)
+from ..ops.fused_s2s import (SLAB, fused_nw_slab_core, fused_nw_step_core,
+                             fused_s2s_slab_core, fused_s2s_step_core, kernel_accepts,
+                             quantize_cross_slot_major, quantize_mt_weights,
+                             stack_mt_dec_layers)
 from ..ops.sampling import (FILTER_VALUE, filter_sample_sorted, sample_categorical,
                             top_k_top_p)
 from ..vocab import SAMPLE_FREQ, MusicVocab
@@ -49,7 +51,7 @@ from .engine import (SampleState, SamplerSettings, _past_80pct, _to_device, buil
                      sample_next_token)
 
 I32 = torch.int32
-KERNELS = ("xla", "slab_w8", "slab")
+KERNELS = ("xla", "slab_w8", "slab", "fused")
 
 
 def _bucket(n: int, buckets=(64, 128, 256, 512, 1024)) -> int:
@@ -69,16 +71,19 @@ def _pick_dec_kernel(cfg: MultitaskConfig, decode_kernel: str, device: torch.dev
     """The decode step: 'auto' gives 'slab_w8' on the card where
     :func:`slab_ok` holds (int8 weights, int8 self ring and cross context),
     'xla' elsewhere (the exact ring step, any device). An explicit 'slab'
-    (int8 ring and cross context, bf16 weights), 'slab_w8' or 'xla' is
-    honoured; an explicit slab step on a config it does not take raises."""
+    (int8 ring and cross context, bf16 weights), 'slab_w8', 'fused' (the
+    exact bf16 sweep: a bf16 config whose widths the kernel takes) or 'xla'
+    is honoured; an explicit kernel step on a config it does not take
+    raises."""
     if decode_kernel == "auto":
         return "slab_w8" if device.type == "cuda" and slab_ok(cfg) else "xla"
-    if decode_kernel == "fused":
-        raise NotImplementedError(
-            "decode_kernel='fused' (the exact bf16 sweep, fused_s2s_step_core: TPU "
-            "kernel row 7) is not ported yet; see ROADMAP.md Queue 2")
     if decode_kernel not in KERNELS:
         raise ValueError(f"decode_kernel {decode_kernel!r}: one of 'auto', {KERNELS}")
+    if decode_kernel == "fused":
+        if not (cfg.dtype == "bfloat16" and kernel_accepts(cfg)):
+            raise ValueError(f"decode_kernel='fused' needs a bf16 config with widths the "
+                             f"kernel takes; got dtype={cfg.dtype}, d_head={cfg.d_head}")
+        return decode_kernel
     if decode_kernel != "xla" and not slab_ok(cfg):
         raise ValueError(f"decode_kernel={decode_kernel!r} needs a bf16 config with "
                          f"mem_len % {SLAB} == 0 and widths the kernel takes; got "
@@ -87,7 +92,8 @@ def _pick_dec_kernel(cfg: MultitaskConfig, decode_kernel: str, device: torch.dev
 
 
 def _build_stacked(params: Dict, kernel: str):
-    """(stacked weights, w_scales or None) of a slab step; None for 'xla'."""
+    """(stacked weights, w_scales or None) of a kernel step: int8 panels for
+    'slab_w8', bf16 for 'slab' and 'fused'; None for 'xla'."""
     if kernel == "xla":
         return None
     stacked = stack_mt_dec_layers(params)
@@ -209,17 +215,19 @@ class _DecodeEngine(_Engine):
         self._stacked = None
 
     def stacked(self):
-        """The slab step's (stacked weights, w_scales or None), built once."""
+        """The kernel step's (stacked weights, w_scales or None), built once."""
         if self._stacked is None:
             self._stacked = _build_stacked(self.params, self.kernel)
             logging.getLogger(__name__).info("multitask decode kernel: %s", self.kernel)
         return self._stacked
 
     def _loop(self, logits, st, ring, settings, temps, top_p, min_bars, overlay, gen,
-              max_pos, step_xla, step_slab):
+              max_pos, step_xla, step_kernel):
         """The token loop shared by the seq2seq and next-word engines: sample,
-        then one decoder step through ``step_xla(idx, pos, ring)`` or the slab
-        kernel ``step_slab(stacked, h_in, kv, blocked, ptr)``."""
+        then one decoder step through ``step_xla(idx, pos, ring)`` or the
+        kernel step ``step_kernel(stacked, h_in, kv, blocked, ptr)``, whose
+        ``kv`` is the ring's K/V: the bf16 head-major tensors for 'fused'
+        (updated in place), quantized slot-major for the slab steps."""
         B = st.prev_tok.shape[0]
         toks = torch.empty((settings.n_words, B), dtype=I32, device=self.device)
         top_k = torch.full((B,), settings.top_k, dtype=torch.long, device=self.device)
@@ -239,8 +247,11 @@ class _DecodeEngine(_Engine):
 
         cfg, M = self.cfg, self.cfg.mem_len
         L, HD = cfg.dec_layers, cfg.n_heads * cfg.d_head
-        kv = quantize_kv_slot_major(ring.k.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD),
-                                    ring.v.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD))
+        if self.kernel == "fused":
+            kv = [ring.k, ring.v]
+        else:
+            kv = quantize_kv_slot_major(ring.k.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD),
+                                        ring.v.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD))
         stacked = self.stacked()
         embed32 = self.params["embed"].to(torch.float32)
         head_b = self.params.get("head_b")
@@ -252,7 +263,7 @@ class _DecodeEngine(_Engine):
                                    st.last_pos[:, None])[:, 0].to(torch.float32)
             dist = g_cur - g
             blocked = ((dist < 1) | (dist > M)).to(I32)
-            h_out, *kv = step_slab(stacked, h_in, kv, blocked, ptr)
+            h_out, *kv = step_kernel(stacked, h_in, kv, blocked, ptr)
             logits = h_out @ embed32.T
             if head_b is not None:
                 logits = logits + head_b
@@ -291,7 +302,8 @@ class S2SEngine(_DecodeEngine):
     ``decode_kernel``: 'auto' (the int8 ``slab_w8`` step on the card, see
     :func:`_pick_dec_kernel`; it quantizes the self ring, the cross context
     and the weights, as the JAX package's auto rule does on the TPU),
-    'slab', 'slab_w8', or 'xla' (exact, any device)."""
+    'slab', 'slab_w8', 'fused' (exact bf16), or 'xla' (exact, any
+    device)."""
 
     @torch.no_grad()
     def predict_s2s(self, input_idxenc: np.ndarray, target_idxenc: np.ndarray,
@@ -335,19 +347,25 @@ class S2SEngine(_DecodeEngine):
             return mt.decoder_step_ring(p, cfg, idx, last_pos, ring, cross, wkr_all,
                                         enc_pad=ipad_t)
 
-        step_slab = None
-        if self.kernel != "xla":
+        step_kernel = None
+        if self.kernel == "fused":
+            fctx = (cross.k[:, 0], cross.v[:, 0], cross.wkr, ipad_t.to(I32))
+
+            def step_kernel(stacked, h_in, kv, blocked, ptr):
+                return fused_s2s_step_core(stacked[0], cfg, h_in, wkr_all, *kv, *fctx, blocked,
+                                           ptr, cfg.mem_len)
+        elif self.kernel != "xla":
             wkr_mt = self._wkr_mt(wkr_all)
             cctx = (*quantize_cross_slot_major(cross), ipad_t.to(I32))
 
-            def step_slab(stacked, h_in, kv, blocked, ptr):
+            def step_kernel(stacked, h_in, kv, blocked, ptr):
                 stk, w_scales = stacked
                 return fused_s2s_slab_core(stk, cfg, h_in, wkr_mt, *kv, *cctx, blocked, ptr,
                                            cfg.mem_len, weights_int8=w_scales is not None,
                                            w_scales=w_scales)
 
         toks, lengths = self._loop(logits, st, ring, settings, temps, top_p, 0, overlay,
-                                   self._generator(seed), max_pos, step_xla, step_slab)
+                                   self._generator(seed), max_pos, step_xla, step_kernel)
         new = toks[0, :int(lengths[0])].cpu().numpy()
         return np.concatenate([targ, new]).astype(np.int64)
 
@@ -377,16 +395,20 @@ class NWEngine(_DecodeEngine):
         def step_xla(idx, last_pos, ring):
             return mt.lm_step_ring(p, cfg, idx, last_pos, ring, wkr_all)
 
-        step_slab = None
-        if self.kernel != "xla":
+        step_kernel = None
+        if self.kernel == "fused":
+            def step_kernel(stacked, h_in, kv, blocked, ptr):
+                return fused_nw_step_core(stacked[0], cfg, h_in, wkr_all, *kv, blocked, ptr,
+                                          cfg.mem_len)
+        elif self.kernel != "xla":
             wkr_mt = self._wkr_mt(wkr_all)
 
-            def step_slab(stacked, h_in, kv, blocked, ptr):
+            def step_kernel(stacked, h_in, kv, blocked, ptr):
                 stk, w_scales = stacked
                 return fused_nw_slab_core(stk, cfg, h_in, wkr_mt, *kv, blocked, ptr,
                                           cfg.mem_len, weights_int8=w_scales is not None,
                                           w_scales=w_scales)
 
         out, lengths = self._loop(logits, st, ring, settings, temps, top_p, int(min_bars),
-                                  overlay, self._generator(seed), None, step_xla, step_slab)
+                                  overlay, self._generator(seed), None, step_xla, step_kernel)
         return out[0, :int(lengths[0])].cpu().numpy()

@@ -35,7 +35,9 @@ from JAX's ``jax.random``. On the card, a bf16 config at B >= 8 runs every
 attention of the step through the flash train kernels
 (:func:`_flash_train_ok`): the decoder's causal-window attention, the
 encoder's bidirectional attention and the cross attention, with attn_p
-inside the kernels.
+inside the kernels. At inference (:func:`encode`, :func:`decoder_prefill`,
+:func:`lm_prefill`) a bf16 config at B >= 8, W <= 512 runs the window's
+self-attention through the flash prefill kernels (:func:`_flash_ok`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from ..ops import flash_prefill as fp
 from ..ops import flash_train as ft
 from ..ops.rel_attention import (NEG_INF, backwards_pos_enc, causal_window_mask,
                                  rel_attention)
@@ -236,6 +239,45 @@ def _flash_train_ok(cfg: MultitaskConfig, B: int, L: int, Le: Optional[int],
     return True
 
 
+def _flash_ok(cfg: MultitaskConfig, B: int, W: int, flash: Optional[bool], device) -> bool:
+    """The JAX package's rule for the inference self-attention through the
+    flash kernels (``models/multitask.py:232-244``) with "TPU" read as a
+    CUDA device: a bf16 config, B >= 8 and W <= 512, and heads both kernels
+    of ``ops.flash_prefill.flash_encoder_attention`` take (the rule passes
+    other shapes by). ``flash`` overrides it; an explicit True on the card
+    raises where the kernels do not take the heads."""
+    HD = cfg.n_heads * cfg.d_head
+    why = fp.kernel_supports(cfg.n_heads, HD, False) or fp.kernel_supports(cfg.n_heads, HD,
+                                                                            True)
+    if flash is not None:
+        if flash and torch.device(device).type == "cuda" and why:
+            raise ValueError(f"flash=True: the flash prefill kernels have no CUDA version "
+                             f"for {cfg.n_heads} x {cfg.d_head} heads: {why}")
+        return flash
+    return (torch.device(device).type == "cuda" and cfg.act_dtype == torch.bfloat16
+            and B >= 8 and W <= 512 and not why)
+
+
+def _flash_self_attn(ap, cfg: MultitaskConfig, h, pad_cols, u, v, causal: bool, kv=None):
+    """One self-attention layer through ``flash_encoder_attention``:
+    ln(h + attn(h)), the projections and the post-norm outside the kernel
+    and no feed-forward (the encoder's blocks are attention only; the
+    decoder prefill adds its cross-attention and feed-forward after it).
+    ``kv`` passes already-projected (k, v), which the prefill computes for
+    its cache anyway."""
+    B, W, _ = h.shape
+    q = _lin(h, ap["q_w"], ap["q_b"])
+    k, vv = kv if kv is not None else (_lin(h, ap["k_w"], ap["k_b"]),
+                                       _lin(h, ap["v_w"], ap["v_b"]))
+    wkr = _lin(backwards_pos_enc(W, cfg.d_model, dtype=h.dtype, device=h.device),
+               ap["r_w"], ap["r_b"])
+    pad = pad_cols if pad_cols is not None else torch.zeros((B, W), dtype=torch.bool,
+                                                             device=h.device)
+    attn = fp.flash_encoder_attention(q, k, vv, wkr, u, v, pad, cfg.n_heads, scale=cfg.scale,
+                                      causal=causal)
+    return _layer_norm(h + attn, ap["ln_g"], ap["ln_b"])
+
+
 def _wkr_flat(ap, r, K: int):
     """The last K rows of the sinusoid table through r_w: (K, H * Dh)."""
     return _lin(r[-K:], ap["r_w"], ap["r_b"])
@@ -287,7 +329,8 @@ def stack_forward(stack: Dict, cfg: MultitaskConfig, h: torch.Tensor, is_decoder
                   enc_out: Optional[torch.Tensor] = None,
                   self_mask: Optional[torch.Tensor] = None,
                   pad_cols: Optional[torch.Tensor] = None, win_size: int = 1, win_k: int = 1,
-                  remat: bool = False, flash_train: Optional[bool] = None, mesh=None,
+                  flash: Optional[bool] = None, remat: bool = False,
+                  flash_train: Optional[bool] = None, mesh=None,
                   rng: Optional[int] = None, train: bool = False) -> torch.Tensor:
     """One stack over an embedded (B, L, D) input: causal self-attention for
     the decoder (under the ``win_size`` / ``win_k`` window curriculum),
@@ -295,8 +338,11 @@ def stack_forward(stack: Dict, cfg: MultitaskConfig, h: torch.Tensor, is_decoder
     cross-attention and the feed-forward only with ``enc_out`` (the
     reference's quirk: without it a block is attention only).
 
-    ``flash_train`` routes every attention through the flash train kernels
-    (None: :func:`_flash_train_ok`'s rule; never on the CPU). ``remat``
+    ``flash`` routes an encoder stack's bidirectional self-attention
+    through the flash prefill kernel (None: :func:`_flash_ok`'s rule; never
+    on the CPU), with no dropout: an inference path. ``flash_train`` routes
+    every attention through the flash train kernels (None:
+    :func:`_flash_train_ok`'s rule; never on the CPU). ``remat``
     recomputes each block in the backward (``torch.utils.checkpoint``)
     instead of keeping its activations. ``rng``: the stack's int seed of the
     training dropouts, folded per layer."""
@@ -308,6 +354,11 @@ def stack_forward(stack: Dict, cfg: MultitaskConfig, h: torch.Tensor, is_decoder
     Le = enc_out.shape[1] if enc_out is not None else None
     r = backwards_pos_enc(max(L, Le or 0) + cfg.mem_len, D, dtype=dt, device=h.device)
     u, v = _stack_uv(stack, dt)
+    if (not is_decoder and enc_out is None and self_mask is None
+            and _flash_ok(cfg, B, L, flash, h.device)):
+        for bp in stack["layers"]:
+            h = _flash_self_attn(bp["mha1"], cfg, h, pad_cols, u, v, causal=False)
+        return h
     if self_mask is None and _flash_train_ok(cfg, B, L, Le, flash_train, h.device):
         def one_block(bp, h, lrng):
             return _flash_train_block(bp, cfg, h, is_decoder, enc_out, r, u, v, win_size,
@@ -356,11 +407,12 @@ def forward(params: Dict, cfg: MultitaskConfig, inp: Dict[str, Dict[str, torch.T
     'enc_pad', 'dec_pad'), as tensors on the parameters' device. ``rng``:
     the int seed of the training dropouts (None: none); ``flash_train``,
     ``remat``, ``win_size`` / ``win_k`` as :func:`stack_forward` takes
-    them."""
+    them. No stack takes the inference flash route (``flash=False``), as in
+    the JAX package."""
     out = {}
     tr = train and rng is not None
     sub = (lambda i: _fold(rng, i)) if tr else (lambda i: None)
-    kw = dict(remat=remat, flash_train=flash_train, mesh=mesh, train=train)
+    kw = dict(flash=False, remat=remat, flash_train=flash_train, mesh=mesh, train=train)
     if inp.get("msk") is not None:
         d = inp["msk"]
         h = embed_tokens(params, cfg, d["x"], d.get("pos"), pad_idx, rng=sub(0), train=train)
@@ -390,11 +442,12 @@ def forward(params: Dict, cfg: MultitaskConfig, inp: Dict[str, Dict[str, torch.T
 
 
 def encode(params: Dict, cfg: MultitaskConfig, x, pos, pad_cols=None,
-           pad_idx: int = 1) -> torch.Tensor:
+           pad_idx: int = 1, flash: Optional[bool] = None) -> torch.Tensor:
     """The bidirectional encoder over (B, W) tokens; ``pad_cols`` blocks
-    right-padding columns as keys."""
+    right-padding columns as keys. ``flash`` as :func:`stack_forward`."""
     h = embed_tokens(params, cfg, x, pos, pad_idx)
-    return stack_forward(params["encoder"], cfg, h, is_decoder=False, pad_cols=pad_cols)
+    return stack_forward(params["encoder"], cfg, h, is_decoder=False, pad_cols=pad_cols,
+                         flash=flash)
 
 
 class DecKVCache(NamedTuple):
@@ -405,10 +458,12 @@ class DecKVCache(NamedTuple):
 
 
 def _prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out, enc_pad,
-             mem_len, pad_idx):
+             mem_len, pad_idx, flash):
     """The decoder over a LEFT-padded (B, W) prefix, with cross-attention
     and the feed-forward when ``enc_out`` is given; returns last-token logits
-    and the cache of each layer's self-attention K/V."""
+    and the cache of each layer's self-attention K/V. With :func:`_flash_ok`
+    the self-attention runs through the causal flash kernel on the K/V the
+    cache takes."""
     B, W = x.shape
     dt = cfg.act_dtype
     M = cfg.mem_len if mem_len is None else mem_len
@@ -417,14 +472,19 @@ def _prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out, enc_pad,
     Le = enc_out.shape[1] if enc_out is not None else 0
     r = backwards_pos_enc(max(W, Le) + cfg.mem_len, cfg.d_model, dtype=dt, device=x.device)
     u, v = _stack_uv(params["decoder"], dt)
-    mask = _causal_mask(W, device=x.device) | pad_mask[:, None, None, :]
+    use_flash = _flash_ok(cfg, B, W, flash, x.device)
+    mask = None if use_flash else _causal_mask(W, device=x.device) | pad_mask[:, None, None, :]
     cross_mask = enc_pad[:, None, None, :] if enc_pad is not None else None
     ks, vs = [], []
     for bp in params["decoder"]["layers"]:
         ap = bp["mha1"]
-        ks.append(_proj(h, ap["k_w"], ap["k_b"], H, Dh).transpose(1, 2)[:, -M:])
-        vs.append(_proj(h, ap["v_w"], ap["v_b"], H, Dh).transpose(1, 2)[:, -M:])
-        h = _attn_apply(ap, cfg, h, h, r, u, v, mask, r_mask=False)
+        kf, vf = _lin(h, ap["k_w"], ap["k_b"]), _lin(h, ap["v_w"], ap["v_b"])
+        ks.append(kf.reshape(B, W, H, Dh)[:, -M:])
+        vs.append(vf.reshape(B, W, H, Dh)[:, -M:])
+        if use_flash:
+            h = _flash_self_attn(ap, cfg, h, pad_mask, u, v, causal=True, kv=(kf, vf))
+        else:
+            h = _attn_apply(ap, cfg, h, h, r, u, v, mask, r_mask=False)
         if enc_out is not None:
             h = _attn_apply(bp["mha2"], cfg, h, enc_out, r, u, v, cross_mask, r_mask=True)
             h = _ff(bp, cfg, h)
@@ -439,21 +499,23 @@ def _prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out, enc_pad,
 
 
 def decoder_prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out,
-                    enc_pad=None, mem_len: Optional[int] = None,
-                    pad_idx: int = 1) -> Tuple[torch.Tensor, DecKVCache]:
+                    enc_pad=None, mem_len: Optional[int] = None, pad_idx: int = 1,
+                    flash: Optional[bool] = None) -> Tuple[torch.Tensor, DecKVCache]:
     """The seq2seq decoder over a LEFT-padded target prefix (``pad_mask``
     True = pad), attending to ``enc_out`` (B, Le, D) with ``enc_pad``
     columns blocked; returns (last-token logits, the self-attention cache of
-    each layer's input, right-aligned in M slots)."""
-    return _prefill(params, cfg, x, pos, pad_mask, enc_out, enc_pad, mem_len, pad_idx)
+    each layer's input, right-aligned in M slots). ``flash``: the
+    self-attention through the causal flash kernel (None:
+    :func:`_flash_ok`'s rule)."""
+    return _prefill(params, cfg, x, pos, pad_mask, enc_out, enc_pad, mem_len, pad_idx, flash)
 
 
 def lm_prefill(params, cfg: MultitaskConfig, x, pos, pad_mask,
-               mem_len: Optional[int] = None,
-               pad_idx: int = 1) -> Tuple[torch.Tensor, DecKVCache]:
+               mem_len: Optional[int] = None, pad_idx: int = 1,
+               flash: Optional[bool] = None) -> Tuple[torch.Tensor, DecKVCache]:
     """The decoder as an attention-only language model over a LEFT-padded
-    prompt (the next-word task)."""
-    return _prefill(params, cfg, x, pos, pad_mask, None, None, mem_len, pad_idx)
+    prompt (the next-word task); ``flash`` as :func:`decoder_prefill`."""
+    return _prefill(params, cfg, x, pos, pad_mask, None, None, mem_len, pad_idx, flash)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Fused single-token step through the whole multitask decoder (seq2seq and
-next-word), batch 1, over an int8 slot-major self-attention ring.
+next-word), batch 1: over an int8 slot-major self-attention ring (the slab
+steps), or exact in bf16 (the fused steps).
 
 ``fused_s2s_slab_core`` advances one row by one token through all decoder
 layers: self-attention over the ring plus the fresh token (the relative
@@ -20,6 +21,14 @@ in plain PyTorch. Unlike the JAX functions, whose cache operands are
 donated and aliased, the port updates ``kq``/``ksc``/``vq``/``vsc`` in place
 and returns them. Each wrapper's ``launches`` dict counts its kernel
 launches by mode.
+
+``fused_s2s_step_core`` / ``fused_nw_step_core`` replace the TPU kernel built
+by ``_make_s2s_kernel`` (``fused_s2s_step_core`` / ``fused_nw_step_core``):
+the same sweep over a bf16 ring and a bf16 cross context with bf16 weights
+and no quantization, through ``csrc/s2s_fused.cu`` on the card and
+:func:`s2s_fused_plain` on the CPU. They take the port's head-major layouts
+(the TPU kernel takes K transposed) and write the fresh token's K/V into
+slot ``ptr`` in place.
 """
 
 from __future__ import annotations
@@ -230,7 +239,198 @@ def s2s_slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kq, ksc, vq, vsc,
     return h, kq, ksc, vq, vsc
 
 
+def s2s_fused_plain(stacked, cfg, h_in, wkr, kc, vc, ck, cv, cwkr, cblocked, blocked,
+                    ptr: int, M: int, acc: torch.dtype = F32):
+    """Plain PyTorch version of the fused step (``ck is None``: the
+    next-word blocks), with the TPU kernel's arithmetic and bf16 cast points:
+    qu / qv rounded after the bias add, the fresh token's self term from the
+    float32 k1 / v1, the unnormalized exponentials rounded to bf16 before
+    P.V and divided after, float32 post-norms, tanh GELU. Writes bf16(k1),
+    bf16(v1) into slot ``ptr`` of ``kc`` / ``vc`` in place and returns
+    (h_out, kc, vc).
+
+    ``acc`` is the dtype of everything between the bf16 cast points:
+    float32, as in the kernel, or float64 for a reference of how far a
+    float32 summation order drifts."""
+    L, D, Dff = cfg.dec_layers, cfg.d_model, cfg.d_inner
+    H, Dh = cfg.n_heads, cfg.d_head
+    HD = H * Dh
+    scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
+    has_cross = ck is not None
+    h = h_in.to(acc)                                          # (1, D)
+    masked = blocked[0] != 0                                  # (M,)
+    bias = lambda b, l: b[l].to(acc)                          # (1, n)
+    w = lambda panel, l: panel[l].to(acc)
+
+    def queries(q):
+        """bf16(bf16(q) + u) and bf16(bf16(q) + v) per head: (H, Dh)."""
+        qb = q.to(BF16)
+        return ((qb + stacked.u).to(acc).reshape(H, Dh),
+                (qb + stacked.v).to(acc).reshape(H, Dh))
+
+    for l in range(L):
+        qkv = _bf(h, acc) @ w(stacked.qkv_w, l) + bias(stacked.qkv_b, l)
+        q, k1, v1 = qkv[0, :HD], qkv[0, HD:2 * HD], qkv[0, 2 * HD:]
+
+        # self attention over the old ring slots and the fresh token
+        qu, qv = queries(q)
+        sd = torch.einsum("hmd,hd->hm", wkr[l].to(acc), qv)             # (H, M + 1)
+        ac = torch.einsum("hmd,hd->hm", kc[l, 0].to(acc), qu)           # (H, M)
+        score = torch.where(masked, NEG_INF, (ac + torch.roll(sd[:, :M], ptr, dims=-1)) * scale)
+        self_score = ((qu * k1.reshape(H, Dh)).sum(-1) + sd[:, M]) * scale
+        mx = torch.maximum(score.amax(-1), self_score)
+        e = torch.exp(score - mx[:, None])
+        e_self = torch.exp(self_score - mx)
+        denom = e.sum(-1) + e_self
+        pv = torch.einsum("hm,hmd->hd", _bf(e, acc), vc[l, 0].to(acc))
+        attn = (pv + e_self[:, None] * v1.reshape(H, Dh)) / denom[:, None]
+        kc[l, 0, :, ptr] = k1.reshape(H, Dh).to(kc.dtype)
+        vc[l, 0, :, ptr] = v1.reshape(H, Dh).to(vc.dtype)
+
+        h1 = _ln(h + attn.reshape(1, HD), stacked.ln1_g[l], stacked.ln1_b[l])
+        if not has_cross:            # next-word blocks: attention only
+            h = h1
+            continue
+
+        # cross attention over the encode-time context
+        q2 = _bf(h1, acc) @ w(stacked.q2_w, l) + bias(stacked.q2_b, l)
+        qu2, qv2 = queries(q2[0])
+        score2 = (torch.einsum("hmd,hd->hm", ck[l].to(acc), qu2)
+                  + torch.einsum("hmd,hd->hm", cwkr[l].to(acc), qv2)) * scale
+        score2 = torch.where(cblocked[0] != 0, NEG_INF, score2)
+        e2 = torch.exp(score2 - score2.amax(-1, keepdim=True))
+        attn2 = torch.einsum("hm,hmd->hd", _bf(e2, acc), cv[l].to(acc)) / e2.sum(-1)[:, None]
+        h2 = _ln(h1 + attn2.reshape(1, HD), stacked.ln2_g[l], stacked.ln2_b[l])
+
+        ffx = _act_tanh(_bf(h2, acc) @ w(stacked.ff1_w, l) + bias(stacked.ff1_b, l), cfg.act)
+        ffy = _bf(ffx, acc) @ w(stacked.ff2_w, l) + bias(stacked.ff2_b, l)
+        h = _ln(h2 + ffy, stacked.ff3_g[l], stacked.ff3_b[l])
+    return h, kc, vc
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_lib() -> ctypes.CDLL:
+    lib = _build.load("s2s_fused")
+    lib.s2s_fused_step.restype = ctypes.c_int
+    lib.s2s_fused_step.argtypes = [_P] * 27 + [_I] * 9 + [ctypes.c_float, _I, _P]
+    lib.s2s_fused_scratch_floats.restype = ctypes.c_size_t
+    lib.s2s_fused_scratch_floats.argtypes = [_I] * 3
+    lib.s2s_fused_kernels_per_step.restype = ctypes.c_int
+    lib.s2s_fused_kernels_per_step.argtypes = [_I] * 2
+    lib.s2s_fused_error_string.restype = ctypes.c_char_p
+    lib.s2s_fused_error_string.argtypes = [_I]
+    return lib
+
+
+def fused_kernels_per_step(n_layers: int, has_cross: bool) -> int:
+    """CUDA kernel launches inside one ``fused_s2s_step_core`` (``has_cross``)
+    or ``fused_nw_step_core`` launch."""
+    return _fused_lib().s2s_fused_kernels_per_step(n_layers, int(has_cross))
+
+
+def _fused_core(wrapper, stacked, cfg, h_in, wkr, kc, vc, cross, blocked, ptr, M):
+    """Check the operands of either fused step, then the plain version for
+    CPU tensors or ``csrc/s2s_fused.cu``'s step; ``cross`` is (ck, cv, cwkr,
+    cblocked) or None."""
+    ptr = int(ptr)
+    if not 0 <= ptr < M:
+        raise ValueError(f"ptr={ptr} outside [0, {M})")
+    if cfg.act not in _ACT_CODES:
+        raise ValueError(f"unsupported activation {cfg.act!r}")
+    L, D, Dff, H, Dh = cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
+    HD = H * Dh
+    dev = h_in.device
+    checks = [("qkv_w", stacked.qkv_w, BF16, (L, D, 3 * HD)),
+              ("qkv_b", stacked.qkv_b, BF16, (L, 1, 3 * HD)),
+              ("ln1_g", stacked.ln1_g, F32, (L, 1, D)), ("ln1_b", stacked.ln1_b, F32, (L, 1, D)),
+              ("u", stacked.u, BF16, (1, HD)), ("v", stacked.v, BF16, (1, HD)),
+              ("h_in", h_in, F32, (1, D)), ("wkr", wkr, BF16, (L, H, M + 1, Dh)),
+              ("kc", kc, BF16, (L, 1, H, M, Dh)), ("vc", vc, BF16, (L, 1, H, M, Dh)),
+              ("blocked", blocked, torch.int32, (1, M))]
+    Le = 0
+    if cross is not None:
+        ck, cv, cwkr, cblocked = cross
+        Le = ck.shape[2] if isinstance(ck, torch.Tensor) and ck.dim() == 4 else 0
+        checks += [("q2_w", stacked.q2_w, BF16, (L, D, HD)),
+                   ("q2_b", stacked.q2_b, BF16, (L, 1, HD)),
+                   ("ln2_g", stacked.ln2_g, F32, (L, 1, D)),
+                   ("ln2_b", stacked.ln2_b, F32, (L, 1, D)),
+                   ("ff1_w", stacked.ff1_w, BF16, (L, D, Dff)),
+                   ("ff1_b", stacked.ff1_b, BF16, (L, 1, Dff)),
+                   ("ff2_w", stacked.ff2_w, BF16, (L, Dff, D)),
+                   ("ff2_b", stacked.ff2_b, BF16, (L, 1, D)),
+                   ("ff3_g", stacked.ff3_g, F32, (L, 1, D)),
+                   ("ff3_b", stacked.ff3_b, F32, (L, 1, D)),
+                   ("ck", ck, BF16, (L, H, Le, Dh)), ("cv", cv, BF16, (L, H, Le, Dh)),
+                   ("cwkr", cwkr, BF16, (L, H, Le, Dh)),
+                   ("cblocked", cblocked, torch.int32, (1, Le))]
+    for name, t, dtype, shape in checks:
+        _check(name, t, dtype, shape, dev)
+    if dev.type == "cpu":
+        return s2s_fused_plain(stacked, cfg, h_in, wkr, kc, vc, *(cross or (None,) * 4),
+                               blocked, ptr, M)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not kernel_accepts(cfg):
+        raise ValueError(f"the fused s2s kernel needs d_head in {KERNEL_HEAD_DIMS}, "
+                         "d_model == n_heads * d_head and widths that are multiples of 4")
+    lib = _fused_lib()
+    h_out = torch.empty((1, D), dtype=F32, device=dev)
+    scratch = torch.empty(lib.s2s_fused_scratch_floats(D, Dff, HD), dtype=F32, device=dev)
+    ck, cv, cwkr, cblocked = cross or (None,) * 4
+    ptrs = [stacked.qkv_w, stacked.q2_w, stacked.ff1_w, stacked.ff2_w,
+            stacked.qkv_b, stacked.q2_b, stacked.ff1_b, stacked.ff2_b,
+            stacked.ln1_g, stacked.ln1_b, stacked.ln2_g, stacked.ln2_b,
+            stacked.ff3_g, stacked.ff3_b, wkr, stacked.u, stacked.v, kc, vc,
+            ck, cv, cwkr, cblocked, h_in, blocked, h_out, scratch]
+    scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.s2s_fused_step(*[None if t is None else t.data_ptr() for t in ptrs],
+                                 int(cross is not None), L, D, Dff, H, Dh, M, Le, ptr, scale,
+                                 _ACT_CODES[cfg.act], stream)
+    if err != 0:
+        raise RuntimeError(f"fused s2s kernel failed: CUDA error {err} "
+                           f"({lib.s2s_fused_error_string(err).decode()})")
+    wrapper.launches["fused"] += 1
+    return h_out, kc, vc
+
+
+def fused_s2s_step_core(
+    stacked: StackedMTDec,       # bf16 panels
+    cfg,
+    h_in: torch.Tensor,          # (1, D) fp32 embedded token
+    wkr: torch.Tensor,           # (L, H, M+1, Dh) bf16 self relative keys
+    kc: torch.Tensor,            # (L, 1, H, M, Dh) bf16 self K ring
+    vc: torch.Tensor,            # (L, 1, H, M, Dh) bf16 self V ring
+    ck: torch.Tensor,            # (L, H, Le, Dh) bf16 cross K
+    cv: torch.Tensor,            # (L, H, Le, Dh) bf16 cross V
+    cwkr: torch.Tensor,          # (L, H, Le, Dh) bf16 cross relative keys
+    cblocked: torch.Tensor,      # (1, Le) int32 encoder padding
+    blocked: torch.Tensor,       # (1, M) int32 ring-slot mask
+    ptr: int,                    # ring slot to overwrite, 0 <= ptr < M
+    mem_len: int,
+):
+    """Exact bf16 seq2seq decode step. Returns (h_out (1, D) f32, kc, vc),
+    the ring updated in place in slot ``ptr``. The TPU kernel's
+    ``layers_per_cell`` grid tiling has no counterpart here."""
+    return _fused_core(fused_s2s_step_core, stacked, cfg, h_in, wkr, kc, vc,
+                       (ck, cv, cwkr, cblocked), blocked, ptr, mem_len)
+
+
+def fused_nw_step_core(stacked, cfg, h_in, wkr, kc, vc, blocked, ptr, mem_len: int):
+    """Exact bf16 next-word decode step: attention-only blocks, otherwise as
+    :func:`fused_s2s_step_core`."""
+    return _fused_core(fused_nw_step_core, stacked, cfg, h_in, wkr, kc, vc, None, blocked,
+                       ptr, mem_len)
+
+
+# kernel launches (CUDA tensors only)
+fused_s2s_step_core.launches = {"fused": 0}
+fused_nw_step_core.launches = {"fused": 0}
 
 
 @functools.lru_cache(maxsize=None)

@@ -319,11 +319,12 @@ def test_s2s_kernel_against_float64():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["slab_w8", "slab"])
+@pytest.mark.parametrize("kernel", ["slab_w8", "slab", "fused"])
 def test_multitask_tasks_go_through_the_kernel(kernel):
     """Harmonize and next-word on the demo multitask checkpoint launch the
-    s2s / nw kernel once a token step (auto picks slab_w8); remix launches
-    none; every output re-parses with no grammar violation."""
+    s2s / nw kernel once a token step (auto picks slab_w8; slab and the
+    exact bf16 fused step on request); remix launches none; every output
+    re-parses with no grammar violation."""
     _card()
     import chip_smoke as cs
     from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
@@ -529,3 +530,67 @@ def test_mt_flash_route_matches_the_score_path():
         assert abs(fl - sc) <= cs.MT_ROUTE_LOSS_ATOL, (name, fl, sc)
         assert rel <= cs.MT_ROUTE_GRAD_REL, (name, rel)
     assert [w.launches["bwd"] - b for w, b in zip(wrappers, before)] == [2 + 4, 4, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("case", range(6))           # chip_smoke.MT_PREFILL_CASES
+def test_flash_encoder_kernel_matches_plain(case, Dh):
+    """chip_smoke.py's multitask prefill kernel cases at B <= 4, 2 heads:
+    flash_encoder_attention (bidirectional, every row; causal, the real rows)
+    against its float32 plain version by the exact-float32 check."""
+    dev = _card()
+    import chip_smoke as cs
+    assert len(cs.MT_PREFILL_CASES) == 6
+    name, causal, B, W, pads = cs.MT_PREFILL_CASES[case]
+    args = cs.flash_inputs(min(B, 4), W, pads, 2, Dh, dev, 11 + case, right=not causal)
+    err, ratio, finite = cs.encoder_check(args, 2, causal)
+    print(name, err, ratio)
+    assert ratio <= 1.0 and finite
+
+
+@pytest.mark.cuda
+def test_mt_prefill_goes_through_the_kernels():
+    """encode, decoder_prefill and lm_prefill on the demo multitask
+    checkpoint at B = 8, W = 128 take the flash kernels under the auto rule,
+    one launch a layer, and agree with their flash=False branch by
+    chip_smoke.py's bounds; at B = 1 they launch nothing."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    learner = MultitaskLearner.load(str(cs.MT_DEMO))
+    counts = cs.mt_prefill_phase(learner, "demo", dev, 3, B=8, W=128)   # raises on a fault
+    cfg = learner.cfg
+    assert counts == cs.only(flash_encoder_bidir=cfg.enc_layers,
+                             flash_encoder_causal=2 * cfg.dec_layers)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_against_float64():
+    """chip_smoke.py's fused kernel phase on the demo multitask checkpoint
+    with biases of std 0.1: fused_s2s_step_core and fused_nw_step_core
+    against s2s_fused_plain(acc=float64) by the fused check (raises on a
+    disagreement), one launch of the task's wrapper per case."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    learner = MultitaskLearner.load(str(cs.MT_DEMO))
+    cs.reset_launches()
+    worst = cs.mt_fused_kernel_phase(learner, "demo", np.random.default_rng(6), dev, (64, 128),
+                                     0.1)
+    cases = len(cs.FUSED_PTRS(learner.cfg.mem_len)) * len(cs.RINGS)
+    assert cs.launches() == cs.only(s2s_fused=2 * cases, nw_fused=cases)
+    print(worst)
+
+
+@pytest.mark.cuda
+def test_fused_greedy_follows_the_exact_ring_step():
+    """32 greedy steps of harmonize and next-word on the demo with the fused
+    kernel equal those of the exact ring step, or diverge first at a
+    near-tie (chip_smoke.py's greedy check)."""
+    _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    counts = cs.fused_greedy_phase(MultitaskLearner.load(str(cs.MT_DEMO)), 4, n_words=32)
+    assert counts == cs.only(s2s_fused=32, nw_fused=32)

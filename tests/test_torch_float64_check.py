@@ -26,6 +26,12 @@ rounding flip), with the smoke's flagship biases of std 0.1. The bound on
 |dh_out| there is 5.2e-2 and the fault moves h_out by 0.25; a bound of a
 ratio of thousands times the plain version's drift, as an earlier form of
 the check had, came to 35 there and let the fault pass.
+
+The exact bf16 step (``s2s_fused_plain``, the plain version of the fused
+kernel) is held by the smoke's fused check (``within_fused_bounds``: |dh_out|
+and the written bf16 K/V slot); the same two faults, the self term dropped on
+the short ring and the last layer's second feed-forward bias dropped on the
+partly full ring with biases of std 0.1, must fail it.
 """
 
 import inspect
@@ -125,3 +131,42 @@ def test_check_fails_a_faulty_plain_version(step, fault):
     bad = run(_mutant(plain, old, new), torch.float32)
     bad_diff = cs.step_diff(bad, ref, kv, ptr)
     assert not cs.within_bounds("slab_w8", bad_diff, plain_diff), (bad_diff, plain_diff)
+
+
+FUSED_FAULTS = {
+    "self_dropped": ("e_self = torch.exp(self_score - mx)", "e_self = torch.zeros_like(mx)",
+                     SHORT),
+    "last_ff2_bias_dropped": (
+        "@ w(stacked.ff2_w, l) + bias(stacked.ff2_b, l)",
+        "@ w(stacked.ff2_w, l) + (bias(stacked.ff2_b, l) if l < L - 1 else 0.0)", DRIFTS),
+}
+
+
+def _fused_case(rng, ring, ptr, bias_std):
+    """The case on the demo multitask checkpoint's fused seq2seq step (a
+    bf16 ring and a cross context of 128 slots as chip_smoke.py draws them)."""
+    learner = MultitaskLearner.load(str(cs.MT_DEMO), device="cpu")
+    cfg = learner.cfg
+    stacked, _ = cs.mt_weights(learner, "fused", rng, CPU, bias_std)
+    kv = cs.fused_ring(cfg, ring, rng, CPU)
+    blocked = torch.from_numpy(cs.ring_blocked(1, cfg.mem_len, ptr, ring))
+    cross = cs.fused_cross(cfg, 128, rng, CPU)
+    h_in = learner.engine("s2s").params["embed"].float()[torch.from_numpy(
+        rng.integers(12, 140, 1))]
+    wkr = cs.fused_wkr(learner)
+    return (lambda fn, acc: fn(stacked, cfg, h_in, wkr, *[t.clone() for t in kv], *cross,
+                               blocked, ptr, cfg.mem_len, acc=acc)), kv
+
+
+@pytest.mark.parametrize("fault", list(FUSED_FAULTS))
+def test_fused_check_fails_a_faulty_plain_version(fault):
+    old, new, case = FUSED_FAULTS[fault]
+    run, kv = _fused_case(np.random.default_rng(0), **case)
+    ptr = case["ptr"]
+    ref = run(fs.s2s_fused_plain, torch.float64)
+    plain_diff = cs.fused_diff(run(fs.s2s_fused_plain, torch.float32), ref, kv, ptr)
+    # the true plain version passes, in the kernel's place
+    assert cs.within_fused_bounds(plain_diff, plain_diff)
+    bad = run(_mutant(fs.s2s_fused_plain, old, new), torch.float32)
+    bad_diff = cs.fused_diff(bad, ref, kv, ptr)
+    assert not cs.within_fused_bounds(bad_diff, plain_diff), (bad_diff, plain_diff)

@@ -220,8 +220,9 @@ def test_kernel_rule(vocab):
         assert tme._pick_dec_kernel(cfg, k, cpu) == k
     with pytest.raises(ValueError, match="slab"):
         tme._pick_dec_kernel(cfg.replace(mem_len=100), "slab_w8", cpu)
-    with pytest.raises(NotImplementedError, match="row 7"):
-        tme._pick_dec_kernel(cfg, "fused", cpu)
+    assert tme._pick_dec_kernel(cfg, "fused", cpu) == "fused"
+    with pytest.raises(ValueError, match="fused"):
+        tme._pick_dec_kernel(cfg.replace(dtype="float32"), "fused", cpu)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tme.NWEngine({}, cfg, vocab)
