@@ -18,7 +18,15 @@ non-zero without printing a result):
    ``fused_slab_core`` in its modes slab_w8 (B in {1, 4}) and slab (bf16
    weights, B in {1, 16}), ``fused_slab_allrows_core`` in its modes
    slab_ar_w8 and slab_ar (B in {8, 64}, then 16), so every B a main path
-   gives a kernel is among them, at the genre flagship's widths. Then
+   gives a kernel is among them, at the genre flagship's widths. Then the
+   explicit modes, drawn from an rng of their own (MODE_CASE_BATCHES): the
+   slab step's slab_int8 (B in {1, 64}, and B = 64 at 32 rows a cell),
+   slab4 (ptr also M/2 - 1 and M/2, the two nibble sides of one packed row;
+   B in {1, 64}, and 64 at 16 and 32 rows a cell) and slab4_w8, and
+   ``fused_multirow_core`` / ``fused_multirow_q_core`` (multirow,
+   multirow_int8; B in {1, 64}) on head-major panels, by the same float64
+   check (written slots in int8 or int4 steps, or for bf16 panels in units
+   of 2^-7 of the row's largest entry). Then
    ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
    W = 512, the batched paths' shapes; B = 2, W = 4096; B = 1, W = 128;
    B = 8, W = 96, a tail tile) against the float32 plain version. Then the
@@ -35,8 +43,9 @@ non-zero without printing a result):
 5. timing — CUDA-event medians of each kernel and of its plain version at
    the main paths' shapes, beside the bound from the bytes it must move and
    the operations it must do; slab_w8 and slab_ar_w8 at B in
-   {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}; the four s2s / nw
-   variants at B = 1, M = 512, Le = 512.
+   {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}, the five explicit
+   modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell); the four
+   s2s / nw variants at B = 1, M = 512, Le = 512.
 6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel on a seeded
    prompt MIDI built with the port's codec; the slab_w8 launch count must
    equal the number of token steps; the output MIDI is re-parsed and checked.
@@ -54,6 +63,14 @@ non-zero without printing a result):
    service's worker thread starts. Every output must pass the codec's data
    gate (piano range, duration cap), except that of a request sampled from
    the whole distribution (top_k 0 and top_p 0), which is counted.
+8b. modes — the genre engine's explicit modes on the 64 prompts:
+   ``generate_batch(decode_kernel=k, rows_per_cell=r, kv_int8=q)`` at W =
+   512 for slab_int8, slab4 at r 8, 16 and 32, slab4_w8, multirow,
+   multirow_int8 and xla with kv_int8 (PATH_RUNS): one launch of the kernel
+   a step and the flash prefill once a layer; then ``generate`` at B = 1
+   with each of the five modes, one launch a step. Every output re-parses
+   and passes the codec's checks; each run's rate in steps/s and emitted
+   tok/s.
 9. mt tasks — on the flagship's shapes and on the demo checkpoint, with the
    auto kernel (which must be slab_w8): ``s2s_predict_from_midi`` (200
    words) on a two-track Piano + Bass prompt, ``nw_predict_from_midi`` (256
@@ -192,11 +209,9 @@ from deepmusicgeneration_tpu_torch.vocab import SAMPLE_FREQ, MusicVocab
 
 CKPT = Path(__file__).resolve().parent / "checkpoints" / "synth_genre_model"
 MT_DEMO = Path(__file__).resolve().parent / "checkpoints" / "demo_multitask_model"
-# every csrc/*.cu the slices run
-KERNEL_SOURCES = ("slab_decode", "flash_prefill", "s2s_slab", "flash_train", "flash_mt",
-                  "flash_encoder", "s2s_fused")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS = 989e12                 # dense bf16 peak, same source
+INT8_OPS = 1979e12                  # dense int8 peak, same source
 
 # The float64 check of a slab step: the kernel's result and its float32
 # plain version's (``slab_plain(acc=float32)``) are each compared with a
@@ -226,8 +241,25 @@ BF16_FLOPS = 989e12                 # dense bf16 peak, same source
 # (PERF.md), no distance needed more than 1 x the float32 plain version's on
 # top of its fixed bound.
 H_ATOL = 5e-2
-SLOT_MAX_STEP = {"slab_w8": 1, "slab_ar_w8": 2, "slab": 2, "slab_ar": 2}
+# the explicit modes take the bf16-weight modes' 2; a step of an
+# int4 slot is a nibble (1/7 of the row's largest), of a bf16 slot 2^-7 of
+# the row's largest (one ulp of it at most)
+SLOT_MAX_STEP = {"slab_w8": 1, "slab_ar_w8": 2, "slab": 2, "slab_ar": 2, "slab_int8": 2,
+                 "slab4": 2, "slab4_w8": 2, "multirow": 2, "multirow_int8": 2}
 TWO_STEP_SHARE_CAP = 1.1e-4
+# slab_int8 rounds each row's probabilities (times the V scales) to 7 bits.
+# The kernel's and the plain version's float32 scores differ in their last
+# bits, so where a large probability lies within that noise of a half-point
+# the two round it to neighbouring steps: one such flip moves h_out by
+# ~1e-3 in its layer (measured on the card: the kernel against its float32
+# plain version over the first layer alone) and the next layers carry it on
+# (5.6e-2 after eight). Such flips are independent draws in the kernel and
+# in the float32 plain version, so one may take several where the other
+# takes none, and at B = 1 one row's slots are every written entry: the
+# two-step share reached 1.2e-2 there over 96 card draws (PERF.md). Its
+# cap is 5e-2; the faults of tests/test_torch_slab_modes.py move
+# about half the written entries two steps or more.
+TWO_STEP_SHARE_CAP_BY_MODE = {"slab_int8": 5e-2}
 SCALE_RTOL = 1e-2
 PLAIN_K = 2.0
 # Flash prefill against its plain version (the materialized rel_attention)
@@ -330,8 +362,8 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        paths = list(pool.map(_build.build, KERNEL_SOURCES))
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        paths = list(pool.map(_build.build, _build.SOURCES))
     secs = time.perf_counter() - t0
     for p in paths:
         log = p.with_suffix(".log").read_text() if p.with_suffix(".log").exists() else ""
@@ -374,22 +406,36 @@ def ring_blocked(B, M, ptr, kind):
     return blocked
 
 
-def ring_kv(L, B, M, HD, kind, rng, dev):
-    """Random int8 slot-major K/V caches drawn on the card: entries of std
-    0.5, each slot row scaled by exp(N(0, 0.7^2)) on a short ring."""
+INT4_MODES = ("slab4", "slab4_w8")
+MULTIROW_MODES = ("multirow", "multirow_int8")
+
+
+def ring_kv(L, B, M, HD, kind, rng, dev, mode="slab_w8"):
+    """Random K/V caches of ``mode``'s layout drawn on the card from slot
+    rows of std 0.5, each slot row scaled by exp(N(0, 0.7^2)) on a short
+    ring: int8 slot-major (L, B, M, HD) with (L, B, M, 1) scales; int4
+    nibble pairs (L, B, M/2, HD) for the slab4 modes; head-major K panels
+    (L, B, HD, M) with slot-major V for the multirow modes, bf16, or int8
+    with (L, B, 1, M) scales."""
     def rows():
         x = normal((L, B, M, HD), 0.5, rng, dev)
         if kind == "short":
             x.mul_(torch.exp(normal((L, B, M, 1), 0.7, rng, dev)))
         return x.to(torch.bfloat16)
-    return list(fd.quantize_kv_slot_major(rows(), rows()))
+    k, v = rows(), rows()
+    if mode in INT4_MODES:
+        return list(fd.quantize_kv_slot_major_int4(k, v))
+    if mode in MULTIROW_MODES:
+        kt = k.transpose(2, 3).contiguous()
+        return list(fd.quantize_kv_panels(kt, v)) if mode == "multirow_int8" else [kt, v]
+    return list(fd.quantize_kv_slot_major(k, v))
 
 
-def ring_inputs(cfg, B, M, ptr, kind, rng, dev):
-    """A ring of ``kind`` whose pointer is ``ptr``: its caches and blocked
-    mask."""
+def ring_inputs(cfg, B, M, ptr, kind, rng, dev, mode="slab_w8"):
+    """A ring of ``kind`` whose pointer is ``ptr``: its caches (of
+    ``mode``'s layout) and blocked mask."""
     L, HD = cfg.n_layers, cfg.n_heads * cfg.d_head
-    return (ring_kv(L, B, M, HD, kind, rng, dev),
+    return (ring_kv(L, B, M, HD, kind, rng, dev, mode),
             torch.from_numpy(ring_blocked(B, M, ptr, kind)).to(dev))
 
 
@@ -399,40 +445,88 @@ def wkr_table(engine):
         .reshape(cfg.n_layers, M + 1, -1).to(torch.bfloat16).contiguous()
 
 
-def kernel_cases(engine, rng, dev, batches):
+def kernel_ptrs(mode, M):
+    """The ring pointers of the kernel phase: {0, 31, 32, M - 1}, and for
+    the int4 modes the last high-nibble and the first low-nibble slot."""
+    return (0, 31, 32, M // 2 - 1, M // 2, M - 1) if mode in INT4_MODES else (0, 31, 32, M - 1)
+
+
+def kernel_cases(engine, rng, dev, batches, mode="slab_w8"):
     """The kernel phase's cases at each B of ``batches``: ptr in
-    {0, 31, 32, M - 1} on each kind of RINGS. Yields
-    (B, ptr, kind, [kt, ks, vc, vs], blocked, h_in)."""
+    kernel_ptrs on each kind of RINGS. Yields
+    (B, ptr, kind, caches of ``mode``'s layout, blocked, h_in)."""
     cfg, M = engine.cfg, engine.cfg.mem_len
     embed32 = engine.params["embed"].float()
     for B in batches:
-        for ptr in (0, 31, 32, M - 1):
+        for ptr in kernel_ptrs(mode, M):
             for kind in RINGS:
-                kv, blocked = ring_inputs(cfg, B, M, ptr, kind, rng, dev)
+                kv, blocked = ring_inputs(cfg, B, M, ptr, kind, rng, dev, mode)
                 h_in = embed32[torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
                 yield B, ptr, kind, kv, blocked, h_in
 
 
-def step_diff(got, ref, kv, ptr):
-    """One slab step's result ``got`` against ``ref`` (both (h_out, kt, ks,
-    vc, vs), from the caches ``kv``): max |dh_out|, the largest step between
-    written int8 entries, the share of those entries that differ and the
-    share that differ by two steps or more, the largest relative difference
-    of the written scales, and whether every other slot of ``got`` is
-    byte-identical to ``kv``."""
-    M = kv[0].shape[2]
+def written_slots(mode, caches, ptr):
+    """The slot ``ptr`` of a step's K and V caches: [(values (L, B, HD) as
+    int32 entries or, bf16 panels, float32, scales (L, B) or None)] for K,
+    then V; int4 entries are the slot's nibbles."""
+    if mode in MULTIROW_MODES:
+        kt, *rest = caches
+        ks, vc, vs = rest if mode == "multirow_int8" else (None, rest[0], None)
+        val = (lambda t: t.int()) if mode == "multirow_int8" else (lambda t: t.float())
+        pick = lambda s: None if s is None else s[:, :, 0, ptr]
+        return [(val(kt[:, :, :, ptr]), pick(ks)), (val(vc[:, :, ptr]), pick(vs))]
+    kt, ks, vc, vs = caches
+    if mode in INT4_MODES:
+        M2 = kt.shape[2]
+        pm, side = ptr % M2, ptr // M2
+        nib = lambda t: ((t[:, :, pm].int() & 255) >> (4 if side == 0 else 0) & 15) - 8
+        return [(nib(kt), ks[:, :, ptr, 0]), (nib(vc), vs[:, :, ptr, 0])]
+    return [(kt[:, :, ptr].int(), ks[:, :, ptr, 0]), (vc[:, :, ptr].int(), vs[:, :, ptr, 0])]
+
+
+def others_untouched(mode, got, kv, ptr):
+    """Whether every cache entry of ``got`` outside slot ``ptr`` keeps the
+    bytes of ``kv`` (int4: the other packed rows, and the partner slot's
+    nibble in the shared row)."""
+    M = kv[0].shape[3] if mode in MULTIROW_MODES else kv[1].shape[2]
     other = torch.arange(M, device=kv[0].device) != ptr
-    untouched = all(torch.equal(g[:, :, other], t[:, :, other])
-                    for g, t in zip(got[1:], kv))
+    axes = {"multirow": (3, 2), "multirow_int8": (3, 3, 2, 3)}.get(mode, (2, 2, 2, 2))
+    if mode not in INT4_MODES:
+        return all(torch.equal(g.index_select(a, other.nonzero()[:, 0]),
+                               t.index_select(a, other.nonzero()[:, 0]))
+                   for g, t, a in zip(got, kv, axes))
+    M2 = M // 2
+    pm, keep = ptr % M2, (15 if ptr < M2 else 240)
+    rows = torch.arange(M2, device=kv[0].device) != pm
+    same = all(torch.equal(g[:, :, rows], t[:, :, rows]) and
+               torch.equal(g[:, :, pm].int() & keep, t[:, :, pm].int() & keep)
+               for g, t in ((got[0], kv[0]), (got[2], kv[2])))
+    return same and all(torch.equal(g[:, :, other], t[:, :, other])
+                        for g, t in ((got[1], kv[1]), (got[3], kv[3])))
+
+
+def step_diff(got, ref, kv, ptr, mode="slab_w8"):
+    """One decode step's result ``got`` against ``ref`` (both (h_out,
+    caches...) of ``mode``'s layout, from the caches ``kv``): max |dh_out|,
+    the largest step between written entries (int8 or int4 steps; for bf16
+    panels |d| in units of 2^-7 of the row's largest entry, one ulp of it at
+    most), the share of those entries that differ and the share that differ
+    by more than one step, the largest relative difference of the written
+    scales, and whether every other slot of ``got`` is byte-identical to
+    ``kv``."""
+    untouched = others_untouched(mode, got[1:], kv, ptr)
     dh = (got[0].double() - ref[0].double()).abs().max().item()
     step, share, share2, scale_rel = 0, 0.0, 0.0, 0.0
-    for i in (1, 3):   # int8 K and V slots, then their scales
-        d = (got[i][:, :, ptr].int() - ref[i][:, :, ptr].int()).abs()
+    for (g, s_got), (r, s_ref) in zip(written_slots(mode, got[1:], ptr),
+                                      written_slots(mode, ref[1:], ptr)):
+        d = (g - r).abs()
+        if d.dtype == torch.float32:                     # bf16 panels
+            d = d / (2.0 ** -7 * r.abs().amax(-1, keepdim=True).clamp_min(1e-30))
         step = max(step, d.max().item())
         share = max(share, (d > 0).float().mean().item())
         share2 = max(share2, (d > 1).float().mean().item())
-        s_got, s_ref = got[i + 1][:, :, ptr], ref[i + 1][:, :, ptr]
-        scale_rel = max(scale_rel, ((s_got - s_ref).abs() / s_ref).max().item())
+        if s_ref is not None:
+            scale_rel = max(scale_rel, ((s_got - s_ref).abs() / s_ref).max().item())
     return dh, step, share, share2, scale_rel, untouched
 
 
@@ -446,22 +540,48 @@ def weights(engine, mode):
 KERNEL_CASE_BATCHES = (("slab_w8", (1, 4)), ("slab_ar_w8", (8, 64)), ("slab", (1, 16)),
                        ("slab_ar", (8, 64)), ("slab_ar_w8", (16,)), ("slab_ar", (16,)))
 CORES = {"slab_w8": fd.fused_slab_core, "slab": fd.fused_slab_core,
-         "slab_ar_w8": fd.fused_slab_allrows_core, "slab_ar": fd.fused_slab_allrows_core}
+         "slab_ar_w8": fd.fused_slab_allrows_core, "slab_ar": fd.fused_slab_allrows_core,
+         "slab_int8": fd.fused_slab_core, "slab4": fd.fused_slab_core,
+         "slab4_w8": fd.fused_slab_core, "multirow": fd.fused_multirow_core,
+         "multirow_int8": fd.fused_multirow_q_core}
+# fused_slab_core's arguments that select a mode beyond its weight panels
+SLAB_ARGS = {"slab_int8": dict(score_mode="int8"), "slab4": dict(kv_int4=True),
+             "slab4_w8": dict(kv_int4=True)}
 
 
-def run_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr):
-    """One launch of ``mode``'s kernel on copies of the caches ``kv``."""
+def mode_wkr(mode, wkr_mt):
+    """The relative table in ``mode``'s layout: (L, M+1, HD), or the
+    multirow modes' (L, HD, M+1) panels."""
+    return wkr_mt.transpose(1, 2).contiguous() if mode in MULTIROW_MODES else wkr_mt
+
+
+def run_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr, rows=None):
+    """One launch of ``mode``'s kernel on copies of the caches ``kv``, at
+    ``rows`` rows a cell (default min(B, 8))."""
     stacked, w_scales = weights(engine, mode)
-    return CORES[mode](stacked, engine.cfg, h_in, wkr_mt, *[t.clone() for t in kv],
-                       blocked, ptr, engine.cfg.mem_len, rows_per_cell=min(len(h_in), 8),
-                       weights_int8=w_scales is not None, w_scales=w_scales)
+    R, cfg, M = rows or min(len(h_in), 8), engine.cfg, engine.cfg.mem_len
+    caches = [t.clone() for t in kv]
+    if mode in MULTIROW_MODES:
+        return CORES[mode](stacked, cfg, h_in, mode_wkr(mode, wkr_mt), *caches, blocked, ptr,
+                           M, rows_per_cell=R)
+    return CORES[mode](stacked, cfg, h_in, wkr_mt, *caches, blocked, ptr, M,
+                       rows_per_cell=R, weights_int8=w_scales is not None,
+                       w_scales=w_scales, **SLAB_ARGS.get(mode, {}))
 
 
-def plain_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr, acc=torch.float64):
-    """``mode``'s plain version on copies of the caches ``kv``."""
+def plain_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr, acc=torch.float64, rows=None,
+               copy=True):
+    """``mode``'s plain version on copies of the caches ``kv`` (``copy``
+    False: on ``kv`` itself, as the timing runs it)."""
     stacked, w_scales = weights(engine, mode)
-    return fd.slab_plain(stacked, w_scales, engine.cfg, h_in, wkr_mt,
-                         *[t.clone() for t in kv], blocked, ptr, acc=acc)
+    cfg, caches = engine.cfg, [t.clone() for t in kv] if copy else kv
+    if mode in MULTIROW_MODES:
+        plain = fd.multirow_plain if mode == "multirow" else fd.multirow_q_plain
+        return plain(stacked, cfg, h_in, mode_wkr(mode, wkr_mt), *caches, blocked, ptr,
+                     acc=acc)
+    return fd.slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, *caches, blocked, ptr,
+                         acc=acc, rows_per_cell=rows or min(len(h_in), 8),
+                         **SLAB_ARGS.get(mode, {}))
 
 
 # the distances of step_diff that the check widens by the float32 plain
@@ -474,7 +594,8 @@ def bounds(mode, plain_diff) -> dict:
     """The float64 check's bound on each drift distance of ``mode``'s kernel,
     given the float32 plain version's step_diff from float64 on the same
     case."""
-    fixed = {"dh": H_ATOL, "step": SLOT_MAX_STEP[mode], "two_steps": TWO_STEP_SHARE_CAP,
+    fixed = {"dh": H_ATOL, "step": SLOT_MAX_STEP[mode],
+             "two_steps": TWO_STEP_SHARE_CAP_BY_MODE.get(mode, TWO_STEP_SHARE_CAP),
              "scale_rel": SCALE_RTOL}
     return {m: fixed[m] + PLAIN_K * plain_diff[i] for m, i in DRIFT_METRICS}
 
@@ -495,12 +616,12 @@ def check_case(name, mode, kv, ptr, kernel, plain, tag):
     ref, f32 = plain(torch.float64), plain(torch.float32)
     got = kernel()
     torch.cuda.synchronize()
-    diff, plain_diff = step_diff(got, ref, kv, ptr), step_diff(f32, ref, kv, ptr)
+    diff, plain_diff = step_diff(got, ref, kv, ptr, mode), step_diff(f32, ref, kv, ptr, mode)
     dh, step, share, share2, scale_rel, untouched = diff
     limit = bounds(mode, plain_diff)
     say(f"kernel: {name} vs float64 {tag} max|dh_out|={dh:.3e} "
         f"(plain_f32 {plain_diff[0]:.3e}, bound {limit['dh']:.3e}) "
-        f"slot_int8_max_step={step} (plain_f32 {plain_diff[1]}, bound {limit['step']:g}) "
+        f"slot_max_step={step:g} (plain_f32 {plain_diff[1]:g}, bound {limit['step']:g}) "
         f"differ={share:.5f} two_steps={share2:.6f} (plain_f32 {plain_diff[3]:.6f}, "
         f"bound {limit['two_steps']:.2e}) scale_rel={scale_rel:.2e} (plain_f32 "
         f"{plain_diff[4]:.2e}, bound {limit['scale_rel']:.2e}) "
@@ -532,16 +653,18 @@ def worse(worst, key, result):
     worst[key] = (max(old[0], result[0]), max(old[1], result[1]))
 
 
-def kernel_phase(engine, wkr_mt, rng, dev, mode, batches):
+def kernel_phase(engine, wkr_mt, rng, dev, mode, batches, rows=None):
     """``mode``'s kernel on the card against a float64 run of its plain
-    version in every case of ``kernel_cases``; returns the largest |dh_out|
-    and the largest |dh_out| over its bound."""
+    version in every case of ``kernel_cases`` (at ``rows`` rows a cell,
+    default min(B, 8)); returns the largest |dh_out| and the largest
+    |dh_out| over its bound."""
     worst = {}
-    for B, ptr, kind, kv, blocked, h_in in kernel_cases(engine, rng, dev, batches):
+    for B, ptr, kind, kv, blocked, h_in in kernel_cases(engine, rng, dev, batches, mode):
         args = (mode, engine, wkr_mt, kv, blocked, h_in, ptr)
+        tag = f"B={B} R={rows or min(B, 8)} ptr={ptr:3d} ring={kind}"
         worse(worst, mode, check_case(
-            mode, mode, kv, ptr, lambda: run_step(*args),
-            lambda acc: plain_step(*args, acc=acc), f"B={B} ptr={ptr:3d} ring={kind}"))
+            mode, mode, kv, ptr, lambda: run_step(*args, rows=rows),
+            lambda acc: plain_step(*args, acc=acc, rows=rows), tag))
     return worst[mode]
 
 
@@ -652,18 +775,24 @@ def prefill_phase(learner, items, dev, W=None):
                              "its materialized branch")
 
 
-def step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B):
-    """Bytes the step must move (inputs read once, outputs written once) and
-    its multiply-adds counted as 2 operations."""
+def step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B, mode="slab_w8"):
+    """Bytes the step must move (inputs read once, outputs written once:
+    h_out and the written slot's K / V rows and scales) and its
+    multiply-adds counted as 2 operations, split into (bf16 operations,
+    int8 operations): slab_int8 takes q.K and P.V in int8."""
     L, D, Dff, H, Dh = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
     M, HD = blocked.shape[1], H * Dh
     nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
     read = (sum(nbytes(t) for t in stacked) + nbytes(w_scales) + nbytes(wkr_mt)
             + sum(nbytes(t) for t in kv) + nbytes(blocked) + B * D * 4)
-    written = B * D * 4 + L * B * 2 * (HD + 4)
-    flops = 2 * L * B * (D * 3 * HD + HD * D + D * Dff + Dff * D
-                         + H * ((M + 1) * Dh + 2 * M * Dh))
-    return read + written, flops
+    slot_bytes = 2 * HD if mode == "multirow" else HD + 4
+    written = B * D * 4 + L * B * 2 * slot_bytes
+    weight_ops = 2 * L * B * (D * 3 * HD + HD * D + D * Dff + Dff * D)
+    rel_ops = 2 * L * B * H * (M + 1) * Dh
+    attn_ops = 2 * L * B * H * 2 * M * Dh                  # q.K and P.V
+    if mode == "slab_int8":
+        return read + written, (weight_ops + rel_ops, attn_ops)
+    return read + written, (weight_ops + rel_ops + attn_ops, 0)
 
 
 def time_ms(fn, n: int, flush=None) -> float:
@@ -683,34 +812,45 @@ def time_ms(fn, n: int, flush=None) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops, int8_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the bf16 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    operations over the peak of their type (bf16 ``flops``, ``int8_ops``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS + int8_ops / INT8_OPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def slab_timing(engine, wkr_mt, rng, dev, name, B, flush):
+def slab_timing(engine, wkr_mt, rng, dev, name, B, flush, rows=None):
+    """CUDA-event medians of ``name``'s kernel (at ``rows`` rows a cell,
+    default min(B, 8)) and of its plain version on a full ring at ptr 100,
+    beside the bound."""
     cfg, M = engine.cfg, engine.cfg.mem_len
     stacked, w_scales = weights(engine, name)
-    kv, blocked = ring_inputs(cfg, B, M, 100, "full", rng, dev)
+    kv, blocked = ring_inputs(cfg, B, M, 100, "full", rng, dev, name)
     h_in = engine.params["embed"].float()[
         torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
-    args = (stacked, cfg, h_in, wkr_mt, *kv, blocked, 100, M)
-    kernel = lambda: CORES[name](*args, rows_per_cell=min(B, 8),
-                                 weights_int8=w_scales is not None, w_scales=w_scales)
-    plain = lambda: fd.slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, *kv,
-                                  blocked, 100)
+    wkr = mode_wkr(name, wkr_mt)
+    R = rows or min(B, 8)
+    if name in MULTIROW_MODES:
+        kernel = lambda: CORES[name](stacked, cfg, h_in, wkr, *kv, blocked, 100, M,
+                                     rows_per_cell=R)
+    else:
+        kernel = lambda: CORES[name](stacked, cfg, h_in, wkr, *kv, blocked, 100, M,
+                                     rows_per_cell=R, weights_int8=w_scales is not None,
+                                     w_scales=w_scales, **SLAB_ARGS.get(name, {}))
+    plain = lambda: plain_step(name, engine, wkr_mt, kv, blocked, h_in, 100,
+                               acc=torch.float32, rows=R, copy=False)
     ms = time_ms(kernel, 100)
     ms_cold = time_ms(kernel, 50, flush)
     plain_ms = time_ms(plain, 20)
     ms_again = time_ms(kernel, 100)
-    nbytes, flops = step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B)
-    bound_ms, bound_by = bound(nbytes, flops)
-    say(f"timing: {name} B={B} M={M} kernel median {ms:.4f} ms (again {ms_again:.4f}, "
-        f"L2 flushed {ms_cold:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP, by {bound_by}); "
-        f"1 wrapper launch = {fd.kernels_per_step(cfg.n_layers)} CUDA kernels per step")
+    nbytes, (flops, int8_ops) = step_bytes_and_flops(cfg, stacked, w_scales, wkr, kv,
+                                                     blocked, B, name)
+    bound_ms, bound_by = bound(nbytes, flops, int8_ops)
+    say(f"timing: {name} B={B} R={R} M={M} kernel median {ms:.4f} ms (again "
+        f"{ms_again:.4f}, L2 flushed {ms_cold:.4f}) plain {plain_ms:.4f} ms bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP bf16, "
+        f"{int8_ops / 1e6:.1f} MOP int8, by {bound_by}); 1 wrapper launch = "
+        f"{fd.kernels_per_step(cfg.n_layers, name)} CUDA kernels per step")
     return dict(ms=min(ms, ms_again), plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -737,15 +877,26 @@ def flash_timing(cfg, dev, B, W, seed):
                 bound_by=bound_by)
 
 
-def timing_phase(engine, wkr_mt, rng, dev, seed):
+# the explicit modes' kernel checks: (mode, batch sizes, rows a
+# cell or None for min(B, 8)), in the order they draw from the rng
+MODE_CASE_BATCHES = (("slab_int8", (1, 64), None), ("slab_int8", (64,), 32),
+                     ("slab4", (1, 64), None), ("slab4", (64,), 16), ("slab4", (64,), 32),
+                     ("slab4_w8", (1, 64), None), ("multirow", (1, 64), None),
+                     ("multirow_int8", (1, 64), None))
+EXPLICIT_MODES = ("slab_int8", "slab4", "slab4_w8", "multirow", "multirow_int8")
+
+
+def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     """Kernel timings at the main paths' shapes, the int8-weight slab steps
     at every B of the crossover between their weight products (the
     row-tiled GEMV of slab_w8, the all-rows GEMM of slab_ar_w8), and the
-    bf16-weight steps at B = 16 and 64; the launches made here do not count
-    as the main paths'. Returns the timings of the JSON line: slab_w8 at
-    B = 1; slab_ar_w8 and the flash prefill at B = 16, W = 512 (the
+    bf16-weight steps at B = 16 and 64; the explicit modes at B = 1 and 64
+    (slab4 also at 16 and 32 rows a cell); the launches made here do not
+    count as the main paths'. Returns the timings of the JSON line: slab_w8
+    at B = 1; slab_ar_w8 and the flash prefill at B = 16, W = 512 (the
     service's batch); slab and slab_ar at B = 16 (the continuous engine's
-    slots)."""
+    slots); the explicit modes at B = 64 (generate_batch's sweep), their
+    inputs drawn from ``modes_rng``."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     before = launches()
     times = {name: {B: slab_timing(engine, wkr_mt, rng, dev, name, B, flush)
@@ -753,11 +904,15 @@ def timing_phase(engine, wkr_mt, rng, dev, seed):
              for name, batches in (("slab_w8", (1, 4, 8, 16, 64)),
                                    ("slab_ar_w8", (1, 4, 8, 16, 64)),
                                    ("slab", (16, 64)), ("slab_ar", (16, 64)))}
+    times.update({mode: {B: slab_timing(engine, wkr_mt, modes_rng, dev, mode, B, flush)
+                         for B in (1, 64)} for mode in EXPLICIT_MODES})
+    for R in (16, 32):
+        slab_timing(engine, wkr_mt, modes_rng, dev, "slab4", 64, flush, rows=R)
     flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}
     set_launches(before)
     return {"slab_w8": times["slab_w8"][1], "slab_ar_w8": times["slab_ar_w8"][16],
             "slab": times["slab"][16], "slab_ar": times["slab_ar"][16],
-            "flash": flash[16]}
+            "flash": flash[16], **{mode: times[mode][64] for mode in EXPLICIT_MODES}}
 
 
 def prompt_midi(seed: int, vocab, bars: int = 8) -> bytes:
@@ -793,13 +948,14 @@ TRAIN_WRAPPERS = {"flash_train_": ftr.flash_train_attention,
 
 
 def launches() -> dict:
-    """Every kernel's launch count: the four genre slab modes, the flash
+    """Every kernel's launch count: the genre slab and multirow modes, the flash
     prefill, the multitask flash prefill (flash_encoder_bidir,
     flash_encoder_causal), the s2s / nw steps in the slab modes and the fused
     one (s2s_slab_w8, s2s_slab, s2s_fused, nw_slab_w8, nw_slab, nw_fused), and
     the forward and backward of the flash train, bidirectional and cross
     attention (flash_train_fwd, ..., flash_cross_bwd)."""
     return {**fd.fused_slab_core.launches, **fd.fused_slab_allrows_core.launches,
+            **fd.fused_multirow_core.launches, **fd.fused_multirow_q_core.launches,
             "flash_prefill": fp.flash_prefill_attention.launches,
             **{"flash_encoder_" + k: n for k, n in fp.flash_encoder_attention.launches.items()},
             **{prefix + mode: n for prefix, w in MT_WRAPPERS
@@ -808,8 +964,12 @@ def launches() -> dict:
                for k, n in w.launches.items()}}
 
 
+GENRE_WRAPPERS = (fd.fused_slab_core, fd.fused_slab_allrows_core, fd.fused_multirow_core,
+                  fd.fused_multirow_q_core)
+
+
 def set_launches(counts: dict) -> None:
-    for wrapper in (fd.fused_slab_core, fd.fused_slab_allrows_core):
+    for wrapper in GENRE_WRAPPERS:
         for mode in wrapper.launches:
             wrapper.launches[mode] = counts[mode]
     fp.flash_prefill_attention.launches = counts["flash_prefill"]
@@ -1041,6 +1201,68 @@ def slab_ar_phase(learner, items, seed: int):
         f"re-parse, grammar violations {sum(c['grammar_violations'] for c in checks)}; "
         f"{steps / secs:.1f} steps/s")
     return steps
+
+
+# the explicit modes' path runs of 64 prompts: (decode_kernel, rows_per_cell
+# or None for the default 8, kv_int8), as bench.py sweeps generate_batch
+PATH_RUNS = (("slab_int8", None, False), ("slab4", 8, False), ("slab4", 16, False),
+             ("slab4", 32, False), ("slab4_w8", None, False), ("multirow", None, False),
+             ("multirow_int8", None, False), ("xla", None, True))
+
+
+def explicit_modes_phase(learner, items, seed: int, n_words: int) -> dict:
+    """``generate_batch`` of the 64 prompts (W = 512, ``n_words`` steps) with
+    each run of PATH_RUNS: one launch of its kernel a step and the flash
+    prefill once a layer (xla with kv_int8: the prefill only); then
+    ``generate`` of one prompt at B = 1 with each explicit mode, one launch
+    a step. Every output re-parses and passes the codec's checks. Returns
+    the launch counts summed over the runs."""
+    vocab, engine = learner.vocab, learner.engine
+    L, M = engine.cfg.n_layers, engine.cfg.mem_len
+    seqs = [it.data for it in items]
+    W = min(_bucket(max(len(s) for s in seqs)), max(engine.cfg.ctx_len, M))
+    total = dict.fromkeys(launches(), 0)
+
+    def run(label, fn, want):
+        fn(8)                                                    # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn(n_words)
+        secs = time.perf_counter() - t0
+        counts = launches()
+        if counts != want:
+            raise AssertionError(f"{label} launched {counts}, expected {want}")
+        for key, n in counts.items():
+            total[key] += n
+        return out, secs, counts
+
+    for kernel, rows, kv_int8 in PATH_RUNS:
+        kw = dict(decode_kernel=kernel, rows_per_cell=rows, kv_int8=kv_int8, seed=seed,
+                  **GEN_KW)
+        label = f"generate_batch B=64 {kernel} r={rows or 8} kv_int8={kv_int8}"
+        want = only(flash_prefill=L, **({} if kernel == "xla" else {kernel: n_words}))
+        (toks, lengths), secs, counts = run(
+            label, lambda n: engine.generate_batch(seqs, n_words=n, **kw), want)
+        checks = [check_continuation(it, toks[i][: lengths[i]], vocab)
+                  for i, it in enumerate(items)]
+        emitted = int(lengths.sum())
+        say(f"modes: {label} W={W} n_words={n_words} launches={counts[kernel] if kernel != 'xla' else 0} "
+            f"{kernel if kernel != 'xla' else 'kernel'} + {counts['flash_prefill']} "
+            f"flash_prefill; all 64 re-parse, grammar violations "
+            f"{sum(c['grammar_violations'] for c in checks)}, emitted {emitted} tokens: "
+            f"{emitted / secs:.1f} emitted tok/s, {n_words / secs:.1f} steps/s "
+            f"({secs:.3f} s incl. prefill)")
+    for kernel in EXPLICIT_MODES:
+        item = items[0]
+        pred, secs, _ = run(f"generate B=1 {kernel}", lambda n: engine.generate(
+            item.data, n_words=n, decode_kernel=kernel, seed=seed, **GEN_KW),
+            only(**{kernel: n_words}))
+        checks = check_continuation(item, pred, vocab)
+        say(f"modes: generate B=1 {kernel} n_words={n_words} launches={n_words} {checks} "
+            f"{len(pred) / secs:.1f} emitted tok/s, {n_words / secs:.1f} steps/s "
+            f"({secs:.3f} s incl. prefill)")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2310,6 +2532,11 @@ def main(argv=None) -> int:
     for mode, batches in KERNEL_CASE_BATCHES:
         worse(err, mode, timed(f"kernel {mode} B in {batches}", kernel_phase, engine,
                                wkr_mt, rng, dev, mode, batches))
+    modes_rng = np.random.default_rng(args.seed + 2)
+    for mode, batches, rows in MODE_CASE_BATCHES:
+        worse(err, mode, timed(f"kernel {mode} B in {batches} R {rows or 'min(B, 8)'}",
+                               kernel_phase, engine, wkr_mt, modes_rng, dev, mode, batches,
+                               rows))
     err["flash"] = timed("kernel flash", flash_phase, engine.cfg, dev, args.seed)
     flagship, demo = timed("mt load", mt_load_phase, dev, args.seed)
     for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),
@@ -2319,12 +2546,13 @@ def main(argv=None) -> int:
             worse(err, key, e)
     items = batch_prompts(learner.vocab, args.seed, 64)
     timed("prefill", prefill_phase, learner, items[:16], dev)
-    timing = timed("timing", timing_phase, engine, wkr_mt, rng, dev, args.seed)
+    timing = timed("timing", timing_phase, engine, wkr_mt, rng, dev, args.seed, modes_rng)
     timing.update(timed("mt timing", mt_timing_phase, flagship, rng, dev))
     n_single = timed("main", main_path_phase, learner, args.seed, args.n_words)
     batched = timed("batch", batched_phase, learner, items, args.seed, args.n_words)
     n_slab = timed("continuous", continuous_phase, learner, items[16:48], args.seed)
     n_slab_ar = timed("slab_ar", slab_ar_phase, learner, items[48:], args.seed)
+    n_modes = timed("modes", explicit_modes_phase, learner, items, args.seed, args.n_words)
     n_mt = timed("mt tasks", mt_main_phase, flagship, demo, args.seed)
     timed("http", http_phase, learner, demo, args.seed)
     train_cfg = btp_phase1_config(len(learner.vocab))
@@ -2366,6 +2594,12 @@ def main(argv=None) -> int:
               n_slab, "slab"),
         entry("fused_slab_allrows_core[slab_ar]", "slab_decode.cu",
               "fused_decode.py:1589", n_slab_ar, "slab_ar"),
+        *[entry(f"fused_slab_core[{mode}]", "slab_decode.cu", "fused_decode.py:1163",
+                n_modes[mode], mode) for mode in ("slab_int8", "slab4", "slab4_w8")],
+        entry("fused_multirow_core[multirow]", "multirow_decode.cu", "fused_decode.py:546",
+              n_modes["multirow"], "multirow"),
+        entry("fused_multirow_q_core[multirow_int8]", "multirow_decode.cu",
+              "fused_decode.py:779", n_modes["multirow_int8"], "multirow_int8"),
         *[entry(f"{wrapper}[{mode}]", "s2s_slab.cu", f"fused_s2s.py:{line}",
                 n_mt[f"{task}_{mode}"], f"{task}_{mode}")
           for task, wrapper, line in (("s2s", "fused_s2s_slab_core", 614),

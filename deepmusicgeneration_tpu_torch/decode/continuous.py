@@ -58,11 +58,13 @@ from ..ops.fused_decode import (fused_slab_allrows_core, fused_slab_core,
                                 stack_txl_layers)
 from ..ops.sampling import filter_sample_sorted_rows, row_keys
 from ..vocab import MusicVocab
-from .engine import (ALLROWS_KERNELS, INT8_WEIGHT_KERNELS, KERNELS, DecodeTables,
+from .engine import (ALLROWS_KERNELS, INT8_WEIGHT_KERNELS, DecodeTables,
                      SampleState, _bucket, _to_device, advance_state, build_tables,
                      expand_temperatures, prepare_logits, slab_ok)
 
 I32 = torch.int32
+# the decode paths of the continuous engine, as the JAX package's names them
+KERNELS = ("xla", "slab_w8", "slab_ar_w8", "slab", "slab_ar")
 
 
 class RowParams(NamedTuple):

@@ -16,15 +16,19 @@ Parity contract with the reference engine:
   multiple of 4, or when BOS is sampled,
 * greedy mode is argmax over the same filtered logits.
 
-Five decode paths: ``xla`` (the exact ring step, ``models.txl``),
-``slab_w8`` (``ops.fused_decode.fused_slab_core``: int8 weights, int8 KV),
-``slab_ar_w8`` (``ops.fused_decode.fused_slab_allrows_core``: the same step,
-each layer's weights read once for all rows), and their bf16-weight modes
-``slab`` and ``slab_ar`` (explicit only here; the continuous engine
-auto-picks ``slab``). On the card the auto rule
-(:meth:`GenerationEngine.resolve_kernel`) takes ``slab_w8`` for B < 8,
-``slab_ar_w8`` for B % 8 == 0 and ``xla`` otherwise; the prompt prefill takes
-the flash attention kernel for bf16 configs at B >= 8 (W <= 2048) or
+The JAX package's ten decode paths: ``xla`` (the exact ring step,
+``models.txl``; with ``kv_int8`` over an int8 ring), the slab steps of
+``ops.fused_decode.fused_slab_core`` over a slot-major int8 (or, ``slab4*``,
+int4) KV ring — ``slab_w8`` (int8 weights), ``slab`` (bf16 weights),
+``slab_int8`` (int8 x int8 scores), ``slab4`` / ``slab4_w8`` — the all-rows
+steps ``slab_ar_w8`` / ``slab_ar`` (``fused_slab_allrows_core``: each
+layer's weights read once for all rows), and the multirow steps over
+head-major panels, ``multirow`` (bf16, ``fused_multirow_core``) and
+``multirow_int8`` (int8 with per-slot scales, ``fused_multirow_q_core``).
+On the card the auto rule (:meth:`GenerationEngine.resolve_kernel`) takes
+``slab_w8`` for B < 8, ``slab_ar_w8`` for B % 8 == 0 and ``xla``
+otherwise; the others run on request. The prompt prefill takes the flash
+attention kernel for bf16 configs at B >= 8 (W <= 2048) or
 2048 < W <= 8192 (``models.txl.prefill``). Neither rule picks a kernel whose
 widths the CUDA kernels do not take (:func:`slab_ok`).
 
@@ -47,27 +51,44 @@ from ..device import resolve_device
 from ..models import txl
 from ..models.config import TXLConfig
 from ..models.precision import cast_params_for_inference
-from ..ops.fused_decode import (fused_slab_allrows_core, fused_slab_core,
-                                kernel_accepts, quantize_kv_slot_major,
+from ..ops.fused_decode import (fused_multirow_core, fused_multirow_q_core,
+                                fused_slab_allrows_core, fused_slab_core,
+                                kernel_accepts, quantize_kv_panels,
+                                quantize_kv_slot_major, quantize_kv_slot_major_int4,
                                 quantize_stacked_weights, stack_txl_layers)
 from ..ops.sampling import FILTER_VALUE, filter_sample_sorted
 from ..vocab import SAMPLE_FREQ, MusicVocab
 
 I32 = torch.int32
 
-KERNELS = ("xla", "slab_w8", "slab_ar_w8", "slab", "slab_ar")
+KERNELS = ("xla", "multirow", "multirow_int8", "slab", "slab_int8", "slab_w8",
+           "slab4", "slab4_w8", "slab_ar", "slab_ar_w8")
 ALLROWS_KERNELS = ("slab_ar_w8", "slab_ar")
-INT8_WEIGHT_KERNELS = ("slab_w8", "slab_ar_w8")
+MULTIROW_KERNELS = ("multirow", "multirow_int8")
+INT8_WEIGHT_KERNELS = ("slab_w8", "slab4_w8", "slab_ar_w8")
+# the JAX engine's int8-KV kernels tile the cache in 32-slot bands, so they
+# need mem_len % 32 == 0; int4 packs slot pairs (m, m + M/2) in 32-row tiles
+# (mem_len % 64 == 0); the bf16 'multirow' step takes any mem_len
+ALIGNED_KERNELS = ("slab", "slab_int8", "slab_w8", "multirow_int8", "slab4",
+                   "slab4_w8", "slab_ar", "slab_ar_w8")
+INT4_KERNELS = ("slab4", "slab4_w8")
 
 
-def slab_ok(cfg: TXLConfig, mem_len: int) -> bool:
-    """Whether the slab paths apply: a bf16, bias-free config without beat
-    embeddings (the genre flagship shape) with mem_len % 32 == 0, the TPU
-    kernel's slab tile, kept so both packages pick alike; and widths the
-    CUDA kernels take (``fused_decode.kernel_accepts``)."""
-    return (cfg.dtype == "bfloat16" and not cfg.bias
-            and not cfg.encode_position and mem_len % 32 == 0
-            and kernel_accepts(cfg))
+def slab_ok(cfg: TXLConfig, mem_len: int, kernel: Optional[str] = None) -> bool:
+    """Whether the fused decode kernels apply: a bf16, bias-free config
+    without beat embeddings (the genre flagship shape) and widths the CUDA
+    kernels take (``fused_decode.kernel_accepts``), with the JAX engine's
+    alignment of ``kernel``: mem_len % 64 == 0 for :data:`INT4_KERNELS`,
+    mem_len % 32 == 0 for the other :data:`ALIGNED_KERNELS` and for
+    ``kernel=None`` (would the auto rule pick a fused kernel), any mem_len
+    for ``multirow``."""
+    base = (cfg.dtype == "bfloat16" and not cfg.bias
+            and not cfg.encode_position and kernel_accepts(cfg))
+    if kernel in INT4_KERNELS:
+        return base and mem_len % 64 == 0
+    if kernel is None or kernel in ALIGNED_KERNELS:
+        return base and mem_len % 32 == 0
+    return base
 
 
 def expand_temperatures(temperatures) -> tuple:
@@ -268,15 +289,23 @@ def generate_compiled(
     settings: SamplerSettings,
     mem_len: int,
     kernel: str = "xla",
-    stacked_q=None,               # (StackedTXL, w_scales or None) for the slab kernels
+    stacked_q=None,               # (StackedTXL, w_scales or None) for the fused kernels
+    rows_per_cell: Optional[int] = None,
+    kv_int8: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + fixed-length sampling loop.
+
+    ``kernel`` is one of :data:`KERNELS`; ``kv_int8`` quantizes the ring to
+    int8 on ``xla`` (``txl.decode_step_ring_q``) and on ``multirow`` (which
+    then runs the ``multirow_int8`` step), and is ignored by the slab
+    kernels, as in the JAX engine. ``rows_per_cell`` is the fused kernels'
+    row tiling (it must divide B; None: the largest of 8, 4, 2, 1 that does,
+    as the JAX engine picks it).
 
     Returns (tokens (B, n_words) int32, lengths (B,) int32), on the device.
     The name follows the JAX package; here the loop runs eagerly."""
     if kernel not in KERNELS:
-        raise ValueError(f"decode kernel {kernel!r} is not ported; one of "
-                         f"{KERNELS} (ROADMAP.md)")
+        raise ValueError(f"decode_kernel {kernel!r}: one of {KERNELS}")
     B = window_toks.shape[0]
     dev = window_toks.device
     M = mem_len
@@ -302,25 +331,20 @@ def generate_compiled(
                                  top_p_rows, min_bars, allowed_ins, generator, settings,
                                  _past_80pct(i, settings.n_words))
 
+    wkr = txl.precompute_wkr(params, cfg, M)            # (L, H, M+1, Dh)
     if kernel == "xla":
-        wkr_all = txl.precompute_wkr(params, cfg, M)
-        cache = ring
+        cache, step_fn = ring, txl.decode_step_ring
+        if kv_int8:
+            cache, step_fn = txl.quantize_ring(ring), txl.decode_step_ring_q
         for i in range(settings.n_words):
             idx, st = sample(i, logits, st)
             toks[i] = idx
-            logits, cache = txl.decode_step_ring(params, cfg, idx, st.last_pos,
-                                                 cache, wkr_all)
+            logits, cache = step_fn(params, cfg, idx, st.last_pos, cache, wkr)
         return toks.T, st.n_emitted
 
-    L, HD = cfg.n_layers, cfg.n_heads * cfg.d_head
-    kt_s = ring.k.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD)
-    vc_s = ring.v.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD)
-    kv = quantize_kv_slot_major(kt_s, vc_s)
-    wkr_mt = txl.precompute_wkr(params, cfg, M).permute(0, 2, 1, 3) \
-        .reshape(L, M + 1, HD).to(torch.bfloat16).contiguous()
-    stacked, w_scales = stacked_q
-    core = fused_slab_allrows_core if kernel in ALLROWS_KERNELS else fused_slab_core
-    rows_per_cell = next(r for r in (8, 4, 2, 1) if B % r == 0)   # as the JAX engine
+    rows_per_cell = rows_per_cell or next(r for r in (8, 4, 2, 1) if B % r == 0)
+    run_stack = _fused_stack(cfg, kernel, stacked_q, ring, wkr, M, rows_per_cell,
+                             kv_int8)
     embed32 = params["embed"].to(torch.float32)
     head_b = params.get("head_b")
     g, ptr, g_cur = ring.g, ring.ptr, ring.g_cur
@@ -329,16 +353,50 @@ def generate_compiled(
         toks[i] = idx
         dist = g_cur - g
         blocked = ((dist < 1) | (dist > M)).to(I32)
-        h_out, *kv = core(
-            stacked, cfg, embed32[idx.long()], wkr_mt, *kv, blocked, ptr, M,
-            rows_per_cell=rows_per_cell, weights_int8=w_scales is not None,
-            w_scales=w_scales)
-        logits = h_out @ embed32.T
+        logits = run_stack(embed32[idx.long()], blocked, ptr) @ embed32.T
         if head_b is not None:
             logits = logits + head_b
         g[:, ptr] = g_cur
         ptr, g_cur = (ptr + 1) % M, g_cur + 1
     return toks.T, st.n_emitted
+
+
+def _fused_stack(cfg, kernel, stacked_q, ring, wkr, M, rows_per_cell, kv_int8):
+    """The caches of ``kernel``'s layout, built from the ring (quantized
+    where the kernel keeps int8 or int4), and a function
+    ``run(h_in, blocked, ptr) -> h_out`` that advances them one step in
+    place through the kernel's wrapper."""
+    L, B = cfg.n_layers, ring.k.shape[1]
+    HD = cfg.n_heads * cfg.d_head
+    stacked, w_scales = stacked_q
+    bf16 = torch.bfloat16
+    if kernel in MULTIROW_KERNELS:
+        kt = ring.k.permute(0, 1, 2, 4, 3).reshape(L, B, HD, M)   # head-major K
+        vc = ring.v.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD)
+        wkr_f = wkr.permute(0, 1, 3, 2).reshape(L, HD, M + 1).to(bf16).contiguous()
+        if kv_int8 or kernel == "multirow_int8":
+            kv = quantize_kv_panels(kt, vc)
+            return lambda h_in, blocked, ptr: fused_multirow_q_core(
+                stacked, cfg, h_in, wkr_f, *kv, blocked, ptr, M,
+                rows_per_cell=rows_per_cell)[0]
+        kv = (kt.contiguous(), vc.contiguous())
+        return lambda h_in, blocked, ptr: fused_multirow_core(
+            stacked, cfg, h_in, wkr_f, *kv, blocked, ptr, M,
+            rows_per_cell=rows_per_cell)[0]
+    kt_s = ring.k.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD)      # slot-major
+    vc_s = ring.v.permute(0, 1, 3, 2, 4).reshape(L, B, M, HD)
+    kv_int4 = kernel in INT4_KERNELS
+    kv = (quantize_kv_slot_major_int4 if kv_int4 else quantize_kv_slot_major)(kt_s, vc_s)
+    wkr_mt = wkr.permute(0, 2, 1, 3).reshape(L, M + 1, HD).to(bf16).contiguous()
+    if kernel in ALLROWS_KERNELS:
+        return lambda h_in, blocked, ptr: fused_slab_allrows_core(
+            stacked, cfg, h_in, wkr_mt, *kv, blocked, ptr, M,
+            rows_per_cell=rows_per_cell, weights_int8=w_scales is not None,
+            w_scales=w_scales)[0]
+    return lambda h_in, blocked, ptr: fused_slab_core(
+        stacked, cfg, h_in, wkr_mt, *kv, blocked, ptr, M, rows_per_cell=rows_per_cell,
+        score_mode="int8" if kernel == "slab_int8" else "bf16",
+        weights_int8=w_scales is not None, w_scales=w_scales, kv_int4=kv_int4)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -395,14 +453,13 @@ class GenerationEngine:
         return "xla"
 
     def stacked(self):
-        """(bf16-weight StackedTXL, None) for the slab and slab_ar paths."""
+        """(bf16-weight StackedTXL, None) for the bf16-weight kernel paths."""
         if self._stacked is None:
             self._stacked = (stack_txl_layers(self.params), None)
         return self._stacked
 
     def stacked_q(self):
-        """(int8-weight StackedTXL, w_scales) for the slab_w8 and slab_ar_w8
-        paths."""
+        """(int8-weight StackedTXL, w_scales) for :data:`INT8_WEIGHT_KERNELS`."""
         if self._stacked_q is None:
             self._stacked_q = quantize_stacked_weights(stack_txl_layers(self.params))
         return self._stacked_q
@@ -429,15 +486,24 @@ class GenerationEngine:
         greedy: bool = False,
         seed: int = 0,
         mem_len: Optional[int] = None,
+        kv_int8: bool = False,
         decode_kernel: Optional[str] = None,
+        rows_per_cell: Optional[int] = None,
     ):
         """Generate for a batch of prompts. Returns numpy
         (tokens (B, n_words) int32, lengths (B,) int32).
 
-        ``decode_kernel``: None = auto (:meth:`resolve_kernel`); 'xla' is the
-        exact bf16/f32 ring step; 'slab_w8' and 'slab_ar_w8' quantize the KV
-        cache and the weights to int8, 'slab' and 'slab_ar' the KV cache
-        only (the kernel paths; on a CPU device their plain version). The
+        ``decode_kernel``: None = auto (:meth:`resolve_kernel`), or one of
+        :data:`KERNELS`: 'xla' is the exact bf16/f32 ring step ('xla' with
+        ``kv_int8`` over an int8 ring); 'slab_w8', 'slab4_w8' and
+        'slab_ar_w8' quantize the KV cache and the weights, 'slab',
+        'slab_int8', 'slab4', 'slab_ar' and 'multirow_int8' the KV cache
+        only ('slab4*' to int4, mem_len % 64 == 0), 'multirow' keeps bf16
+        panels ('multirow' with ``kv_int8`` runs 'multirow_int8'). The
+        kernel paths run their hand-written kernels on the card and their
+        plain versions on a CPU device. ``rows_per_cell``: the fused
+        kernels' row tiling, which must divide B (default the largest of 8,
+        4, 2, 1 that does); it changes the result only in 'slab_int8'. The
         prompt prefill follows ``models.txl.prefill``'s auto rule.
         ``temperatures``: three genre slots, or a (t_note, t_dur) pair that
         expands to (t_note, t_dur, t_dur). ``seed`` seeds the sampling
@@ -460,11 +526,15 @@ class GenerationEngine:
             last_pos[i] = p[-1] if len(p) else 0
 
         kernel = self.resolve_kernel(B, mem_len, decode_kernel)
-        if kernel in KERNELS[1:] and not slab_ok(self.cfg, mem_len):
+        if kernel != "xla" and not slab_ok(self.cfg, mem_len, kernel):
+            need = (", mem_len % 64 == 0" if kernel in INT4_KERNELS
+                    else ", mem_len % 32 == 0" if kernel in ALIGNED_KERNELS else "")
             raise ValueError(f"decode_kernel={kernel!r} needs a bf16 bias-free "
-                             "config without beat embeddings, mem_len % 32 == 0 "
-                             "and widths the slab kernels take; got "
-                             f"mem_len={mem_len}, d_head={self.cfg.d_head}")
+                             "config without beat embeddings and widths the "
+                             f"kernels take{need}; got mem_len={mem_len}, "
+                             f"d_head={self.cfg.d_head}")
+        if rows_per_cell is not None and B % rows_per_cell:
+            raise ValueError(f"rows_per_cell={rows_per_cell} must divide batch {B}")
         temperatures = expand_temperatures(temperatures)
         settings = SamplerSettings(n_words=n_words, top_k=top_k, greedy=greedy)
         dev = self.device
@@ -480,7 +550,8 @@ class GenerationEngine:
             float(top_p), int(min_bars), ins_mask, generator, settings,
             mem_len=mem_len, kernel=kernel,
             stacked_q=(None if kernel == "xla" else self.stacked_q()
-                       if kernel in INT8_WEIGHT_KERNELS else self.stacked()))
+                       if kernel in INT8_WEIGHT_KERNELS else self.stacked()),
+            rows_per_cell=rows_per_cell, kv_int8=kv_int8)
         return out.cpu().numpy(), lengths.cpu().numpy()
 
 

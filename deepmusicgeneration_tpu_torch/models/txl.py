@@ -516,3 +516,85 @@ def decode_step_ring(
     return logits, RingKVCache(k=cache.k, v=cache.v, g=cache.g,
                                ptr=(cache.ptr + 1) % M,
                                g_cur=cache.g_cur + 1)
+
+
+# ---------------------------------------------------------------------------
+# int8-quantized ring KV cache (``kv_int8`` on the exact path)
+#
+# Per-(slot, head) symmetric int8 over Dh, scale max(amax / 127, 1e-8): the
+# JAX package's contract (``models/txl.py::_quantize_rows``); everything else
+# is the exact ring step.
+# ---------------------------------------------------------------------------
+
+class RingKVCacheQ(NamedTuple):
+    k_q: torch.Tensor      # (L, B, H, M, Dh) int8
+    k_s: torch.Tensor      # (L, B, H, M, 1) fp32 scales
+    v_q: torch.Tensor
+    v_s: torch.Tensor
+    g: torch.Tensor        # (B, M) int32
+    ptr: int
+    g_cur: int
+
+
+def _quantize_rows(x: torch.Tensor):
+    """Symmetric int8 over the last axis; returns (int8, scale[..., :1])."""
+    x32 = x.to(F32)
+    scale = torch.clamp_min(x32.abs().amax(-1, keepdim=True) / 127.0, 1e-8)
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def quantize_ring(cache: RingKVCache) -> RingKVCacheQ:
+    k_q, k_s = _quantize_rows(cache.k)
+    v_q, v_s = _quantize_rows(cache.v)
+    return RingKVCacheQ(k_q=k_q, k_s=k_s, v_q=v_q, v_s=v_s, g=cache.g,
+                        ptr=cache.ptr, g_cur=cache.g_cur)
+
+
+def decode_step_ring_q(
+    params: Dict,
+    cfg: TXLConfig,
+    tok: torch.Tensor,      # (B,)
+    pos: torch.Tensor,      # (B,) beat positions (unused: no beat embedding)
+    cache: RingKVCacheQ,
+    wkr_all: torch.Tensor,  # (L, H, M+1, Dh) from precompute_wkr
+) -> Tuple[torch.Tensor, RingKVCacheQ]:
+    """:func:`decode_step_ring` over int8 K/V dequantized in the act dtype
+    (int8 x scale, both cast first); the fresh token's K/V are quantized
+    into slot ``ptr`` of each layer, in place, after that layer's attention
+    has read the old slot. Returns the cache with the pointer advanced."""
+    _check_supported(cfg)
+    B = tok.shape[0]
+    dt = cfg.act_dtype
+    H, Dh = cfg.n_heads, cfg.d_head
+    M = cache.k_q.shape[3]
+    h = params["embed"][tok].to(dt)[:, None, :]
+    dist = cache.g_cur - cache.g
+    blocked = (dist < 1) | (dist > M)
+    scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
+
+    u_b, v_b = params["u"].to(dt), params["v"].to(dt)
+    for i, lp in enumerate(params["layers"]):
+        q, k1, v1 = _qkv(lp, h, H, Dh)                # (B, H, 1, Dh)
+        ks = cache.k_q[i].to(dt) * cache.k_s[i].to(dt)
+        vs = cache.v_q[i].to(dt) * cache.v_s[i].to(dt)
+        ac = torch.einsum("bhqd,bhkd->bhqk", (q + u_b).to(F32), ks.to(F32))[:, :, 0]
+        s_d = torch.einsum("bhqd,hkd->bhqk", (q + v_b).to(F32),
+                           wkr_all[i].to(F32))[:, :, 0]            # (B, H, M+1)
+        bd = torch.roll(s_d[..., :M], cache.ptr, dims=-1)
+        score = torch.where(blocked[:, None, :], NEG_INF, (ac + bd) * scale)
+        ac_self = torch.einsum("bhqd,bhqd->bhq", (q + u_b).to(F32), k1.to(F32))
+        self_score = (ac_self[:, :, 0] + s_d[..., -1]) * scale
+        full = torch.cat([score, self_score[:, :, None]], dim=-1)
+        prob = torch.softmax(full, dim=-1).to(dt)
+        attn = torch.einsum("bhk,bhkd->bhd", prob[..., :M].to(F32),
+                            vs.to(F32)).to(dt)
+        attn = attn + prob[..., M:M + 1] * v1[:, :, 0]
+        h = _block_tail(lp, cfg, h, attn.reshape(B, 1, H * Dh))
+        for q8, s8, x in ((cache.k_q, cache.k_s, k1), (cache.v_q, cache.v_s, v1)):
+            xq, xs = _quantize_rows(x[:, :, 0])
+            q8[i, :, :, cache.ptr] = xq
+            s8[i, :, :, cache.ptr] = xs
+
+    logits = _logits(params, h[:, 0])
+    cache.g[:, cache.ptr] = cache.g_cur
+    return logits, cache._replace(ptr=(cache.ptr + 1) % M, g_cur=cache.g_cur + 1)

@@ -18,6 +18,9 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
+# every csrc/<name>.cu the port builds
+SOURCES = ("slab_decode", "multirow_decode", "flash_prefill", "s2s_slab", "flash_train",
+           "flash_mt", "flash_encoder", "s2s_fused")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

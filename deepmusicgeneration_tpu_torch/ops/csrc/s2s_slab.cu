@@ -212,12 +212,13 @@ int s2s_step(const WT* qkv_w, const WT* q2_w, const WT* ff1_w, const WT* ff2_w,
         part, ceil_div(D, kKChunk), 1, 3 * HD, qkv_b + (size_t)l * 3 * HD, kNone, qkv);
     if ((err = cudaGetLastError())) return err;
     // self attention over the old ring + the fresh token, then the slot write
-    if ((err = attention(Dh, H, attn_smem, st, qkv, H, M, u, v,
-                         wkr + (size_t)l * (M + 1) * HD, kt + kv_off * HD, ks + kv_off,
-                         vc + kv_off * HD, vs + kv_off, blocked, ptr, scale, attn)))
+    if ((err = attention<SlotI8>(Dh, H, attn_smem, st, qkv, H, M, u, v,
+                                 wkr + (size_t)l * (M + 1) * HD, kt + kv_off * HD,
+                                 ks + kv_off, vc + kv_off * HD, vs + kv_off, blocked, ptr,
+                                 scale, attn)))
       return err;
-    kv_slot_write<<<1, kThreads, 0, st>>>(qkv, HD, M, ptr, kt + kv_off * HD, ks + kv_off,
-                                          vc + kv_off * HD, vs + kv_off);
+    kv_slot_write<SlotI8><<<1, kThreads, 0, st>>>(qkv, HD, M, ptr, kt + kv_off * HD,
+                                                  ks + kv_off, vc + kv_off * HD, vs + kv_off);
     if ((err = cudaGetLastError())) return err;
     // post-norm with no output projection; an nw block ends here
     add_layer_norm<<<1, kThreads, ln_smem, st>>>(h_out, attn, 1, 1, D, nullptr,

@@ -1,10 +1,12 @@
 // Device building blocks shared by the hand-written decode-step kernels
-// (slab_decode.cu: the genre Transformer-XL step; s2s_slab.cu: the multitask
-// decoder step): bf16 rounding, block reductions, the weight-panel readers,
-// the split-K GEMV / all-rows GEMM and their finishing passes, residual +
-// LayerNorm, the slab self-attention over an int8 slot-major ring and the
-// fresh-slot write. Each .cu includes this header into its own anonymous
-// namespace, so the two libraries share source, not symbols.
+// (slab_decode.cu and multirow_decode.cu: the genre Transformer-XL step;
+// s2s_slab.cu / s2s_fused.cu: the multitask decoder step): bf16 rounding,
+// block reductions, the weight-panel readers, the split-K GEMV / all-rows
+// GEMM and their finishing passes, residual + LayerNorm, the decode
+// self-attention and the fresh-slot write as templates on the cache format,
+// and the genre step's layer chain (decode_step). Each .cu includes this
+// header into its own anonymous namespace, so the libraries share source,
+// not symbols.
 
 #pragma once
 
@@ -288,18 +290,166 @@ add_layer_norm(const float* resid, const float* __restrict__ partial, int KB, in
     out[(size_t)b * N + n] = (xs[n] - mu) * rs * g[n] + beta[n];
 }
 
-// Slab attention, one block per (row b, head h), for one layer.
-// qkv (B, 3HD) f32; wkr (M+1, HD) bf16, row m <-> distance M-m; kt/vc
-// (B, M, HD) int8; ks/vs (B, M) f32; blocked (B, M) int32; attn (B, HD) f32.
-// Each thread owns whole slot rows for the score dot products (16-byte
-// loads, no cross-lane reduction, several rows in flight per block); for
-// P.V each thread owns 4 output columns of one slot group.
+// Cache formats of the decode steps. Each says where layer l's K and V live
+// and how a slot is read and written; slab_attention and kv_slot_write are
+// templates on it, so the slab and multirow steps share one attention.
+//   SlotI8: slot-major int8 K and V (B, M, HD) with per-slot f32 scales (B, M);
+//           the relative table wkr is slot-major (M + 1, HD) bf16.
+//   SlotI4: the same with two slots a byte along M: packed row m holds slot
+//           m in its high nibble and slot m + M/2 in its low one, value + 8.
+// (multirow_decode.cu adds the head-major panel formats.)
+__device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// (q + v) . wkr[row m] for head h of a slot-major (M + 1, HD) table: a whole
+// row per thread in 16-byte loads.
 template <int DH>
+__device__ __forceinline__ float wkr_row_dot(const __nv_bfloat16* wkr, int m, int h, int HD,
+                                             const float* qv) {
+  const uint4* w = reinterpret_cast<const uint4*>(wkr + (size_t)m * HD + h * DH);
+  uint4 w8[DH / 8];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) w8[c] = w[c];
+  float t = 0.f;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w8[c]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(p2[j]);
+      t = fmaf(f.x, qv[c * 8 + 2 * j], t);
+      t = fmaf(f.y, qv[c * 8 + 2 * j + 1], t);
+    }
+  }
+  return t;
+}
+
+// symmetric quantization of one value to +-qmax by its row's scale
+__device__ __forceinline__ float quantize(float x, float s, float qmax) {
+  return fminf(fmaxf(rintf(x / s), -qmax), qmax);
+}
+
+struct SlotI8 {
+  using KT = int8_t;
+  using VT = int8_t;
+  static constexpr bool kScaled = true;
+  static __device__ __forceinline__ float inv_qmax() { return (float)(1.0 / 127.0); }
+  static size_t layer_elems(int B, int M, int HD) { return (size_t)B * M * HD; }
+  template <int DH>
+  static __device__ __forceinline__ float wkr_dot(const __nv_bfloat16* wkr, int m, int h,
+                                                  int M, int HD, const float* qv) {
+    return wkr_row_dot<DH>(wkr, m, h, HD, qv);
+  }
+  template <int DH>
+  static __device__ __forceinline__ float key_dot(const KT* kt, int b, int m, int h, int M,
+                                                  int HD, const float* qu) {
+    const int4* kr = reinterpret_cast<const int4*>(kt + ((size_t)b * M + m) * HD + h * DH);
+    int4 k16[DH / 16];
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) k16[c] = kr[c];
+    float t = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&k16[c]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) t = fmaf((float)kb[j], qu[c * 16 + j], t);
+    }
+    return t;
+  }
+  // V[slot m] at columns col .. col + 3
+  static __device__ __forceinline__ float4 value4(const VT* vc, int b, int m, int col, int M,
+                                                  int HD) {
+    const char4 v4 = *reinterpret_cast<const char4*>(vc + ((size_t)b * M + m) * HD + col);
+    return make_float4((float)v4.x, (float)v4.y, (float)v4.z, (float)v4.w);
+  }
+  static __device__ __forceinline__ void put_k(KT* kt, int b, int j, int M, int HD, int ptr,
+                                               float x, float s) {
+    kt[((size_t)b * M + ptr) * HD + j] = (int8_t)quantize(x, s, 127.f);
+  }
+  static __device__ __forceinline__ void put_v(VT* vc, int b, int j, int M, int HD, int ptr,
+                                               float x, float s) {
+    vc[((size_t)b * M + ptr) * HD + j] = (int8_t)quantize(x, s, 127.f);
+  }
+};
+
+struct SlotI4 {
+  using KT = int8_t;
+  using VT = int8_t;
+  static constexpr bool kScaled = true;
+  static __device__ __forceinline__ float inv_qmax() { return (float)(1.0 / 7.0); }
+  static size_t layer_elems(int B, int M, int HD) { return (size_t)B * (M / 2) * HD; }
+  // the byte of slot m, column col, and the shift of its nibble
+  static __device__ __forceinline__ size_t byte_of(int b, int m, int col, int M, int HD,
+                                                   int* shift) {
+    const int M2 = M / 2;
+    *shift = m < M2 ? 4 : 0;
+    return ((size_t)b * M2 + (m < M2 ? m : m - M2)) * HD + col;
+  }
+  static __device__ __forceinline__ float nibble(int8_t byte, int shift) {
+    return (float)((int)(((unsigned)(uint8_t)byte >> shift) & 15u) - 8);
+  }
+  template <int DH>
+  static __device__ __forceinline__ float wkr_dot(const __nv_bfloat16* wkr, int m, int h,
+                                                  int M, int HD, const float* qv) {
+    return wkr_row_dot<DH>(wkr, m, h, HD, qv);
+  }
+  template <int DH>
+  static __device__ __forceinline__ float key_dot(const KT* kt, int b, int m, int h, int M,
+                                                  int HD, const float* qu) {
+    int shift;
+    const int4* kr = reinterpret_cast<const int4*>(kt + byte_of(b, m, h * DH, M, HD, &shift));
+    int4 k16[DH / 16];
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) k16[c] = kr[c];
+    float t = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&k16[c]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) t = fmaf(nibble(kb[j], shift), qu[c * 16 + j], t);
+    }
+    return t;
+  }
+  static __device__ __forceinline__ float4 value4(const VT* vc, int b, int m, int col, int M,
+                                                  int HD) {
+    int shift;
+    const char4 v4 = *reinterpret_cast<const char4*>(vc + byte_of(b, m, col, M, HD, &shift));
+    return make_float4(nibble(v4.x, shift), nibble(v4.y, shift), nibble(v4.z, shift),
+                       nibble(v4.w, shift));
+  }
+  // read-modify-write of the slot's own nibble; the byte's other nibble is
+  // a live slot that this write leaves as it is
+  static __device__ __forceinline__ void put(int8_t* cache, int b, int j, int M, int HD,
+                                             int ptr, float x, float s) {
+    int shift;
+    uint8_t* p = reinterpret_cast<uint8_t*>(cache) + byte_of(b, ptr, j, M, HD, &shift);
+    const unsigned n4 = (unsigned)(int)(quantize(x, s, 7.f) + 8.f);
+    const unsigned old = *p;
+    *p = (uint8_t)(shift ? ((old & 15u) | (n4 << 4)) : ((old & 240u) | n4));
+  }
+  static __device__ __forceinline__ void put_k(KT* kt, int b, int j, int M, int HD, int ptr,
+                                               float x, float s) {
+    put(kt, b, j, M, HD, ptr, x, s);
+  }
+  static __device__ __forceinline__ void put_v(VT* vc, int b, int j, int M, int HD, int ptr,
+                                               float x, float s) {
+    put(vc, b, j, M, HD, ptr, x, s);
+  }
+};
+
+// Decode attention, one block per (row b, head h), for one layer, over a
+// cache of format F. qkv (B, 3HD) f32; wkr row / column m <-> distance M-m;
+// ks/vs (B, M) f32 (unused by unscaled formats); blocked (B, M) int32; attn
+// (B, HD) f32. Each thread owns whole slot rows for the score dot products
+// (several rows in flight per block, no cross-lane reduction); for P.V each
+// thread owns 4 output columns of one slot group.
+template <int DH, typename F>
 __global__ void __launch_bounds__(kThreads)
 slab_attention(const float* __restrict__ qkv, int H, int M,
                const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ vb,
-               const __nv_bfloat16* __restrict__ wkr, const int8_t* __restrict__ kt,
-               const float* __restrict__ ks, const int8_t* __restrict__ vc,
+               const __nv_bfloat16* __restrict__ wkr, const typename F::KT* __restrict__ kt,
+               const float* __restrict__ ks, const typename F::VT* __restrict__ vc,
                const float* __restrict__ vs, const int32_t* __restrict__ blocked,
                int ptr, float scale, float* __restrict__ attn) {
   constexpr int kColGroups = DH / 4;                 // 4 output columns each
@@ -322,40 +472,14 @@ slab_attention(const float* __restrict__ qkv, int H, int M,
     qv[d] = bf16_round(qb + __bfloat162float(vb[h * DH + d]));
   }
   __syncthreads();
-  for (int m = threadIdx.x; m <= M; m += blockDim.x) {
-    const uint4* w = reinterpret_cast<const uint4*>(wkr + (size_t)m * HD + h * DH);
-    uint4 w8[DH / 8];
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) w8[c] = w[c];
-    float t = 0.f;
-#pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w8[c]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(p2[j]);
-        t = fmaf(f.x, qv[c * 8 + 2 * j], t);
-        t = fmaf(f.y, qv[c * 8 + 2 * j + 1], t);
-      }
-    }
-    sd[m] = t;
-  }
+  for (int m = threadIdx.x; m <= M; m += blockDim.x)
+    sd[m] = F::template wkr_dot<DH>(wkr, m, h, M, HD, qv);
   __syncthreads();
-  const int8_t* krow = kt + (size_t)b * M * HD + h * DH;
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int4* kr = reinterpret_cast<const int4*>(krow + (size_t)m * HD);
-    int4 k16[DH / 16];
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) k16[c] = kr[c];
-    float t = 0.f;
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) {
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&k16[c]);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) t = fmaf((float)kb[j], qu[c * 16 + j], t);
-    }
+    float t = F::template key_dot<DH>(kt, b, m, h, M, HD, qu);
+    if (F::kScaled) t *= ks[(size_t)b * M + m];
     const int src = (m - ptr < 0) ? m - ptr + M : m - ptr;  // roll by ptr
-    const float s = (t * ks[(size_t)b * M + m] + sd[src]) * scale;
+    const float s = (t + sd[src]) * scale;
     sc[m] = blocked[(size_t)b * M + m] ? -1e9f : s;
   }
   if (threadIdx.x == 0) {
@@ -380,17 +504,16 @@ slab_attention(const float* __restrict__ qkv, int H, int M,
   }
   den = block_sum(den, red);  // its barriers also publish sc
   const int c = threadIdx.x % kColGroups, grp = threadIdx.x / kColGroups;
-  const int8_t* vcol = vc + (size_t)b * M * HD + h * DH + 4 * c;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll 4
   for (int i = grp; i < M; i += kSlotGroups) {
     const int m = i < M - ptr ? i + ptr : i + ptr - M;
-    const float ew = bf16_round(sc[m] * vs[(size_t)b * M + m]);
-    const char4 v4 = *reinterpret_cast<const char4*>(vcol + (size_t)m * HD);
-    a0 = fmaf(ew, (float)v4.x, a0);
-    a1 = fmaf(ew, (float)v4.y, a1);
-    a2 = fmaf(ew, (float)v4.z, a2);
-    a3 = fmaf(ew, (float)v4.w, a3);
+    const float ew = bf16_round(F::kScaled ? sc[m] * vs[(size_t)b * M + m] : sc[m]);
+    const float4 v4 = F::value4(vc, b, m, h * DH + 4 * c, M, HD);
+    a0 = fmaf(ew, v4.x, a0);
+    a1 = fmaf(ew, v4.y, a1);
+    a2 = fmaf(ew, v4.z, a2);
+    a3 = fmaf(ew, v4.w, a3);
   }
   float* mine = pv + grp * DH + 4 * c;
   mine[0] = a0;
@@ -405,34 +528,38 @@ slab_attention(const float* __restrict__ qkv, int H, int M,
   }
 }
 
-// Quantize the fresh k1/v1 rows of qkv and write them into slot `ptr` of the
-// layer's slot-major caches; one block per batch row.
+// Write the fresh k1/v1 rows of qkv into slot `ptr` of a layer's caches of
+// format F, one block per batch row: quantized by the row's absmax (scale
+// max(amax, 1e-6) / qmax, round half to even) for scaled formats, rounded
+// to bf16 otherwise.
+template <typename F>
 __global__ void __launch_bounds__(kThreads)
 kv_slot_write(const float* __restrict__ qkv, int HD, int M, int ptr,
-              int8_t* __restrict__ kt, float* __restrict__ ks,
-              int8_t* __restrict__ vc, float* __restrict__ vs) {
+              typename F::KT* __restrict__ kt, float* __restrict__ ks,
+              typename F::VT* __restrict__ vc, float* __restrict__ vs) {
   __shared__ float red[32];
   const int b = blockIdx.x;
   const float* k1 = qkv + (size_t)b * 3 * HD + HD;
   const float* v1 = k1 + HD;
-  float ka = 0.f, va = 0.f;
-  for (int j = threadIdx.x; j < HD; j += blockDim.x) {
-    ka = fmaxf(ka, fabsf(k1[j]));
-    va = fmaxf(va, fabsf(v1[j]));
+  float k_scale = 1.f, v_scale = 1.f;
+  if (F::kScaled) {
+    float ka = 0.f, va = 0.f;
+    for (int j = threadIdx.x; j < HD; j += blockDim.x) {
+      ka = fmaxf(ka, fabsf(k1[j]));
+      va = fmaxf(va, fabsf(v1[j]));
+    }
+    ka = block_max(ka, red);
+    va = block_max(va, red);
+    k_scale = fmaxf(ka, 1e-6f) * F::inv_qmax();
+    v_scale = fmaxf(va, 1e-6f) * F::inv_qmax();
   }
-  ka = block_max(ka, red);
-  va = block_max(va, red);
-  const float inv127 = (float)(1.0 / 127.0);
-  const float k_scale = fmaxf(ka, 1e-6f) * inv127;
-  const float v_scale = fmaxf(va, 1e-6f) * inv127;
-  const size_t slot = (size_t)b * M + ptr;
   for (int j = threadIdx.x; j < HD; j += blockDim.x) {
-    kt[slot * HD + j] = (int8_t)fminf(fmaxf(rintf(k1[j] / k_scale), -127.f), 127.f);
-    vc[slot * HD + j] = (int8_t)fminf(fmaxf(rintf(v1[j] / v_scale), -127.f), 127.f);
+    F::put_k(kt, b, j, M, HD, ptr, k1[j], k_scale);
+    F::put_v(vc, b, j, M, HD, ptr, v1[j], v_scale);
   }
-  if (threadIdx.x == 0) {
-    ks[slot] = k_scale;
-    vs[slot] = v_scale;
+  if (F::kScaled && threadIdx.x == 0) {
+    ks[(size_t)b * M + ptr] = k_scale;
+    vs[(size_t)b * M + ptr] = v_scale;
   }
 }
 
@@ -464,26 +591,127 @@ cudaError_t gemv(bool allrows, const float* x, int B, int K, int N, const WT* W,
   return cudaGetLastError();
 }
 
-template <int DH, typename... Args>
+template <int DH, typename F, typename... Args>
 cudaError_t attention_dh(int blocks, size_t smem, cudaStream_t st, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        slab_attention<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        slab_attention<DH, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  slab_attention<DH><<<blocks, kThreads, smem, st>>>(args...);
+  slab_attention<DH, F><<<blocks, kThreads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename... Args>
+// slab_attention<Dh, F> on B * H blocks; smem from attention_smem
+template <typename F, typename... Args>
 cudaError_t attention(int Dh, int blocks, size_t smem, cudaStream_t st, Args... args) {
   switch (Dh) {
-    case 16: return attention_dh<16>(blocks, smem, st, args...);
-    case 32: return attention_dh<32>(blocks, smem, st, args...);
-    case 64: return attention_dh<64>(blocks, smem, st, args...);
-    case 128: return attention_dh<128>(blocks, smem, st, args...);
+    case 16: return attention_dh<16, F>(blocks, smem, st, args...);
+    case 32: return attention_dh<32, F>(blocks, smem, st, args...);
+    case 64: return attention_dh<64, F>(blocks, smem, st, args...);
+    case 128: return attention_dh<128, F>(blocks, smem, st, args...);
     default: return cudaErrorInvalidValue;
   }
 }
+
+inline size_t attention_smem(int Dh, int M) {
+  return (size_t)(2 * Dh + 2 * (M + 1) + 4 * kThreads) * sizeof(float);
+}
+
+// Float32 scratch of decode_step: qkv (B x 3HD), attn (B x HD), h1 (B x D),
+// ffx (B x Dff) and the split-K partial sums of either weight product.
+inline size_t step_scratch_floats(int B, int D, int Dff, int HD) {
+  return (size_t)B * (3 * HD + HD + D + Dff) + max_partial(B, D, Dff, HD, k_chunk(false));
+}
+
+// Kernel launches decode_step makes per layer besides attend's.
+constexpr int kChainKernelsPerLayer = 8;
+
+// One token step for all B rows through all L layers of the Transformer-XL
+// stack, as a chain of kernels on one stream; h stays in device memory
+// between them. Per layer: qkv = bf16(h) . W_qkv; attend(l, qkv, attn)
+// launches the layer's attention over its cache and then the fresh-slot
+// write (so the write follows every read of the old slot);
+// h1 = LN(h + bf16(attn) . W_out); h = LN(h1 + W_ff2 . act(W_ff1 . h1 + b1) + b2).
+// WT is the weight panels' type (int8 with w_scales, or bf16 with null);
+// `allrows` takes the all-rows GEMM for the four products. scratch holds
+// step_scratch_floats(B, D, Dff, HD) floats. Returns the first CUDA error.
+template <typename WT, typename Attend>
+int decode_step(bool allrows, const WT* qkv_w, const WT* out_w, const WT* ff1_w,
+                const WT* ff2_w, const float* w_scales, const __nv_bfloat16* ff1_b,
+                const __nv_bfloat16* ff2_b, const float* ln1_g, const float* ln1_b,
+                const float* ln2_g, const float* ln2_b, const float* h_in, float* h_out,
+                float* scratch, int L, int B, int D, int Dff, int HD, int smax, int act,
+                cudaStream_t st, Attend attend) {
+  float* qkv = scratch;
+  float* attn = qkv + (size_t)B * 3 * HD;
+  float* h1 = attn + (size_t)B * HD;
+  float* ffx = h1 + (size_t)B * D;
+  float* part = ffx + (size_t)B * Dff;
+  const size_t ln_smem = (size_t)D * sizeof(float);
+  const int ch = k_chunk(allrows);
+  cudaError_t err;
+  if (ln_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(add_layer_norm, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)ln_smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (allrows) {
+    err = cudaFuncSetAttribute(gemm_partial<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kARSmem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaMemcpyAsync(h_out, h_in, (size_t)B * D * sizeof(float),
+                        cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return err;
+  for (int l = 0; l < L; ++l) {
+    // column scales of the layer's qkv / out / ff1 / ff2 panels (int8 only)
+    auto sc = [&](int row) -> const float* {
+      return w_scales != nullptr ? w_scales + ((size_t)l * 8 + row) * smax : nullptr;
+    };
+    // qkv projection
+    if ((err = gemv(allrows, h_out, B, D, 3 * HD, qkv_w + (size_t)l * D * 3 * HD, sc(0), part, st)))
+      return err;
+    gemv_finish<<<ceil_div(B * 3 * HD, kThreads), kThreads, 0, st>>>(
+        part, ceil_div(D, ch), B, 3 * HD, nullptr, kNone, qkv);
+    if ((err = cudaGetLastError())) return err;
+    // attention over the old cache + self, then the fresh slot write
+    if ((err = attend(l, qkv, attn))) return err;
+    // out projection + residual + post-LN
+    if ((err = gemv(allrows, attn, B, HD, D, out_w + (size_t)l * HD * D, sc(1), part, st)))
+      return err;
+    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h_out, part, ceil_div(HD, ch), B, D,
+                                                 nullptr, ln1_g + (size_t)l * D,
+                                                 ln1_b + (size_t)l * D, h1);
+    if ((err = cudaGetLastError())) return err;
+    // feed-forward + residual + post-LN
+    if ((err = gemv(allrows, h1, B, D, Dff, ff1_w + (size_t)l * D * Dff, sc(2), part, st)))
+      return err;
+    gemv_finish<<<ceil_div(B * Dff, kThreads), kThreads, 0, st>>>(
+        part, ceil_div(D, ch), B, Dff, ff1_b + (size_t)l * Dff, act, ffx);
+    if ((err = cudaGetLastError())) return err;
+    if ((err = gemv(allrows, ffx, B, Dff, D, ff2_w + (size_t)l * Dff * D, sc(3), part, st)))
+      return err;
+    add_layer_norm<<<B, kThreads, ln_smem, st>>>(h1, part, ceil_div(Dff, ch), B, D,
+                                                 ff2_b + (size_t)l * D,
+                                                 ln2_g + (size_t)l * D,
+                                                 ln2_b + (size_t)l * D, h_out);
+    if ((err = cudaGetLastError())) return err;
+  }
+  return cudaSuccess;
+}
+
+// Every decode step's C signature (slab_decode.cu, multirow_decode.cu):
+// device pointers into contiguous tensors with the layouts of the Python
+// wrappers in ops/fused_decode.py, then the sizes, the ring pointer, the
+// rows per cell, the score scale, the activation code and the stream.
+#define DECODE_STEP_ARGS(WT, KT)                                                          \
+  const WT *qkv_w, const WT *out_w, const WT *ff1_w, const WT *ff2_w,                    \
+      const float *w_scales, const __nv_bfloat16 *ff1_b, const __nv_bfloat16 *ff2_b,     \
+      const float *ln1_g, const float *ln1_b, const float *ln2_g, const float *ln2_b,    \
+      const __nv_bfloat16 *wkr, const __nv_bfloat16 *u, const __nv_bfloat16 *v, KT *kt,  \
+      float *ks, KT *vc, float *vs, const float *h_in, const int32_t *blocked,           \
+      float *h_out, float *scratch, int L, int B, int D, int Dff, int H, int Dh, int M,  \
+      int smax, int ptr, int rows_per_cell, float scale, int act, void *stream
 
 }  // namespace

@@ -1,27 +1,33 @@
-"""Fused single-token decode step through the whole layer stack.
+"""Fused single-token decode steps through the whole layer stack.
 
 ``fused_slab_core`` advances every batch row by one token through all L
-layers: weight matvecs, attention over an int8 slot-major KV ring with the
+layers: weight matvecs, attention over a slot-major KV ring with the
 relative-position term rolled by the ring pointer, the in-place write of the
 fresh token's quantized K/V into slot ``ptr``, and the post-norm block tail
 with tanh GELU. It replaces the TPU kernel of the same name in
-``deepmusicgeneration_tpu/ops/fused_decode.py`` for ``score_mode="bf16"``
-in two modes: ``slab_w8`` (``weights_int8=True``: int8 weight panels with
-per-column scales) and ``slab`` (``weights_int8=False``: bf16 panels used as
-they are). The int8-score and int4-cache modes are still to port.
+``deepmusicgeneration_tpu/ops/fused_decode.py`` in its five modes:
+``slab_w8`` (int8 weight panels with per-column scales) and ``slab`` (bf16
+panels) over an int8 ring; ``slab_int8`` (bf16 panels, q.K and P.V as
+int8 x int8 products); ``slab4`` / ``slab4_w8`` (an int4 ring, two slots a
+byte, bf16 or int8 panels).
 
-``fused_slab_allrows_core`` computes the same step, with the same cache
-layout and result, in the modes ``slab_ar_w8`` and ``slab_ar``; it replaces
-the TPU kernel of that name. Its CUDA version reads each layer's weights
-once for all B rows (the batched path, B % 8 == 0).
+``fused_slab_allrows_core`` computes the slab step with the same int8 cache
+layout and result, in the modes ``slab_ar_w8`` and ``slab_ar``; its CUDA
+version reads each layer's weights once for all B rows.
+
+``fused_multirow_core`` (``multirow``) and ``fused_multirow_q_core``
+(``multirow_int8``) compute the step over head-major K panels (L, B, HD, M)
+and slot-major V panels, bf16 or int8 with per-slot scales; they replace
+the TPU kernels of those names.
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
-``csrc/slab_decode.cu`` (built with nvcc on first use, bound with ctypes) or
-raises; on a CPU tensor it runs :func:`slab_plain`, the same arithmetic in
-plain PyTorch. Unlike the JAX functions, whose cache operands are donated
-and aliased, the port updates ``kt``/``ks``/``vc``/``vs`` in place and
-returns them. Each wrapper's ``launches`` dict counts its kernel launches
-by mode.
+``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
+first use, bound with ctypes) or raises; on a CPU tensor it runs its plain
+version (:func:`slab_plain`, :func:`multirow_plain`,
+:func:`multirow_q_plain`), the same arithmetic in plain PyTorch. Unlike the
+JAX functions, whose cache operands are donated and aliased, the port
+updates the caches in place (slot ``ptr`` only) and returns them. Each
+wrapper's ``launches`` dict counts its kernel launches by mode.
 """
 
 from __future__ import annotations
@@ -126,6 +132,38 @@ def quantize_kv_slot_major(kt_s: torch.Tensor, vc_s: torch.Tensor):
     return kq, ks, vq, vs
 
 
+def quantize_kv_slot_major_int4(kt_s: torch.Tensor, vc_s: torch.Tensor):
+    """int4 slot-major quantization: (L, B, M, HD) -> packed (L, B, M/2, HD)
+    int8 bytes (slot m high nibble, slot m + M/2 low nibble, nibble = value
+    + 8) plus full-resolution (L, B, M, 1) f32 per-slot scales
+    (max(amax, 1e-6) / 7); bit-identical to the JAX package's quantizer."""
+    M2 = kt_s.shape[2] // 2
+
+    def q(a):
+        a32 = a.to(F32)
+        s = torch.clamp_min(a32.abs().amax(dim=3, keepdim=True), 1e-6) / 7.0
+        q4 = torch.clamp(torch.round(a32 / s), -7, 7).to(torch.int32) + 8
+        packed = (q4[:, :, :M2] << 4) | q4[:, :, M2:]
+        return packed.to(torch.uint8).view(torch.int8).contiguous(), s.contiguous()
+    kq, ks = q(kt_s)
+    vq, vs = q(vc_s)
+    return kq, ks, vq, vs
+
+
+def quantize_kv_panels(kt: torch.Tensor, vc: torch.Tensor):
+    """Quantize head-major K panels (L, B, HD, M) and slot-major V panels
+    (L, B, M, HD) to int8 with per-slot scales max(amax, 1e-6) / 127 over
+    HD, both laid out (L, B, 1, M); bit-identical to the JAX package's
+    quantizer. Returns (kt_q, ks, vc_q, vs)."""
+    k32, v32 = kt.to(F32), vc.to(F32)
+    ks = torch.clamp_min(k32.abs().amax(dim=2, keepdim=True), 1e-6) / 127.0
+    kt_q = torch.clamp(torch.round(k32 / ks), -127, 127).to(torch.int8)
+    vs = torch.clamp_min(v32.abs().amax(dim=3, keepdim=True), 1e-6) / 127.0
+    vc_q = torch.clamp(torch.round(v32 / vs), -127, 127).to(torch.int8)
+    return (kt_q.contiguous(), ks.contiguous(), vc_q.contiguous(),
+            vs[..., 0][:, :, None, :].contiguous())
+
+
 def _ln(x32, g, b, eps=1e-5):
     mu = x32.mean(-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
@@ -145,17 +183,43 @@ def _bf(x, acc=F32):
     return x.to(BF16).to(acc)
 
 
-def slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
-               blocked, ptr: int, acc: torch.dtype = F32):
-    """Plain PyTorch version of the slab step in both weight modes (same
-    arithmetic and rounding points as the kernels); updates the caches in
-    place. ``w_scales`` given: int8 panels dequantized per column and
-    rounded to bf16 (``slab_w8``, ``slab_ar_w8``); ``None``: bf16 panels used
-    as they are (``slab``, ``slab_ar``).
+def _quantize_slot(x, qmax: float):
+    """The fresh token's K or V rows (B, HD) quantized symmetrically to
+    +-``qmax``: (values, scales (B, 1)), the TPU kernels' in-kernel floor
+    max(amax, 1e-6) / qmax."""
+    s = torch.clamp_min(x.abs().amax(1, keepdim=True), 1e-6) * (1.0 / qmax)
+    return torch.clamp(torch.round(x / s), -qmax, qmax), s
 
-    ``acc`` is the dtype of everything between the bf16 cast points: float32,
-    as in the kernels, or float64 for a reference of how far a float32
-    summation order can drift."""
+
+def _unpack_int4(packed, acc):
+    """Packed nibble pairs (B, M/2, HD) -> slot values (B, M, HD) in ``acc``:
+    slot m is the high nibble of packed row m, slot m + M/2 the low one."""
+    x = packed.to(torch.int32) & 255
+    return torch.cat([(x >> 4) - 8, (x & 15) - 8], dim=1).to(acc)
+
+
+def _write_nibbles(cache, l: int, ptr: int, q4):
+    """Read-modify-write of slot ``ptr``'s nibble in its packed row of
+    layer ``l``; the byte's other nibble (the partner slot) is kept."""
+    M2 = cache.shape[2]
+    pm, side = ptr % M2, ptr // M2
+    n4 = (q4 + 8.0).to(torch.int32)
+    old = cache[l, :, pm].to(torch.int32) & 255
+    new = (old & 15) | (n4 << 4) if side == 0 else (old & 240) | n4
+    cache[l, :, pm] = new.to(torch.uint8).view(torch.int8)
+
+
+def _step_plain(stacked, w_scales, cfg, h_in, wkr_mt, blocked, ptr: int, acc,
+                read_kv, write_kv, score_cell=None):
+    """The decode step of every slab and multirow mode in plain PyTorch, with
+    the TPU kernels' arithmetic and bf16 cast points. ``read_kv(l)`` gives
+    layer l's cache as (K (B, M, HD), its per-slot scales (B, M) or None,
+    V (B, M, HD), scales or None) in ``acc``; ``write_kv(l, k1, v1)`` writes
+    the fresh slot after the layer's attention has read the old one.
+    ``score_cell`` None takes q.K and P.V in ``acc`` on the bf16 values; R
+    takes them as int8 x int8 products (``score_mode="int8"``): q quantized
+    with one scale per cell of R rows, the probabilities with one scale per
+    row over all its heads."""
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
     HD = H * Dh
@@ -177,8 +241,17 @@ def slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
         qu = (qb + stacked.u).to(acc).reshape(B, H, Dh)
         qv = (qb + stacked.v).to(acc).reshape(B, H, Dh)
         sd = torch.einsum("mhd,bhd->bhm", wkr_mt[l].to(acc).reshape(M + 1, H, Dh), qv)
-        ac = torch.einsum("bmhd,bhd->bhm", kt[l].to(acc).reshape(B, M, H, Dh), qu)
-        ac = ac * ks[l][:, None, :, 0]
+        K, k_s, V, v_s = read_kv(l)
+        K, V = K.reshape(B, M, H, Dh), V.reshape(B, M, H, Dh)
+        if score_cell is None:
+            ac = torch.einsum("bmhd,bhd->bhm", K, qu)
+            if k_s is not None:
+                ac = ac * k_s[:, None, :]
+        else:
+            qmax = qu.abs().reshape(B // score_cell, -1).amax(1)
+            qs = (torch.clamp_min(qmax, 1e-6) * (1.0 / 127.0)).repeat_interleave(score_cell)
+            q_i = torch.clamp(torch.round(qu / qs[:, None, None]), -127, 127)
+            ac = torch.einsum("bmhd,bhd->bhm", K, q_i) * (k_s * qs[:, None])[:, None, :]
         score = (ac + torch.roll(sd[..., :M], ptr, dims=-1)) * scale
         score = torch.where(masked, NEG_INF, score)
         self_score = ((qu * k1.reshape(B, H, Dh)).sum(-1) + sd[..., M]) * scale
@@ -186,20 +259,102 @@ def slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
         e = torch.exp(score - mx[..., None])
         e_self = torch.exp(self_score - mx)
         denom = e.sum(-1) + e_self
-        pv = torch.einsum("bhm,bmhd->bhd", _bf(e * vs[l][:, None, :, 0], acc),
-                          vc[l].to(acc).reshape(B, M, H, Dh))
+        ev = e if v_s is None else e * v_s[:, None, :]
+        if score_cell is None:
+            pv = torch.einsum("bhm,bmhd->bhd", _bf(ev, acc), V)
+        else:
+            es = torch.clamp_min(ev.amax(dim=(1, 2)), 1e-9) * (1.0 / 127.0)   # (B,)
+            e_i = torch.clamp(torch.round(ev / es[:, None, None]), 0, 127)
+            pv = torch.einsum("bhm,bmhd->bhd", e_i, V) * es[:, None, None]
         attn = (pv + e_self[..., None] * v1.reshape(B, H, Dh)) / denom[..., None]
-
-        for cache, scales, x in ((kt, ks, k1), (vc, vs, v1)):
-            s = torch.clamp_min(x.abs().amax(1, keepdim=True), 1e-6) * (1.0 / 127.0)
-            cache[l, :, ptr] = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
-            scales[l, :, ptr] = s
+        write_kv(l, k1, v1)
 
         h1 = _ln(h + _bf(attn.reshape(B, HD), acc) @ W_out, stacked.ln1_g[l],
                  stacked.ln1_b[l])
         ffx = _act_tanh(_bf(h1, acc) @ W_ff1 + stacked.ff1_b[l].to(acc), cfg.act)
         ffy = _bf(ffx, acc) @ W_ff2 + stacked.ff2_b[l].to(acc)
         h = _ln(h1 + ffy, stacked.ln2_g[l], stacked.ln2_b[l])
+    return h
+
+
+def slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
+               blocked, ptr: int, acc: torch.dtype = F32,
+               score_mode: str = "bf16", rows_per_cell: int = 8,
+               kv_int4: bool = False):
+    """Plain PyTorch version of the slab step in every mode (same
+    arithmetic and rounding points as the kernels); updates the caches in
+    place and returns (h_out, kt, ks, vc, vs). ``w_scales`` given: int8
+    panels dequantized per column and rounded to bf16 (``slab_w8``,
+    ``slab4_w8``, ``slab_ar_w8``); ``None``: bf16 panels used as they are.
+    ``score_mode="int8"`` (``slab_int8``) takes q.K and P.V as int8 x int8
+    products, q quantized per cell of ``rows_per_cell`` rows, so that
+    argument changes the result there and nowhere else. ``kv_int4``
+    (``slab4``, ``slab4_w8``): kt / vc hold packed nibble pairs
+    (L, B, M/2, HD) and the fresh slot is quantized to +-7.
+
+    ``acc`` is the dtype of everything between the bf16 cast points: float32,
+    as in the kernels, or float64 for a reference of how far a float32
+    summation order can drift."""
+    int8_scores = score_mode == "int8"
+
+    def read_kv(l):
+        unpack = (lambda t: _unpack_int4(t[l], acc)) if kv_int4 else (lambda t: t[l].to(acc))
+        return unpack(kt), ks[l][..., 0].to(acc), unpack(vc), vs[l][..., 0].to(acc)
+
+    def write_kv(l, k1, v1):
+        for cache, scales, x in ((kt, ks, k1), (vc, vs, v1)):
+            xq, s = _quantize_slot(x, 7.0 if kv_int4 else 127.0)
+            if kv_int4:
+                _write_nibbles(cache, l, ptr, xq)
+            else:
+                cache[l, :, ptr] = xq.to(torch.int8)
+            scales[l, :, ptr] = s.to(scales.dtype)
+
+    h = _step_plain(stacked, w_scales, cfg, h_in, wkr_mt, blocked, ptr, acc,
+                    read_kv, write_kv, rows_per_cell if int8_scores else None)
+    return h, kt, ks, vc, vs
+
+
+def multirow_plain(stacked, cfg, h_in, wkr_f, kt, vc, blocked, ptr: int,
+                   acc: torch.dtype = F32):
+    """Plain PyTorch version of the ``multirow`` step over bf16 head-major
+    panels: kt (L, B, HD, M), vc (L, B, M, HD), wkr_f (L, HD, M+1). The
+    fresh k1 / v1 go into slot ``ptr`` as bf16, in place, after the
+    attention has read the old slot. Returns (h_out, kt, vc)."""
+    def read_kv(l):
+        return kt[l].transpose(1, 2).to(acc), None, vc[l].to(acc), None
+
+    def write_kv(l, k1, v1):
+        kt[l, :, :, ptr] = k1.to(kt.dtype)
+        vc[l, :, ptr] = v1.to(vc.dtype)
+
+    h = _step_plain(stacked, None, cfg, h_in, wkr_f.transpose(1, 2), blocked, ptr,
+                    acc, read_kv, write_kv)
+    return h, kt, vc
+
+
+def multirow_q_plain(stacked, cfg, h_in, wkr_f, kt, ks, vc, vs, blocked,
+                     ptr: int, acc: torch.dtype = F32):
+    """Plain PyTorch version of the ``multirow_int8`` step: int8 head-major
+    panels kt (L, B, HD, M), vc (L, B, M, HD) with per-slot scales ks, vs
+    (L, B, 1, M); ks scales the scores after the product, vs folds into the
+    probabilities before their bf16 cast. The fresh slot is quantized
+    (max(amax, 1e-6) / 127) into slot ``ptr`` in place. Returns (h_out, kt,
+    ks, vc, vs)."""
+    def read_kv(l):
+        return (kt[l].transpose(1, 2).to(acc), ks[l][:, 0].to(acc), vc[l].to(acc),
+                vs[l][:, 0].to(acc))
+
+    def write_kv(l, k1, v1):
+        kq, k_s = _quantize_slot(k1, 127.0)
+        vq, v_s = _quantize_slot(v1, 127.0)
+        kt[l, :, :, ptr] = kq.to(torch.int8)
+        vc[l, :, ptr] = vq.to(torch.int8)
+        ks[l, :, 0, ptr] = k_s[:, 0].to(ks.dtype)
+        vs[l, :, 0, ptr] = v_s[:, 0].to(vs.dtype)
+
+    h = _step_plain(stacked, None, cfg, h_in, wkr_f.transpose(1, 2), blocked, ptr,
+                    acc, read_kv, write_kv)
     return h, kt, ks, vc, vs
 
 
@@ -218,70 +373,87 @@ def _check(name, t, dtype, shape, device):
 
 _ACT_CODES = {"gelu": 1, "relu": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# every step function's C signature: 22 device pointers, L B D Dff H Dh M
+# smax ptr rows_per_cell, scale, act, stream
+_STEP_ARGTYPES = [_P] * 22 + [_I] * 10 + [ctypes.c_float, _I, _P]
+SLAB_MODES = ("slab_w8", "slab_ar_w8", "slab", "slab_ar", "slab_int8", "slab4",
+              "slab4_w8")
+MULTIROW_MODES = ("multirow", "multirow_int8")
 
 
 @functools.lru_cache(maxsize=None)
-def _slab_lib() -> ctypes.CDLL:
-    lib = _build.load("slab_decode")
-    for step in (lib.slab_w8_step, lib.slab_ar_w8_step, lib.slab_step,
-                 lib.slab_ar_step):
+def _lib(source: str) -> ctypes.CDLL:
+    """Build and load ``csrc/<source>.cu``'s library (slab_decode or
+    multirow_decode) and declare its functions: one ``<mode>_step`` per
+    mode, and ``<source>_scratch_floats``, ``<source>_kernels_per_step``,
+    ``<source>_error_string``."""
+    lib = _build.load(source)
+    for mode in SLAB_MODES if source == "slab_decode" else MULTIROW_MODES:
+        step = getattr(lib, f"{mode}_step")
         step.restype = ctypes.c_int
-        step.argtypes = [_P] * 22 + [_I] * 9 + [ctypes.c_float, _I, _P]
-    lib.slab_w8_scratch_floats.restype = ctypes.c_size_t
-    lib.slab_w8_scratch_floats.argtypes = [_I] * 4
-    lib.slab_w8_kernels_per_step.restype = ctypes.c_int
-    lib.slab_w8_kernels_per_step.argtypes = [_I]
-    lib.slab_w8_error_string.restype = ctypes.c_char_p
-    lib.slab_w8_error_string.argtypes = [_I]
+        step.argtypes = _STEP_ARGTYPES
+    for name, restype, argtypes in (("scratch_floats", ctypes.c_size_t, [_I] * 7),
+                                    ("kernels_per_step", ctypes.c_int, [_I] * 2),
+                                    ("error_string", ctypes.c_char_p, [_I])):
+        fn = getattr(lib, f"{source}_{name}")
+        fn.restype, fn.argtypes = restype, argtypes
     return lib
 
 
-def kernels_per_step(n_layers: int) -> int:
-    """CUDA kernel launches inside one ``fused_slab_core`` or
-    ``fused_slab_allrows_core`` launch (any mode)."""
-    return _slab_lib().slab_w8_kernels_per_step(n_layers)
+def _source(mode: str) -> str:
+    return "multirow_decode" if mode in MULTIROW_MODES else "slab_decode"
 
 
-def _launch_slab(mode: str, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks,
-                 vc, vs, blocked, ptr: int):
-    """Run ``csrc/slab_decode.cu``'s ``<mode>_step`` (slab_w8, slab_ar_w8,
-    slab or slab_ar; ``w_scales`` is None for the bf16 modes)."""
-    lib = _slab_lib()
+def kernels_per_step(n_layers: int, mode: str = "slab_w8") -> int:
+    """CUDA kernel launches inside one wrapper launch of ``mode`` (any of
+    :data:`SLAB_MODES` and :data:`MULTIROW_MODES`)."""
+    source = _source(mode)
+    return getattr(_lib(source), f"{source}_kernels_per_step")(
+        n_layers, int(mode == "slab_int8"))
+
+
+def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
+            blocked, ptr: int, rows_per_cell: int):
+    """Run ``<mode>_step`` of ``csrc/slab_decode.cu`` or
+    ``csrc/multirow_decode.cu`` on the card; ``w_scales`` is None for bf16
+    weight panels, ``ks`` / ``vs`` None for bf16 caches. Returns h_out."""
+    source = _source(mode)
+    lib = _lib(source)
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
     B, M = blocked.shape
     dev = h_in.device
     h_out = torch.empty((B, D), dtype=F32, device=dev)
-    scratch = torch.empty(lib.slab_w8_scratch_floats(B, D, Dff, H * Dh),
-                          dtype=F32, device=dev)
+    n_scratch = getattr(lib, f"{source}_scratch_floats")(
+        B, D, Dff, H, Dh, M, int(mode == "slab_int8"))
+    scratch = torch.empty(n_scratch, dtype=F32, device=dev)
     scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
     ptrs = [stacked.qkv_w, stacked.out_w, stacked.ff1_w, stacked.ff2_w, w_scales,
             stacked.ff1_b, stacked.ff2_b, stacked.ln1_g, stacked.ln1_b,
-            stacked.ln2_g, stacked.ln2_b, wkr_mt, stacked.u, stacked.v,
+            stacked.ln2_g, stacked.ln2_b, wkr, stacked.u, stacked.v,
             kt, ks, vc, vs, h_in, blocked, h_out, scratch]
     smax = 0 if w_scales is None else w_scales.shape[2]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{mode}_step")(
             *[None if t is None else t.data_ptr() for t in ptrs],
-            L, B, D, Dff, H, Dh, M, smax, ptr,
+            L, B, D, Dff, H, Dh, M, smax, ptr, rows_per_cell,
             scale, _ACT_CODES[cfg.act], stream)
     if err != 0:
-        raise RuntimeError(f"{mode} kernel failed: CUDA error {err} "
-                           f"({lib.slab_w8_error_string(err).decode()})")
-    return h_out, kt, ks, vc, vs
+        reason = getattr(lib, f"{source}_error_string")(err).decode()
+        raise RuntimeError(f"{mode} kernel failed: CUDA error {err} ({reason})")
+    return h_out
 
 
-def _check_step_inputs(stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked,
-                       ptr: int, mem_len: int, rows_per_cell: int,
-                       weights_int8: bool, w_scales):
-    """Validate the operands of either slab step; returns the device."""
+def _check_common(stacked, cfg, h_in, blocked, ptr: int, mem_len: int,
+                  rows_per_cell: int, weights_int8: bool, w_scales):
+    """Validate the operands every decode step shares (weights, h_in,
+    blocked, ptr, the row tiling); returns the device."""
     if weights_int8 and w_scales is None:
         raise ValueError("weights_int8=True requires w_scales (from "
                          "quantize_stacked_weights)")
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
-    H, Dh, M = cfg.n_heads, cfg.d_head, mem_len
-    HD = H * Dh
+    HD, M = cfg.n_heads * cfg.d_head, mem_len
     B = h_in.shape[0]
     if B % rows_per_cell:
         raise ValueError(f"rows_per_cell={rows_per_cell} must divide batch {B}")
@@ -306,22 +478,39 @@ def _check_step_inputs(stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked,
             ("u", stacked.u, BF16, (1, HD)),
             ("v", stacked.v, BF16, (1, HD)),
             ("h_in", h_in, F32, (B, D)),
-            ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
-            ("kt", kt, torch.int8, (L, B, M, HD)),
-            ("ks", ks, F32, (L, B, M, 1)),
-            ("vc", vc, torch.int8, (L, B, M, HD)),
-            ("vs", vs, F32, (L, B, M, 1)),
             ("blocked", blocked, torch.int32, (B, M))]
     if weights_int8:
         checks.append(("w_scales", w_scales, F32, (L, 8, smax)))
     for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
     if dev.type == "cuda" and not kernel_accepts(cfg):
-        raise ValueError(f"the slab kernels need d_head in {KERNEL_HEAD_DIMS} "
+        raise ValueError(f"the decode kernels need d_head in {KERNEL_HEAD_DIMS} "
                          "and widths that are multiples of 4")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _check_caches(dev, *checks):
+    for name, t, dtype, shape in checks:
+        _check(name, t, dtype, shape, dev)
+
+
+def _slab_mode(score_mode: str, weights_int8: bool, kv_int4: bool) -> str:
+    if score_mode not in ("bf16", "int8"):
+        raise ValueError(f"score_mode {score_mode!r}: 'bf16' or 'int8'")
+    if score_mode == "int8":
+        if kv_int4:
+            raise ValueError("kv_int4 supports score_mode='bf16' only")
+        if weights_int8:
+            raise NotImplementedError(
+                "score_mode='int8' with int8 weight panels is none of the JAX "
+                "engine's modes and is not ported; slab_int8 takes bf16 panels "
+                "(ROADMAP.md)")
+        return "slab_int8"
+    if kv_int4:
+        return "slab4_w8" if weights_int8 else "slab4"
+    return "slab_w8" if weights_int8 else "slab"
 
 
 def fused_slab_core(
@@ -329,9 +518,9 @@ def fused_slab_core(
     cfg,
     h_in: torch.Tensor,       # (B, D) fp32
     wkr_mt: torch.Tensor,     # (L, M+1, HD) bf16
-    kt: torch.Tensor,         # (L, B, M, HD) int8
+    kt: torch.Tensor,         # (L, B, M, HD) int8; (L, B, M/2, HD) with kv_int4
     ks: torch.Tensor,         # (L, B, M, 1) fp32
-    vc: torch.Tensor,         # (L, B, M, HD) int8
+    vc: torch.Tensor,         # (L, B, M, HD) int8; (L, B, M/2, HD) with kv_int4
     vs: torch.Tensor,         # (L, B, M, 1) fp32
     blocked: torch.Tensor,    # (B, M) int32
     ptr: int,                 # ring slot to overwrite, 0 <= ptr < M
@@ -345,32 +534,44 @@ def fused_slab_core(
     """Slab-write decode core. Returns (h_out, kt, ks, vc, vs), the caches
     updated in place in slot ``ptr``.
 
-    Ported: ``score_mode="bf16"`` without ``kv_int4``, with int8 weights
-    (``weights_int8=True``, ``slab_w8``) or bf16 weights (``slab``; any
-    ``w_scales`` is ignored, as in the JAX function). ``rows_per_cell`` is
-    the TPU kernel's row tiling; it is checked to divide the batch, as
-    there, and does not change the result.
+    Five modes, as the JAX function's arguments select them: ``slab_w8``
+    (``weights_int8=True``: int8 panels and ``w_scales``) and ``slab`` (bf16
+    panels; any ``w_scales`` is ignored, as in the JAX function);
+    ``slab_int8`` (``score_mode="int8"``, bf16 panels): q.K and P.V as
+    int8 x int8 products; ``slab4`` / ``slab4_w8`` (``kv_int4``, bf16 or
+    int8 panels): K/V hold two slots a byte, M % 64 == 0. ``rows_per_cell``
+    is the TPU kernel's row tiling and must divide the batch; it changes the
+    result in ``slab_int8`` only, where q is quantized with one scale per
+    cell of that many rows.
     """
-    if score_mode != "bf16" or kv_int4:
-        raise NotImplementedError(
-            "only the slab and slab_w8 modes (score_mode='bf16', "
-            "kv_int4=False) are ported; slab_int8, slab4 and slab4_w8 are "
-            "still to port (ROADMAP.md)")
     ptr = int(ptr)
+    mode = _slab_mode(score_mode, weights_int8, kv_int4)
     w_scales = w_scales if weights_int8 else None
-    args = (stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked, ptr)
-    dev = _check_step_inputs(*args, mem_len, rows_per_cell, weights_int8, w_scales)
+    dev = _check_common(stacked, cfg, h_in, blocked, ptr, mem_len, rows_per_cell,
+                        weights_int8, w_scales)
+    L, HD, M, B = cfg.n_layers, cfg.n_heads * cfg.d_head, mem_len, h_in.shape[0]
+    if kv_int4 and M % 64:
+        raise ValueError(f"kv_int4 packs slot pairs in 32-row tiles: mem_len {M} "
+                         "must be a multiple of 64")
+    m_kv = M // 2 if kv_int4 else M
+    _check_caches(dev, ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
+                  ("kt", kt, torch.int8, (L, B, m_kv, HD)),
+                  ("ks", ks, F32, (L, B, M, 1)),
+                  ("vc", vc, torch.int8, (L, B, m_kv, HD)),
+                  ("vs", vs, F32, (L, B, M, 1)))
     if dev.type == "cpu":
-        return slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
-                          vs, blocked, ptr)
-    mode = "slab_w8" if weights_int8 else "slab"
-    out = _launch_slab(mode, stacked, w_scales, *args[1:])
+        return slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
+                          blocked, ptr, score_mode=score_mode,
+                          rows_per_cell=rows_per_cell, kv_int4=kv_int4)
+    h_out = _launch(mode, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
+                    blocked, ptr, rows_per_cell)
     fused_slab_core.launches[mode] += 1
-    return out
+    return h_out, kt, ks, vc, vs
 
 
 # kernel launches by mode (CUDA tensors only)
-fused_slab_core.launches = {"slab_w8": 0, "slab": 0}
+fused_slab_core.launches = {"slab_w8": 0, "slab": 0, "slab_int8": 0, "slab4": 0,
+                            "slab4_w8": 0}
 
 
 def fused_slab_allrows_core(
@@ -392,25 +593,108 @@ def fused_slab_allrows_core(
     """All-rows slab decode core. Returns (h_out, kt, ks, vc, vs), the caches
     updated in place in slot ``ptr``.
 
-    The same contract and cache layout as :func:`fused_slab_core`; on the
-    card each layer's weights are read once for all B rows. Both weight
-    modes are ported: ``slab_ar_w8`` (``weights_int8=True``) and ``slab_ar``
-    (bf16 panels; any ``w_scales`` is ignored). ``rows_per_cell`` is the TPU
-    kernel's KV streaming group (``min(rows_per_cell, B)`` rows); it is
-    checked to divide the batch, as there, and does not change the result."""
+    The same contract and cache layout as :func:`fused_slab_core`'s bf16-score
+    int8 modes; on the card each layer's weights are read once for all B
+    rows. Both weight modes are ported: ``slab_ar_w8`` (``weights_int8=True``)
+    and ``slab_ar`` (bf16 panels; any ``w_scales`` is ignored).
+    ``rows_per_cell`` is the TPU kernel's KV streaming group
+    (``min(rows_per_cell, B)`` rows); it is checked to divide the batch, as
+    there, and does not change the result (the scores are bf16 products)."""
     ptr = int(ptr)
     w_scales = w_scales if weights_int8 else None
-    args = (stacked, cfg, h_in, wkr_mt, kt, ks, vc, vs, blocked, ptr)
-    dev = _check_step_inputs(*args, mem_len, min(rows_per_cell, h_in.shape[0]),
-                             weights_int8, w_scales)
+    R = min(rows_per_cell, h_in.shape[0])
+    dev = _check_common(stacked, cfg, h_in, blocked, ptr, mem_len, R,
+                        weights_int8, w_scales)
+    L, HD, M, B = cfg.n_layers, cfg.n_heads * cfg.d_head, mem_len, h_in.shape[0]
+    _check_caches(dev, ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
+                  ("kt", kt, torch.int8, (L, B, M, HD)), ("ks", ks, F32, (L, B, M, 1)),
+                  ("vc", vc, torch.int8, (L, B, M, HD)), ("vs", vs, F32, (L, B, M, 1)))
     if dev.type == "cpu":
         return slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc,
                           vs, blocked, ptr)
     mode = "slab_ar_w8" if weights_int8 else "slab_ar"
-    out = _launch_slab(mode, stacked, w_scales, *args[1:])
+    h_out = _launch(mode, stacked, w_scales, cfg, h_in, wkr_mt, kt, ks, vc, vs,
+                    blocked, ptr, R)
     fused_slab_allrows_core.launches[mode] += 1
-    return out
+    return h_out, kt, ks, vc, vs
 
 
 # kernel launches by mode (CUDA tensors only)
 fused_slab_allrows_core.launches = {"slab_ar_w8": 0, "slab_ar": 0}
+
+
+def fused_multirow_core(
+    stacked: StackedTXL,
+    cfg,
+    h_in: torch.Tensor,       # (B, D) fp32
+    wkr_f: torch.Tensor,      # (L, HD, M+1) bf16 flattened W_kr panels
+    kt: torch.Tensor,         # (L, B, HD, M) bf16 head-major K panels
+    vc: torch.Tensor,         # (L, B, M, HD) bf16
+    blocked: torch.Tensor,    # (B, M) int32
+    ptr: int,
+    mem_len: int,
+    rows_per_cell: int = 8,
+):
+    """The ``multirow`` decode core over bf16 panels (any M). Returns (h_out,
+    kt, vc), the fresh k1 / v1 written as bf16 into slot ``ptr`` in place;
+    the TPU kernel rewrites every panel block with the slot merged in, the
+    port writes the slot alone. bf16 weight panels. ``rows_per_cell`` is the
+    TPU kernel's row tiling: it must divide the batch and does not change
+    the result."""
+    ptr = int(ptr)
+    dev = _check_common(stacked, cfg, h_in, blocked, ptr, mem_len, rows_per_cell,
+                        False, None)
+    L, HD, M, B = cfg.n_layers, cfg.n_heads * cfg.d_head, mem_len, h_in.shape[0]
+    _check_caches(dev, ("wkr_f", wkr_f, BF16, (L, HD, M + 1)),
+                  ("kt", kt, BF16, (L, B, HD, M)), ("vc", vc, BF16, (L, B, M, HD)))
+    if dev.type == "cpu":
+        return multirow_plain(stacked, cfg, h_in, wkr_f, kt, vc, blocked, ptr)
+    h_out = _launch("multirow", stacked, None, cfg, h_in, wkr_f, kt, None, vc, None,
+                    blocked, ptr, rows_per_cell)
+    fused_multirow_core.launches["multirow"] += 1
+    return h_out, kt, vc
+
+
+fused_multirow_core.launches = {"multirow": 0}
+
+
+def fused_multirow_q_core(
+    stacked: StackedTXL,
+    cfg,
+    h_in: torch.Tensor,       # (B, D) fp32
+    wkr_f: torch.Tensor,      # (L, HD, M+1) bf16
+    kt: torch.Tensor,         # (L, B, HD, M) int8
+    ks: torch.Tensor,         # (L, B, 1, M) fp32
+    vc: torch.Tensor,         # (L, B, M, HD) int8
+    vs: torch.Tensor,         # (L, B, 1, M) fp32
+    blocked: torch.Tensor,    # (B, M) int32
+    ptr: int,
+    mem_len: int,
+    rows_per_cell: int = 8,
+):
+    """The ``multirow_int8`` decode core over int8 panels with per-slot
+    scales (from :func:`quantize_kv_panels`). Returns (h_out, kt, ks, vc,
+    vs), the fresh slot quantized into slot ``ptr`` in place. bf16 weight
+    panels; ``rows_per_cell`` as in :func:`fused_multirow_core`."""
+    ptr = int(ptr)
+    dev = _check_common(stacked, cfg, h_in, blocked, ptr, mem_len, rows_per_cell,
+                        False, None)
+    L, HD, M, B = cfg.n_layers, cfg.n_heads * cfg.d_head, mem_len, h_in.shape[0]
+    _check_caches(dev, ("wkr_f", wkr_f, BF16, (L, HD, M + 1)),
+                  ("kt", kt, torch.int8, (L, B, HD, M)), ("ks", ks, F32, (L, B, 1, M)),
+                  ("vc", vc, torch.int8, (L, B, M, HD)), ("vs", vs, F32, (L, B, 1, M)))
+    if dev.type == "cpu":
+        return multirow_q_plain(stacked, cfg, h_in, wkr_f, kt, ks, vc, vs, blocked, ptr)
+    h_out = _launch("multirow_int8", stacked, None, cfg, h_in, wkr_f, kt, ks, vc, vs,
+                    blocked, ptr, rows_per_cell)
+    fused_multirow_q_core.launches["multirow_int8"] += 1
+    return h_out, kt, ks, vc, vs
+
+
+fused_multirow_q_core.launches = {"multirow_int8": 0}
+
+# The JAX package's jitted standalone wrappers of the three cores: PyTorch
+# runs eagerly, so here they are the cores themselves (ptr an int).
+fused_slab_decode = fused_slab_core
+fused_multirow_q_decode = fused_multirow_q_core
+fused_multirow_decode = fused_multirow_core

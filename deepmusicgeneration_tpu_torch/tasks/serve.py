@@ -17,7 +17,7 @@ Requests sharing (n_words, temperatures, top_k, top_p, min_bars, greedy)
 ride the same batch. The service runs on the engine's one device. The JAX
 package's multi-chip branch (``mesh="auto"``, batches split over the chips)
 is not carried; it belongs to the parallelism work (ROADMAP.md Queue 1,
-item 11).
+item 14).
 """
 
 from __future__ import annotations

@@ -198,6 +198,77 @@ def test_slab_kernels_against_float64(seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode,batches,rows", [
+    ("slab_int8", (1, 16), None), ("slab_int8", (16,), 4), ("slab4", (1, 16), None),
+    ("slab4", (16,), 16), ("slab4_w8", (3,), None), ("multirow", (1, 16), None),
+    ("multirow_int8", (1, 16), None)])
+def test_explicit_modes_against_float64(mode, batches, rows):
+    """The explicit modes' kernels at the demo checkpoint's widths, every
+    case of chip_smoke.py's kernel phase held to its float64 check
+    (``chip_smoke.check_case`` raises on a disagreement)."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    dh, ratio = cs.kernel_phase(engine, cs.wkr_table(engine), np.random.default_rng(7),
+                                dev, mode, batches, rows)
+    print(f"{mode} B in {batches} R {rows}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [3, 4, 5, 6])
+def test_slab_int8_against_float64_flagship(seed):
+    """slab_int8 at the flagship's widths over more card draws than the
+    smoke's (B in {1, 64}, every ptr and ring), each case held to the
+    float64 check with slab_int8's own two-step cap; prints the largest
+    share of its bound each distance took."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(str(cs.CKPT)).engine
+    wkr_mt, largest, bad = cs.wkr_table(engine), {}, []
+    for B, ptr, kind, kv, blocked, h_in in cs.kernel_cases(
+            engine, np.random.default_rng(seed), dev, (1, 64), "slab_int8"):
+        args = ("slab_int8", engine, wkr_mt, kv, blocked, h_in, ptr)
+        ref, f32 = cs.plain_step(*args), cs.plain_step(*args, acc=torch.float32)
+        got = cs.run_step(*args)
+        torch.cuda.synchronize()
+        kernel = cs.step_diff(got, ref, kv, ptr, "slab_int8")
+        plain = cs.step_diff(f32, ref, kv, ptr, "slab_int8")
+        limit = cs.bounds("slab_int8", plain)
+        for metric, i in cs.DRIFT_METRICS:
+            largest[metric] = max(largest.get(metric, 0.0), kernel[i] / limit[metric])
+        if not cs.within_bounds("slab_int8", kernel, plain):
+            bad.append((B, ptr, kind, kernel[:5], plain[:5]))
+    print(f"seed {seed} slab_int8 largest distance over its bound: {largest}")
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,rows,kv_int8", [
+    ("slab_int8", None, False), ("slab4", 4, False), ("slab4_w8", None, False),
+    ("multirow", None, False), ("multirow_int8", None, False), ("multirow", None, True)])
+def test_explicit_mode_paths_go_through_the_kernel(kernel, rows, kv_int8):
+    """generate_batch of 8 prompts with an explicit mode launches its kernel
+    once a step and the flash prefill once a layer; the outputs re-parse.
+    multirow with kv_int8 runs the multirow_int8 step, as in JAX."""
+    _card()
+    import chip_smoke as cs
+    learner = MusicLearner.load(DEMO)
+    vocab = learner.vocab
+    items = [MusicItem.from_file(cs.prompt_midi(s, vocab), vocab).set_genre("jazz")
+             .remove_eos() for s in range(8)]
+    cs.reset_launches()
+    toks, lengths = learner.engine.generate_batch(
+        [it.data for it in items], n_words=16, seed=3, decode_kernel=kernel,
+        rows_per_cell=rows, kv_int8=kv_int8)
+    ran = "multirow_int8" if kv_int8 else kernel
+    assert cs.launches() == cs.only(**{ran: 16}, flash_prefill=learner.cfg.n_layers)
+    for i, it in enumerate(items):
+        cs.check_continuation(it, toks[i][: lengths[i]], vocab)
+
+
+@pytest.mark.cuda
 def test_main_path_goes_through_the_kernel():
     """predict_nw_genre at B = 1 on the card runs slab_w8 once per step."""
     _card()

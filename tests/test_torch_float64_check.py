@@ -55,9 +55,8 @@ DRIFTS = {"ring": "part", "ptr": 31, "bias_std": 0.1}
 FAULTS = {
     ("genre", "self_dropped"): (fd.slab_plain, "e_self = torch.exp(self_score - mx)",
                                 "e_self = torch.zeros_like(mx)", SHORT),
-    ("genre", "vsc_neighbour"): (fd.slab_plain, "_bf(e * vs[l][:, None, :, 0], acc)",
-                                 "_bf(e * torch.roll(vs[l], 1, dims=1)[:, None, :, 0], acc)",
-                                 SHORT),
+    ("genre", "vsc_neighbour"): (fd.slab_plain, "e * v_s[:, None, :]",
+                                 "e * torch.roll(v_s, 1, dims=1)[:, None, :]", SHORT),
     ("s2s", "self_dropped"): (fs.s2s_slab_plain, "e_self = torch.exp(self_score - mx)",
                               "e_self = torch.zeros_like(mx)", SHORT),
     ("s2s", "vsc_neighbour"): (fs.s2s_slab_plain, "_bf(e * vsc[l, 0, :, 0], acc)",
@@ -70,11 +69,23 @@ FAULTS = {
 
 
 def _mutant(fn, old: str, new: str):
-    """``fn`` recompiled from its source with the one line ``old`` replaced."""
-    src = textwrap.dedent(inspect.getsource(fn))
-    assert src.count(old) == 1, old
+    """``fn`` recompiled from its source with the one line ``old`` replaced.
+    Where that line is in a module function that ``fn`` calls (the genre
+    plain versions share ``fused_decode._step_plain``), that function is
+    recompiled with the fault and ``fn`` recompiled to call it."""
     namespace = dict(fn.__globals__)
-    exec(compile(src.replace(old, new), f"<{fn.__name__} with a fault>", "exec"), namespace)
+    target = fn
+    if old not in inspect.getsource(fn):
+        target = next(namespace[n] for n in fn.__code__.co_names
+                      if inspect.isfunction(namespace.get(n))
+                      and old in inspect.getsource(namespace[n]))
+    src = textwrap.dedent(inspect.getsource(target))
+    assert src.count(old) == 1, old
+    exec(compile(src.replace(old, new), f"<{target.__name__} with a fault>", "exec"),
+         namespace)
+    if target is not fn:
+        exec(compile(textwrap.dedent(inspect.getsource(fn)), f"<{fn.__name__}>", "exec"),
+             namespace)
     return namespace[fn.__name__]
 
 
