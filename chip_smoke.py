@@ -148,6 +148,26 @@ non-zero without printing a result):
    fused launch a token step; every output re-parses with no grammar
    violation; 64 greedy steps of each task on the demo equal those of the
    exact ring step, or diverge first at a near-tie (FUSED_LOGITS_ATOL / RTOL).
+23. row 10 kernel — from an rng of their own (ROW10_CASE_BATCHES):
+   ``fused_stack_decode`` (B = 1, the token in row 0 of an 8-row h block,
+   rows 1-7 of h_out bit for bit those of h_in), ``fused_batched_decode``
+   (B in {1, 16, 64}) at ptr in {0, 31, M/2, M - 1}, and the int8-score
+   slab step over int8 panels (``slab_int8_w8``, B in {1, 64}, slab_int8's
+   two-step cap), each on every kind of RINGS against a float64 run of its
+   plain version by the float64 check.
+24. row 10 timing — CUDA-event medians of both row-10 steps at B = 1, 16
+   and 64 and of ``slab_int8_w8`` at B = 1 and 64, and of their plain
+   versions, beside the bound.
+25. stack — the path of the JAX package's row-10 tests at full width, one
+   prompt at B = 1 (materialized prefill) and the batch cell's 16 at B = 16
+   (flash prefill): ``txl.prefill``, ``ring_from_prefill``,
+   ``precompute_wkr``, ``stack_txl_layers``, the transposed caches, then
+   256 greedy steps (``sample_next_token``, the grammar mask) of one launch
+   each, every step's logits within STACK_LOGITS_ATOL / RTOL of the exact
+   ``txl.decode_step_ring`` fed the same tokens, the argmax equal where the
+   exact top two are STACK_ARGMAX_GAP apart; every continuation re-parses.
+   No engine mode reaches row 10, and no path runs ``slab_int8_w8`` (its
+   launches are 0 in the JSON line).
 
 A ``time:`` line after each phase says how long it took. Then one JSON line
 with every kernel, and the last line
@@ -183,7 +203,11 @@ from deepmusicgeneration_tpu_torch.codec.item import MultitrackItem, MusicItem
 from deepmusicgeneration_tpu_torch.codec.validate import is_valid_npenc, roundtrip_ok
 from deepmusicgeneration_tpu_torch.decode.continuous import (ContinuousEngine,
                                                             ContinuousGenerationService)
-from deepmusicgeneration_tpu_torch.decode.engine import INT8_WEIGHT_KERNELS, _bucket
+from deepmusicgeneration_tpu_torch.codec import grammar
+from deepmusicgeneration_tpu_torch.codec.index import position_enc
+from deepmusicgeneration_tpu_torch.decode.engine import (INT8_WEIGHT_KERNELS, SampleState,
+                                                         SamplerSettings, _bucket,
+                                                         _past_80pct, sample_next_token)
 from deepmusicgeneration_tpu_torch.models import multitask as mt
 from deepmusicgeneration_tpu_torch.models import txl
 from deepmusicgeneration_tpu_torch.models.config import btp_phase1_config, multitask_config
@@ -245,7 +269,8 @@ H_ATOL = 5e-2
 # int4 slot is a nibble (1/7 of the row's largest), of a bf16 slot 2^-7 of
 # the row's largest (one ulp of it at most)
 SLOT_MAX_STEP = {"slab_w8": 1, "slab_ar_w8": 2, "slab": 2, "slab_ar": 2, "slab_int8": 2,
-                 "slab4": 2, "slab4_w8": 2, "multirow": 2, "multirow_int8": 2}
+                 "slab4": 2, "slab4_w8": 2, "multirow": 2, "multirow_int8": 2,
+                 "slab_int8_w8": 2, "fused_stack": 2, "fused_batched": 2}
 TWO_STEP_SHARE_CAP = 1.1e-4
 # slab_int8 rounds each row's probabilities (times the V scales) to 7 bits.
 # The kernel's and the plain version's float32 scores differ in their last
@@ -259,7 +284,7 @@ TWO_STEP_SHARE_CAP = 1.1e-4
 # two-step share reached 1.2e-2 there over 96 card draws (PERF.md). Its
 # cap is 5e-2; the faults of tests/test_torch_slab_modes.py move
 # about half the written entries two steps or more.
-TWO_STEP_SHARE_CAP_BY_MODE = {"slab_int8": 5e-2}
+TWO_STEP_SHARE_CAP_BY_MODE = {"slab_int8": 5e-2, "slab_int8_w8": 5e-2}
 SCALE_RTOL = 1e-2
 PLAIN_K = 2.0
 # Flash prefill against its plain version (the materialized rel_attention)
@@ -408,15 +433,18 @@ def ring_blocked(B, M, ptr, kind):
 
 INT4_MODES = ("slab4", "slab4_w8")
 MULTIROW_MODES = ("multirow", "multirow_int8")
+# fused_stack_decode / fused_batched_decode: bf16 K (L, B, H, Dh, M), V (L, B, H, M, Dh)
+STACK_MODES = fd.STACK_MODES
 
 
-def ring_kv(L, B, M, HD, kind, rng, dev, mode="slab_w8"):
+def ring_kv(L, B, M, HD, kind, rng, dev, mode="slab_w8", H=None):
     """Random K/V caches of ``mode``'s layout drawn on the card from slot
     rows of std 0.5, each slot row scaled by exp(N(0, 0.7^2)) on a short
     ring: int8 slot-major (L, B, M, HD) with (L, B, M, 1) scales; int4
     nibble pairs (L, B, M/2, HD) for the slab4 modes; head-major K panels
     (L, B, HD, M) with slot-major V for the multirow modes, bf16, or int8
-    with (L, B, 1, M) scales."""
+    with (L, B, 1, M) scales; bf16 K (L, B, H, Dh, M) and V (L, B, H, M, Dh)
+    for STACK_MODES (``H`` heads)."""
     def rows():
         x = normal((L, B, M, HD), 0.5, rng, dev)
         if kind == "short":
@@ -428,6 +456,10 @@ def ring_kv(L, B, M, HD, kind, rng, dev, mode="slab_w8"):
     if mode in MULTIROW_MODES:
         kt = k.transpose(2, 3).contiguous()
         return list(fd.quantize_kv_panels(kt, v)) if mode == "multirow_int8" else [kt, v]
+    if mode in STACK_MODES:
+        heads = lambda x: x.reshape(L, B, M, H, HD // H)
+        return [heads(k).permute(0, 1, 3, 4, 2).contiguous(),
+                heads(v).transpose(2, 3).contiguous()]
     return list(fd.quantize_kv_slot_major(k, v))
 
 
@@ -435,7 +467,7 @@ def ring_inputs(cfg, B, M, ptr, kind, rng, dev, mode="slab_w8"):
     """A ring of ``kind`` whose pointer is ``ptr``: its caches (of
     ``mode``'s layout) and blocked mask."""
     L, HD = cfg.n_layers, cfg.n_heads * cfg.d_head
-    return (ring_kv(L, B, M, HD, kind, rng, dev, mode),
+    return (ring_kv(L, B, M, HD, kind, rng, dev, mode, cfg.n_heads),
             torch.from_numpy(ring_blocked(B, M, ptr, kind)).to(dev))
 
 
@@ -446,15 +478,19 @@ def wkr_table(engine):
 
 
 def kernel_ptrs(mode, M):
-    """The ring pointers of the kernel phase: {0, 31, 32, M - 1}, and for
-    the int4 modes the last high-nibble and the first low-nibble slot."""
+    """The ring pointers of the kernel phase: {0, 31, 32, M - 1}, for the
+    int4 modes also the last high-nibble and the first low-nibble slot, for
+    STACK_MODES {0, 31, M/2, M - 1}."""
+    if mode in STACK_MODES:
+        return (0, 31, M // 2, M - 1)
     return (0, 31, 32, M // 2 - 1, M // 2, M - 1) if mode in INT4_MODES else (0, 31, 32, M - 1)
 
 
 def kernel_cases(engine, rng, dev, batches, mode="slab_w8"):
     """The kernel phase's cases at each B of ``batches``: ptr in
     kernel_ptrs on each kind of RINGS. Yields
-    (B, ptr, kind, caches of ``mode``'s layout, blocked, h_in)."""
+    (B, ptr, kind, caches of ``mode``'s layout, blocked, h_in); h_in of
+    fused_stack is its 8-row block, rows 1-7 N(0, 1) draws."""
     cfg, M = engine.cfg, engine.cfg.mem_len
     embed32 = engine.params["embed"].float()
     for B in batches:
@@ -462,6 +498,8 @@ def kernel_cases(engine, rng, dev, batches, mode="slab_w8"):
             for kind in RINGS:
                 kv, blocked = ring_inputs(cfg, B, M, ptr, kind, rng, dev, mode)
                 h_in = embed32[torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
+                if mode == "fused_stack":
+                    h_in = torch.cat([h_in, normal((7, cfg.d_model), 1.0, rng, dev)])
                 yield B, ptr, kind, kv, blocked, h_in
 
 
@@ -469,6 +507,10 @@ def written_slots(mode, caches, ptr):
     """The slot ``ptr`` of a step's K and V caches: [(values (L, B, HD) as
     int32 entries or, bf16 panels, float32, scales (L, B) or None)] for K,
     then V; int4 entries are the slot's nibbles."""
+    if mode in STACK_MODES:
+        kt, vc = caches
+        rows = lambda t: t.reshape(t.shape[0], t.shape[1], -1).float()
+        return [(rows(kt[..., ptr]), None), (rows(vc[:, :, :, ptr]), None)]
     if mode in MULTIROW_MODES:
         kt, *rest = caches
         ks, vc, vs = rest if mode == "multirow_int8" else (None, rest[0], None)
@@ -488,9 +530,11 @@ def others_untouched(mode, got, kv, ptr):
     """Whether every cache entry of ``got`` outside slot ``ptr`` keeps the
     bytes of ``kv`` (int4: the other packed rows, and the partner slot's
     nibble in the shared row)."""
-    M = kv[0].shape[3] if mode in MULTIROW_MODES else kv[1].shape[2]
+    M = (kv[0].shape[4] if mode in STACK_MODES else kv[0].shape[3] if mode in MULTIROW_MODES
+         else kv[1].shape[2])
     other = torch.arange(M, device=kv[0].device) != ptr
-    axes = {"multirow": (3, 2), "multirow_int8": (3, 3, 2, 3)}.get(mode, (2, 2, 2, 2))
+    axes = {"multirow": (3, 2), "multirow_int8": (3, 3, 2, 3), "fused_stack": (4, 3),
+            "fused_batched": (4, 3)}.get(mode, (2, 2, 2, 2))
     if mode not in INT4_MODES:
         return all(torch.equal(g.index_select(a, other.nonzero()[:, 0]),
                                t.index_select(a, other.nonzero()[:, 0]))
@@ -530,10 +574,14 @@ def step_diff(got, ref, kv, ptr, mode="slab_w8"):
     return dh, step, share, share2, scale_rel, untouched
 
 
+# the steps over int8 weight panels: the engine's, and slab_int8_w8 (no engine mode)
+W8_MODES = INT8_WEIGHT_KERNELS + ("slab_int8_w8",)
+
+
 def weights(engine, mode):
-    """(StackedTXL, w_scales or None) of a slab mode: int8 panels for the
-    _w8 modes, bf16 for slab and slab_ar."""
-    return engine.stacked_q() if mode in INT8_WEIGHT_KERNELS else engine.stacked()
+    """(StackedTXL, w_scales or None) of a decode mode: int8 panels for the
+    _w8 modes, bf16 for the others."""
+    return engine.stacked_q() if mode in W8_MODES else engine.stacked()
 
 
 # the kernel phase's modes and batch sizes, in the order they draw from the rng
@@ -543,24 +591,35 @@ CORES = {"slab_w8": fd.fused_slab_core, "slab": fd.fused_slab_core,
          "slab_ar_w8": fd.fused_slab_allrows_core, "slab_ar": fd.fused_slab_allrows_core,
          "slab_int8": fd.fused_slab_core, "slab4": fd.fused_slab_core,
          "slab4_w8": fd.fused_slab_core, "multirow": fd.fused_multirow_core,
-         "multirow_int8": fd.fused_multirow_q_core}
+         "multirow_int8": fd.fused_multirow_q_core, "slab_int8_w8": fd.fused_slab_core,
+         "fused_stack": fd.fused_stack_decode, "fused_batched": fd.fused_batched_decode}
 # fused_slab_core's arguments that select a mode beyond its weight panels
 SLAB_ARGS = {"slab_int8": dict(score_mode="int8"), "slab4": dict(kv_int4=True),
-             "slab4_w8": dict(kv_int4=True)}
+             "slab4_w8": dict(kv_int4=True), "slab_int8_w8": dict(score_mode="int8")}
 
 
-def mode_wkr(mode, wkr_mt):
-    """The relative table in ``mode``'s layout: (L, M+1, HD), or the
-    multirow modes' (L, HD, M+1) panels."""
+def mode_wkr(mode, wkr_mt, H=None):
+    """The relative table in ``mode``'s layout: (L, M+1, HD), the multirow
+    modes' (L, HD, M+1) panels, or STACK_MODES' (L, H, Dh, M+1)."""
+    if mode in STACK_MODES:
+        L, M1, HD = wkr_mt.shape
+        return wkr_mt.transpose(1, 2).reshape(L, H, HD // H, M1).contiguous()
     return wkr_mt.transpose(1, 2).contiguous() if mode in MULTIROW_MODES else wkr_mt
 
 
 def run_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr, rows=None):
     """One launch of ``mode``'s kernel on copies of the caches ``kv``, at
-    ``rows`` rows a cell (default min(B, 8))."""
+    ``rows`` rows a cell (default min(B, 8)); fused_stack must return rows
+    1-7 of its h block bit for bit."""
     stacked, w_scales = weights(engine, mode)
     R, cfg, M = rows or min(len(h_in), 8), engine.cfg, engine.cfg.mem_len
     caches = [t.clone() for t in kv]
+    if mode in STACK_MODES:
+        out = CORES[mode](stacked, cfg, h_in, mode_wkr(mode, wkr_mt, cfg.n_heads), *caches,
+                          blocked, ptr, M)
+        if mode == "fused_stack" and not torch.equal(out[0][1:], h_in[1:]):
+            raise AssertionError("fused_stack changed rows 1-7 of its h block")
+        return out
     if mode in MULTIROW_MODES:
         return CORES[mode](stacked, cfg, h_in, mode_wkr(mode, wkr_mt), *caches, blocked, ptr,
                            M, rows_per_cell=R)
@@ -575,6 +634,9 @@ def plain_step(mode, engine, wkr_mt, kv, blocked, h_in, ptr, acc=torch.float64, 
     False: on ``kv`` itself, as the timing runs it)."""
     stacked, w_scales = weights(engine, mode)
     cfg, caches = engine.cfg, [t.clone() for t in kv] if copy else kv
+    if mode in STACK_MODES:
+        return fd.stack_plain(stacked, cfg, h_in, mode_wkr(mode, wkr_mt, cfg.n_heads),
+                              *caches, blocked, ptr, acc=acc)
     if mode in MULTIROW_MODES:
         plain = fd.multirow_plain if mode == "multirow" else fd.multirow_q_plain
         return plain(stacked, cfg, h_in, mode_wkr(mode, wkr_mt), *caches, blocked, ptr,
@@ -779,18 +841,18 @@ def step_bytes_and_flops(cfg, stacked, w_scales, wkr_mt, kv, blocked, B, mode="s
     """Bytes the step must move (inputs read once, outputs written once:
     h_out and the written slot's K / V rows and scales) and its
     multiply-adds counted as 2 operations, split into (bf16 operations,
-    int8 operations): slab_int8 takes q.K and P.V in int8."""
+    int8 operations): the int8-score modes take q.K and P.V in int8."""
     L, D, Dff, H, Dh = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
     M, HD = blocked.shape[1], H * Dh
     nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
     read = (sum(nbytes(t) for t in stacked) + nbytes(w_scales) + nbytes(wkr_mt)
             + sum(nbytes(t) for t in kv) + nbytes(blocked) + B * D * 4)
-    slot_bytes = 2 * HD if mode == "multirow" else HD + 4
+    slot_bytes = 2 * HD if mode in ("multirow",) + STACK_MODES else HD + 4
     written = B * D * 4 + L * B * 2 * slot_bytes
     weight_ops = 2 * L * B * (D * 3 * HD + HD * D + D * Dff + Dff * D)
     rel_ops = 2 * L * B * H * (M + 1) * Dh
     attn_ops = 2 * L * B * H * 2 * M * Dh                  # q.K and P.V
-    if mode == "slab_int8":
+    if mode in fd.INT8_SCORE_MODES:
         return read + written, (weight_ops + rel_ops, attn_ops)
     return read + written, (weight_ops + rel_ops + attn_ops, 0)
 
@@ -828,9 +890,13 @@ def slab_timing(engine, wkr_mt, rng, dev, name, B, flush, rows=None):
     kv, blocked = ring_inputs(cfg, B, M, 100, "full", rng, dev, name)
     h_in = engine.params["embed"].float()[
         torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
-    wkr = mode_wkr(name, wkr_mt)
+    if name == "fused_stack":
+        h_in = torch.cat([h_in, torch.zeros((7, cfg.d_model), device=dev)])
+    wkr = mode_wkr(name, wkr_mt, cfg.n_heads)
     R = rows or min(B, 8)
-    if name in MULTIROW_MODES:
+    if name in STACK_MODES:
+        kernel = lambda: CORES[name](stacked, cfg, h_in, wkr, *kv, blocked, 100, M)
+    elif name in MULTIROW_MODES:
         kernel = lambda: CORES[name](stacked, cfg, h_in, wkr, *kv, blocked, 100, M,
                                      rows_per_cell=R)
     else:
@@ -948,7 +1014,8 @@ TRAIN_WRAPPERS = {"flash_train_": ftr.flash_train_attention,
 
 
 def launches() -> dict:
-    """Every kernel's launch count: the genre slab and multirow modes, the flash
+    """Every kernel's launch count: the genre slab, multirow and head-major
+    (fused_stack, fused_batched) steps, the flash
     prefill, the multitask flash prefill (flash_encoder_bidir,
     flash_encoder_causal), the s2s / nw steps in the slab modes and the fused
     one (s2s_slab_w8, s2s_slab, s2s_fused, nw_slab_w8, nw_slab, nw_fused), and
@@ -956,6 +1023,7 @@ def launches() -> dict:
     attention (flash_train_fwd, ..., flash_cross_bwd)."""
     return {**fd.fused_slab_core.launches, **fd.fused_slab_allrows_core.launches,
             **fd.fused_multirow_core.launches, **fd.fused_multirow_q_core.launches,
+            **fd.fused_stack_decode.launches, **fd.fused_batched_decode.launches,
             "flash_prefill": fp.flash_prefill_attention.launches,
             **{"flash_encoder_" + k: n for k, n in fp.flash_encoder_attention.launches.items()},
             **{prefix + mode: n for prefix, w in MT_WRAPPERS
@@ -965,7 +1033,7 @@ def launches() -> dict:
 
 
 GENRE_WRAPPERS = (fd.fused_slab_core, fd.fused_slab_allrows_core, fd.fused_multirow_core,
-                  fd.fused_multirow_q_core)
+                  fd.fused_multirow_q_core, fd.fused_stack_decode, fd.fused_batched_decode)
 
 
 def set_launches(counts: dict) -> None:
@@ -1263,6 +1331,180 @@ def explicit_modes_phase(learner, items, seed: int, n_words: int) -> dict:
             f"{len(pred) / secs:.1f} emitted tok/s, {n_words / secs:.1f} steps/s "
             f"({secs:.3f} s incl. prefill)")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Row 10: fused_stack_decode / fused_batched_decode (csrc/multirow_decode.cu),
+# which no engine mode reaches, on the path of the JAX package's tests, and
+# the int8-score slab step over int8 weight panels (slab_int8_w8), which no
+# path runs
+# ---------------------------------------------------------------------------
+
+# (mode, batch sizes) of the row-10 kernel checks, in the order they draw from
+# their rng; slab_int8_w8 with its own two-step cap (TWO_STEP_SHARE_CAP_BY_MODE)
+ROW10_CASE_BATCHES = (("fused_stack", (1,)), ("fused_batched", (1, 16, 64)),
+                      ("slab_int8_w8", (1, 64)))
+# the exact ring step's logits against the head-major steps' at every step of
+# the path: the bounds of tests/test_fused_decode.py (the tanh GELU and the
+# kernels' bf16 cast points against the exact step's erf GELU and bf16
+# activations), elementwise |d| <= atol + rtol |exact|; the greedy choice
+# must agree wherever the exact step's top two are further apart than
+# 2 x atol
+STACK_LOGITS_ATOL, STACK_LOGITS_RTOL = 0.08, 0.02
+STACK_ARGMAX_GAP = 2 * STACK_LOGITS_ATOL
+
+
+def row10_kernel_phase(engine, wkr_mt, rng, dev) -> dict:
+    """ROW10_CASE_BATCHES through kernel_phase (the float64 check at ptr in
+    kernel_ptrs on each kind of RINGS); returns each mode's largest
+    |dh_out| and |dh_out| over its bound."""
+    worst = {}
+    for mode, batches in ROW10_CASE_BATCHES:
+        worse(worst, mode, timed(f"kernel {mode} B in {batches}", kernel_phase, engine,
+                                 wkr_mt, rng, dev, mode, batches))
+    say("kernel: fused_stack returned rows 1-7 of its h block bit for bit in every case")
+    return worst
+
+
+def row10_timing_phase(engine, wkr_mt, rng, dev) -> dict:
+    """CUDA-event medians of fused_stack_decode at B = 1, fused_batched_decode
+    at B = 1, 16 and 64 and slab_int8_w8 at B = 1 and 64 (M = 512), and of
+    their plain versions, beside the bound; these launches do not count as
+    the path's. Returns the timings of the JSON line: fused_stack at B = 1,
+    fused_batched at B = 16 (the path's batch), slab_int8_w8 at B = 64."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    before = launches()
+    times = {(name, B): slab_timing(engine, wkr_mt, rng, dev, name, B, flush)
+             for name, batches in (("fused_stack", (1,)), ("fused_batched", (1, 16, 64)),
+                                   ("slab_int8_w8", (1, 64)))
+             for B in batches}
+    set_launches(before)
+    return {"fused_stack": times["fused_stack", 1],
+            "fused_batched": times["fused_batched", 16],
+            "slab_int8_w8": times["slab_int8_w8", 64]}
+
+
+def stack_path(learner, items, n_words: int):
+    """The path of the JAX package's tests of row 10 (tests/test_fused_decode.py)
+    for the prompts ``items``: ``txl.prefill`` (its auto rule: the flash
+    kernel at B >= 8), ``ring_from_prefill``, ``precompute_wkr``,
+    ``stack_txl_layers`` and the transposed caches, then ``n_words`` steps of
+    one launch each (fused_stack_decode at B = 1, fused_batched_decode
+    otherwise). Each token is chosen from h_out @ embed.T + head_b by
+    ``sample_next_token`` with greedy settings (the grammar mask applies) and
+    fed to the exact ``txl.decode_step_ring`` too, which keeps its own ring;
+    its logits must lie within STACK_LOGITS_ATOL / RTOL of the kernel's and
+    agree on the argmax where its top two are STACK_ARGMAX_GAP apart.
+    Returns (tokens (n_words, B), emitted (B,), the largest |dlogit|, the
+    largest |dlogit| over its bound, the smallest top-two gap at which the
+    argmaxes differed or None, seconds)."""
+    engine, vocab = learner.engine, learner.vocab
+    params, cfg, dev = engine.params, engine.cfg, engine.device
+    L, H, M, D = cfg.n_layers, cfg.n_heads, cfg.mem_len, cfg.d_model
+    B = len(items)
+    W = min(_bucket(max(len(it.data) for it in items)), max(cfg.ctx_len, M))
+    toks = np.full((B, W), vocab.pad_idx, dtype=np.int64)
+    pad = np.ones((B, W), dtype=bool)
+    pos = np.zeros((B, W), dtype=np.int32)
+    for i, it in enumerate(items):
+        s = np.asarray(it.data)[-W:]
+        toks[i, W - len(s):], pad[i, W - len(s):] = s, False
+        pos[i, W - len(s):] = position_enc(s, vocab)[:len(s)]
+    last_pos = torch.from_numpy(pos[:, -1].copy()).to(dev)
+    window = torch.from_numpy(toks).to(dev)
+    t0 = time.perf_counter()
+    logits, cache0 = txl.prefill(params, cfg, window, torch.from_numpy(pad).to(dev),
+                                 pos=torch.from_numpy(pos).to(dev), mem_len=M)
+    ring = txl.ring_from_prefill(cache0, cfg)
+    exact = ring._replace(k=ring.k.clone(), v=ring.v.clone(), g=ring.g.clone())
+    wkr = txl.precompute_wkr(params, cfg, M)
+    stacked, _ = engine.stacked()                                # stack_txl_layers
+    kt = ring.k.transpose(3, 4).contiguous()                     # (L, B, H, Dh, M)
+    vc = ring.v.contiguous()                                     # (L, B, H, M, Dh)
+    wkr_t = wkr.transpose(2, 3).to(torch.bfloat16).contiguous()  # (L, H, Dh, M+1)
+    settings = SamplerSettings(n_words=n_words, top_k=GEN_KW["top_k"], greedy=True)
+    temps = torch.tensor(GEN_KW["temperatures"], dtype=torch.float32, device=dev)
+    allowed = torch.from_numpy(grammar.allowed_ins_mask(vocab, None)).to(dev)
+    top_k = torch.full((B,), settings.top_k, dtype=torch.long, device=dev)
+    top_p = torch.full((B,), GEN_KW["top_p"], dtype=torch.float32, device=dev)
+    zeros = lambda dt: torch.zeros((B,), dtype=dt, device=dev)
+    st = SampleState(prev_tok=window[:, -1].int(), last_pos=last_pos.int(),
+                     start_pos=last_pos.int(), last_xxsep=zeros(torch.bool),
+                     repeat_count=zeros(torch.int32), done=zeros(torch.bool),
+                     n_emitted=zeros(torch.int32))
+    embed32 = params["embed"].float()
+    head_b = 0.0 if params.get("head_b") is None else params["head_b"].float()
+    out = torch.empty((n_words, B), dtype=torch.int32, device=dev)
+    h_block = torch.zeros((8, D), device=dev)
+    g, ptr, g_cur = ring.g, ring.ptr, ring.g_cur
+    worst_d = worst_ratio = 0.0
+    flip_gap = None
+    for i in range(n_words):
+        idx, st = sample_next_token(logits, st, engine.tables, temps, top_k, top_p,
+                                    GEN_KW["min_bars"], allowed, None, settings,
+                                    _past_80pct(i, n_words))
+        out[i] = idx
+        dist = g_cur - g
+        blocked = ((dist < 1) | (dist > M)).int()
+        h_in = embed32[idx.long()]
+        if B == 1:
+            h_block[0] = h_in[0]
+            h_out = fd.fused_stack_decode(stacked, cfg, h_block, wkr_t, kt, vc, blocked, ptr,
+                                          M)[0][:1]
+        else:
+            h_out = fd.fused_batched_decode(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr,
+                                            M)[0]
+        logits = h_out @ embed32.T + head_b
+        ref, exact = txl.decode_step_ring(params, cfg, idx, st.last_pos, exact, wkr)
+        d = (logits - ref).abs()
+        worst_d = max(worst_d, d.max().item())
+        worst_ratio = max(worst_ratio, (d / (STACK_LOGITS_ATOL + STACK_LOGITS_RTOL
+                                             * ref.abs())).max().item())
+        top2 = ref.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = logits.argmax(-1) != ref.argmax(-1)
+        if differ.any():
+            g_min = gap[differ].min().item()
+            flip_gap = g_min if flip_gap is None else min(flip_gap, g_min)
+        g[:, ptr] = g_cur
+        ptr, g_cur = (ptr + 1) % M, g_cur + 1
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out.cpu().numpy(), st.n_emitted.cpu().numpy(), worst_d, worst_ratio, flip_gap, secs
+
+
+def stack_path_phase(learner, items, n_words: int) -> dict:
+    """stack_path for one prompt at B = 1 (materialized prefill) and for the
+    batch cell's 16 prompts at B = 16 (flash prefill, one launch a layer):
+    one launch of the step's kernel a token, the logits and argmax bounds at
+    every step, every continuation re-parsed with no grammar violation.
+    Returns the launch counts {"fused_stack": ..., "fused_batched": ...}."""
+    L = learner.cfg.n_layers
+    counts = {}
+    for mode, batch in (("fused_stack", items[:1]), ("fused_batched", items[:16])):
+        stack_path(learner, batch, 8)                             # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        toks, emitted, d, ratio, flip_gap, secs = stack_path(learner, batch, n_words)
+        got = launches()
+        want = only(**{mode: n_words}, **({} if len(batch) == 1 else {"flash_prefill": L}))
+        if got != want:
+            raise AssertionError(f"{mode} path launched {got}, expected {want}")
+        checks = [check_continuation(it, toks[: emitted[b], b], learner.vocab)
+                  for b, it in enumerate(batch)]
+        say(f"stack: {mode} B={len(batch)} n_words={n_words} launches={got[mode]} "
+            f"(+ {got['flash_prefill']} flash_prefill); vs txl.decode_step_ring every step: "
+            f"max |dlogit| {d:.4e}, {ratio:.3f} of its bound (atol {STACK_LOGITS_ATOL}, "
+            f"rtol {STACK_LOGITS_RTOL}); argmax differs at top-two gap "
+            f"{'never' if flip_gap is None else f'{flip_gap:.4f}'} (bound: agree above "
+            f"{STACK_ARGMAX_GAP}); all {len(batch)} re-parse, grammar violations "
+            f"{sum(c['grammar_violations'] for c in checks)}, emitted {int(emitted.sum())} "
+            f"tokens; {n_words / secs:.1f} steps/s ({secs:.3f} s incl. prefill and the "
+            f"exact step)")
+        if ratio > 1.0 or (flip_gap is not None and flip_gap > STACK_ARGMAX_GAP):
+            raise AssertionError(f"{mode} path left the exact ring step's bounds")
+        counts[mode] = got[mode]
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2574,6 +2816,10 @@ def main(argv=None) -> int:
             worse(err, key, e)
     timing.update(timed("mt fused timing", mt_fused_timing_phase, flagship, fused_rng, dev))
     n_fused = timed("mt fused tasks", mt_fused_phase, flagship, demo, args.seed)
+    row10_rng = np.random.default_rng(args.seed + 3)
+    err.update(row10_kernel_phase(engine, wkr_mt, row10_rng, dev))
+    timing.update(timed("row10 timing", row10_timing_phase, engine, wkr_mt, row10_rng, dev))
+    n_stack = timed("stack", stack_path_phase, learner, items, args.n_words)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     csrc = "deepmusicgeneration_tpu_torch/ops/csrc/"
     src = "deepmusicgeneration_tpu/ops/"
@@ -2618,7 +2864,14 @@ def main(argv=None) -> int:
         *[entry(f"{wrapper}[fused]", "s2s_fused.cu", f"fused_s2s.py:{line}",
                 n_fused[f"{task}_fused"], f"{task}_fused")
           for task, wrapper, line in (("s2s", "fused_s2s_step_core", 248),
-                                      ("nw", "fused_nw_step_core", 346))]]}))
+                                      ("nw", "fused_nw_step_core", 346))],
+        entry("fused_stack_decode", "multirow_decode.cu", "fused_decode.py:185",
+              n_stack["fused_stack"], "fused_stack"),
+        entry("fused_batched_decode", "multirow_decode.cu", "fused_decode.py:345",
+              n_stack["fused_batched"], "fused_batched"),
+        # no path runs the int8-score step over int8 panels: its launches are 0
+        entry("fused_slab_core[slab_int8_w8]", "slab_decode.cu", "fused_decode.py:1163",
+              0, "slab_int8_w8")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -54,7 +54,7 @@ from ..ops import flash_train as ft
 from ..ops.rel_attention import (NEG_INF, backwards_pos_enc, causal_window_mask,
                                  rel_attention)
 from .config import MultitaskConfig
-from .txl import PAD_G, _dropout, _layer_norm, _logits
+from .txl import PAD_G, _dropout, _layer_norm, _logits, tree_leaves
 
 F32 = torch.float32
 
@@ -102,6 +102,10 @@ def init_multitask(cfg: MultitaskConfig, generator: Optional[torch.Generator] = 
               "head_b": randn(cfg.vocab_size).zero_() if cfg.out_bias else None}
     params["embed"][1] = 0.0            # padding-index row (pad_idx == 1)
     return params
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def _fold(seed: Optional[int], i: int) -> Optional[int]:
@@ -457,6 +461,16 @@ class DecKVCache(NamedTuple):
     valid: torch.Tensor     # (B,) int32
 
 
+def init_dec_cache(cfg: MultitaskConfig, batch: int, mem_len: Optional[int] = None,
+                   device=None) -> DecKVCache:
+    """An empty decoder cache (nothing valid) of M slots."""
+    M = cfg.mem_len if mem_len is None else mem_len
+    shape = (cfg.dec_layers, batch, M, cfg.n_heads, cfg.d_head)
+    zeros = lambda: torch.zeros(shape, dtype=cfg.act_dtype, device=device)
+    return DecKVCache(zeros(), zeros(), torch.zeros((batch,), dtype=torch.int32,
+                                                    device=device))
+
+
 def _prefill(params, cfg: MultitaskConfig, x, pos, pad_mask, enc_out, enc_pad,
              mem_len, pad_idx, flash):
     """The decoder over a LEFT-padded (B, W) prefix, with cross-attention
@@ -516,6 +530,86 @@ def lm_prefill(params, cfg: MultitaskConfig, x, pos, pad_mask,
     """The decoder as an attention-only language model over a LEFT-padded
     prompt (the next-word task); ``flash`` as :func:`decoder_prefill`."""
     return _prefill(params, cfg, x, pos, pad_mask, None, None, mem_len, pad_idx, flash)
+
+
+# ---------------------------------------------------------------------------
+# Shift-append decode (the JAX package's reference steps): every step
+# re-projects the relative table (and, for seq2seq, the encoder output) and
+# returns a new right-aligned cache, moved left by one slot with the
+# token's K/V appended. The ring steps below compute the same function.
+# ---------------------------------------------------------------------------
+
+def _shift_self_attn(ap, cfg: MultitaskConfig, h, k_cache, v_cache, r, u, v, self_mask):
+    """ln(h + self_attn) of one token over a layer's (B, M, H, Dh) cache plus
+    itself, ``r`` the M + 1 distances M..0; returns (h_out, k1, v1) with
+    k1 / v1 (B, 1, H, Dh) for the append."""
+    B = h.shape[0]
+    H, Dh = cfg.n_heads, cfg.d_head
+    k1 = _proj(h, ap["k_w"], ap["k_b"], H, Dh).transpose(1, 2)
+    v1 = _proj(h, ap["v_w"], ap["v_b"], H, Dh).transpose(1, 2)
+    k_full = torch.cat([k_cache.to(h.dtype), k1], dim=1).transpose(1, 2)   # (B, H, M+1, Dh)
+    v_full = torch.cat([v_cache.to(h.dtype), v1], dim=1).transpose(1, 2)
+    q = _proj(h, ap["q_w"], ap["q_b"], H, Dh)
+    attn = rel_attention(q, k_full, v_full, _wkr_of(ap, r, H, Dh), u, v, mask=self_mask,
+                         scale=cfg.scale, shift=False)
+    attn = attn.transpose(1, 2).reshape(B, 1, H * Dh)
+    return _layer_norm(h + attn, ap["ln_g"], ap["ln_b"]), k1, v1
+
+
+def _shift_cache(cache: DecKVCache, new_kv) -> DecKVCache:
+    M = cache.k.shape[2]
+    k = torch.stack([torch.cat([cache.k[i][:, 1:], k1], dim=1) for i, (k1, _) in
+                     enumerate(new_kv)])
+    v = torch.stack([torch.cat([cache.v[i][:, 1:], v1], dim=1) for i, (_, v1) in
+                     enumerate(new_kv)])
+    return DecKVCache(k, v, torch.clamp(cache.valid + 1, max=M))
+
+
+def _self_mask(cache: DecKVCache):
+    B, M = cache.k.shape[1], cache.k.shape[2]
+    slot = torch.arange(M + 1, device=cache.k.device)[None, None, None, :]
+    return slot < (M - cache.valid.reshape(B, 1, 1, 1))    # self (slot M) always visible
+
+
+def decoder_step(params, cfg: MultitaskConfig, tok, pos, cache: DecKVCache, enc_out,
+                 enc_pad=None, pad_idx: int = 1) -> Tuple[torch.Tensor, DecKVCache]:
+    """One seq2seq decode step against the right-aligned cache, attending to
+    ``enc_out`` (B, Le, D) with ``enc_pad`` columns blocked; returns (logits,
+    the new cache, ``valid`` saturating at M)."""
+    dt = cfg.act_dtype
+    M = cache.k.shape[2]
+    h = embed_tokens(params, cfg, tok[:, None], pos[:, None], pad_idx)
+    r = backwards_pos_enc(max(M + 1, enc_out.shape[1]), cfg.d_model, dtype=dt,
+                          device=h.device)
+    u, v = _stack_uv(params["decoder"], dt)
+    self_mask = _self_mask(cache)
+    cross_mask = enc_pad[:, None, None, :] if enc_pad is not None else None
+    new_kv = []
+    for i, bp in enumerate(params["decoder"]["layers"]):
+        h2, k1, v1 = _shift_self_attn(bp["mha1"], cfg, h, cache.k[i], cache.v[i],
+                                      r[-(M + 1):], u, v, self_mask)
+        h2 = _attn_apply(bp["mha2"], cfg, h2, enc_out, r, u, v, cross_mask, r_mask=True)
+        h = _ff(bp, cfg, h2)
+        new_kv.append((k1, v1))
+    return head(params, cfg, h[:, 0]), _shift_cache(cache, new_kv)
+
+
+def lm_step(params, cfg: MultitaskConfig, tok, pos, cache: DecKVCache,
+            pad_idx: int = 1) -> Tuple[torch.Tensor, DecKVCache]:
+    """One next-word decode step (attention-only blocks) against the
+    right-aligned cache, as :func:`decoder_step`."""
+    dt = cfg.act_dtype
+    M = cache.k.shape[2]
+    h = embed_tokens(params, cfg, tok[:, None], pos[:, None], pad_idx)
+    r = backwards_pos_enc(M + 1, cfg.d_model, dtype=dt, device=h.device)
+    u, v = _stack_uv(params["decoder"], dt)
+    self_mask = _self_mask(cache)
+    new_kv = []
+    for i, bp in enumerate(params["decoder"]["layers"]):
+        h, k1, v1 = _shift_self_attn(bp["mha1"], cfg, h, cache.k[i], cache.v[i], r, u, v,
+                                     self_mask)
+        new_kv.append((k1, v1))
+    return head(params, cfg, h[:, 0]), _shift_cache(cache, new_kv)
 
 
 # ---------------------------------------------------------------------------

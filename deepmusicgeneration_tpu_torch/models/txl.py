@@ -1,6 +1,7 @@
 """MusicTransformerXL as plain functions of a parameter dict: the parameter
 initializer, the full-window training forward with XL memory, prompt
-prefill and the exact ring-cache decode step.
+prefill, and the exact decode steps: the shift-append reference step and
+the ring-cache step the engines run.
 
 Architecture parity with the reference model (deep_music_genre.py:1603-1665
 on top of fastai's TransformerXL): token embedding, N post-norm decoder
@@ -33,7 +34,7 @@ from ..ops.rel_attention import (
     causal_window_mask,
     rel_attention,
 )
-from .config import TXLConfig
+from .config import TXLConfig, btp_phase1_config
 
 F32 = torch.float32
 
@@ -412,6 +413,50 @@ def prefill(
         k_all = torch.nn.functional.pad(k_all, padk)
         v_all = torch.nn.functional.pad(v_all, padk)
     return logits, KVCache(k=k_all, v=v_all, valid=n_valid)
+
+
+def decode_step(
+    params: Dict,
+    cfg: TXLConfig,
+    tok: torch.Tensor,    # (B,) current token
+    pos: torch.Tensor,    # (B,) beat positions (unused: no beat embedding)
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step against the right-aligned cache: the logits for the
+    next token and a new cache whose slots have moved left by one, the
+    token's K/V appended (``valid`` saturates at M). The current token
+    attends over the M cached slots and itself (distances M..0); slots
+    before the row's ``valid`` most recent ones are blocked. The JAX
+    package's reference form of :func:`decode_step_ring`, which computes
+    the same function with one slot write a step."""
+    _check_supported(cfg)
+    B = tok.shape[0]
+    dt = cfg.act_dtype
+    dev = tok.device
+    H, Dh = cfg.n_heads, cfg.d_head
+    M = cache.k.shape[2]
+    h = params["embed"][tok].to(dt)[:, None, :]
+    r = backwards_pos_enc(M + 1, cfg.d_model, dtype=dt, device=dev)
+    slot = torch.arange(M + 1, device=dev)[None, None, None, :]
+    mask = slot < (M - cache.valid.reshape(B, 1, 1, 1))   # self (slot M) always visible
+    u_b, v_b = params["u"].to(dt), params["v"].to(dt)
+    new_k, new_v = [], []
+    for i, lp in enumerate(params["layers"]):
+        q, k1, v1 = _qkv(lp, h, H, Dh)                       # (B, H, 1, Dh)
+        k_full = torch.cat([cache.k[i].transpose(1, 2).to(dt), k1], dim=2)
+        v_full = torch.cat([cache.v[i].transpose(1, 2).to(dt), v1], dim=2)
+        attn = rel_attention(q, k_full, v_full, _wkr(lp, r, H, Dh), u_b, v_b, mask=mask,
+                             scale=cfg.scale, shift=False)
+        h = _block_tail(lp, cfg, h, attn.transpose(1, 2).reshape(B, 1, H * Dh))
+        new_k.append(torch.cat([cache.k[i][:, 1:], k1.transpose(1, 2)], dim=1))
+        new_v.append(torch.cat([cache.v[i][:, 1:], v1.transpose(1, 2)], dim=1))
+    return _logits(params, h[:, 0]), KVCache(k=torch.stack(new_k), v=torch.stack(new_v),
+                                             valid=torch.clamp(cache.valid + 1, max=M))
+
+
+def txl_config_41m() -> TXLConfig:
+    """The 41M genre flagship's config (``btp_phase1_config``)."""
+    return btp_phase1_config()
 
 
 # ---------------------------------------------------------------------------

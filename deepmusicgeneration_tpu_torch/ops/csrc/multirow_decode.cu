@@ -1,5 +1,6 @@
 // One decode token step through the whole Transformer-XL layer stack over
-// head-major K/V panels: the "multirow" and "multirow_int8" modes.
+// head-major K/V panels: the "multirow" and "multirow_int8" modes, and the
+// steps of fused_stack_decode / fused_batched_decode.
 //
 // Replaces the TPU kernels deepmusicgeneration_tpu/ops/fused_decode.py::
 // fused_multirow_core (pallas_call built by _make_multirow_kernel: bf16
@@ -39,6 +40,19 @@
 // M = 512 on the 41M flagship: multirow reads 805.3 MB of bf16 K/V and
 // 75.5 MB of weights a step (~0.26 ms at 3.35 TB/s), multirow_int8 402.7 MB
 // of int8 K/V plus 0.26 MB of scales (~0.14 ms), both bound by bytes.
+//
+// The same file holds the steps of fused_decode.py::fused_stack_decode
+// (pallas_call built by _make_kernel: B = 1, h as an 8-row block whose row 0
+// is the token) and fused_batched_decode (_make_batched_kernel: grid
+// (layer, row), each weight block read once a layer for the whole batch).
+// Both compute multirow's function over other cache layouts: K (B, H, Dh, M)
+// is PanelBF16's panel in memory, wkr (H, Dh, M + 1) its (HD, M + 1) panel;
+// only V is head-major, (B, H, M, Dh) (HeadMajorBF16 below). The chain is
+// multirow's, with the row-tiled GEMV for the weight products, so the two
+// TPU kernels' one difference from multirow (how often weights leave
+// memory) is not reproduced here. Bound at M = 512 on the flagship: 75.5 MB
+// of bf16 weights, 6.3 MB of wkr and 12.6 MB of K/V a row (~26 us at B = 1,
+// ~263 us at B = 64, 3.35 TB/s), bound by bytes.
 
 #include "slab_common.cuh"
 
@@ -132,8 +146,33 @@ struct PanelI8 {
   }
 };
 
-// One token step over panels of format F with bf16 weight panels.
-template <typename F>
+// bf16 head-major K and V of fused_stack_decode / fused_batched_decode: K is
+// (B, H, Dh, M), PanelBF16's (B, HD, M) panel in memory, and V (B, H, M, Dh),
+// so a head's slot row is Dh contiguous values (128 bytes at Dh 64). V's
+// index needs the head width, so the format is a template on it.
+template <int DH>
+struct HeadMajorBF16 : PanelBF16 {
+  // V[b, h, m, d] for column col = h * DH + d
+  static __device__ __forceinline__ size_t v_index(int b, int m, int col, int M, int HD) {
+    return ((size_t)b * HD + (col / DH) * DH) * M + (size_t)m * DH + col % DH;
+  }
+  static __device__ __forceinline__ float4 value4(const VT* vc, int b, int m, int col, int M,
+                                                  int HD) {
+    const uint2 p = *reinterpret_cast<const uint2*>(vc + v_index(b, m, col, M, HD));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p.x));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p.y));
+    return make_float4(a.x, a.y, c.x, c.y);
+  }
+  static __device__ __forceinline__ void put_v(VT* vc, int b, int j, int M, int HD, int ptr,
+                                               float x, float) {
+    vc[v_index(b, ptr, j, M, HD)] = __float2bfloat16_rn(x);
+  }
+};
+
+// One token step over panels of format F with bf16 weight panels. A format
+// built for one head width (HeadMajorBF16<DH>) passes it as DH, and its
+// attention is built for that width alone.
+template <typename F, int DH = 0>
 int run_multirow(DECODE_STEP_ARGS(bf16, typename F::KT)) {
   cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * Dh;
@@ -144,9 +183,14 @@ int run_multirow(DECODE_STEP_ARGS(bf16, typename F::KT)) {
     typename F::VT* vl = vc + l * kv_layer;
     float* ksl = ks == nullptr ? nullptr : ks + (size_t)l * B * M;
     float* vsl = vs == nullptr ? nullptr : vs + (size_t)l * B * M;
-    cudaError_t err = attention<F>(Dh, B * H, smem, st, qkv, H, M, u, v,
-                                   wkr + (size_t)l * HD * (M + 1), kl, ksl, vl, vsl, blocked,
-                                   ptr, scale, attn);
+    const bf16* wl = wkr + (size_t)l * HD * (M + 1);
+    cudaError_t err;
+    if constexpr (DH > 0)
+      err = attention_dh<DH, F>(B * H, smem, st, qkv, H, M, u, v, wl, kl, ksl, vl, vsl,
+                                blocked, ptr, scale, attn);
+    else
+      err = attention<F>(Dh, B * H, smem, st, qkv, H, M, u, v, wl, kl, ksl, vl, vsl, blocked,
+                         ptr, scale, attn);
     if (err != cudaSuccess) return err;
     kv_slot_write<F><<<B, kThreads, 0, st>>>(qkv, HD, M, ptr, kl, ksl, vl, vsl);
     return cudaGetLastError();
@@ -154,6 +198,22 @@ int run_multirow(DECODE_STEP_ARGS(bf16, typename F::KT)) {
   return decode_step<bf16>(false, qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g,
                            ln1_b, ln2_g, ln2_b, h_in, h_out, scratch, L, B, D, Dff, HD, 0, act,
                            st, attend);
+}
+
+#define PASS_STEP_ARGS                                                                     \
+  qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v, \
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,     \
+      rows_per_cell, scale, act, stream
+
+// run_multirow over head-major K/V, its format built for the head width
+int run_head_major(DECODE_STEP_ARGS(bf16, bf16)) {
+  switch (Dh) {
+    case 16: return run_multirow<HeadMajorBF16<16>, 16>(PASS_STEP_ARGS);
+    case 32: return run_multirow<HeadMajorBF16<32>, 32>(PASS_STEP_ARGS);
+    case 64: return run_multirow<HeadMajorBF16<64>, 64>(PASS_STEP_ARGS);
+    case 128: return run_multirow<HeadMajorBF16<128>, 128>(PASS_STEP_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -195,5 +255,13 @@ int multirow_int8_step(DECODE_STEP_ARGS(bf16, int8_t)) {
                                h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,
                                rows_per_cell, scale, act, stream);
 }
+
+// The steps of fused_stack_decode (B = 1: the wrapper passes row 0 of its
+// 8-row h block) and fused_batched_decode: the same arguments, with kt
+// (L,B,H,Dh,M) and vc (L,B,H,M,Dh) bf16 (ks, vs null), updated in slot ptr
+// only, and wkr (L,H,Dh,M+1) bf16, the (L,HD,M+1) panel in memory.
+int fused_stack_step(DECODE_STEP_ARGS(bf16, bf16)) { return run_head_major(PASS_STEP_ARGS); }
+
+int fused_batched_step(DECODE_STEP_ARGS(bf16, bf16)) { return run_head_major(PASS_STEP_ARGS); }
 
 }  // extern "C"

@@ -73,6 +73,9 @@
 // plain version, where a value lies within float32 noise of a half-point.
 // 12 kernels a layer. Bound at B = 64, M = 512 on the flagship: the int8
 // K/V (402.7 MB) and the bf16 weights (75.5 MB), ~0.15 ms at 3.35 TB/s.
+// With int8 weight panels ("slab_int8_w8", weights_int8=True) the same
+// attention runs in the chain of slab_w8: the TPU kernel upcasts the panels
+// to bf16 by their column scales whatever the score mode.
 //
 // The int4 modes ("slab4", "slab4_w8", kv_int4=True with bf16 or int8
 // panels) keep K and V two slots a byte (SlotI4 in slab_common.cuh): packed
@@ -405,9 +408,14 @@ int slab_ar_step(DECODE_STEP_ARGS(bf16, int8_t)) {
   return run_slab<SlotI8, bf16>(true, false, PASS_BF16_WEIGHTS);
 }
 
-// score_mode="int8" with bf16 panels.
+// score_mode="int8" with bf16 panels ("slab_int8") and int8 panels
+// ("slab_int8_w8": weights_int8=True, which no engine mode selects).
 int slab_int8_step(DECODE_STEP_ARGS(bf16, int8_t)) {
   return run_slab<SlotI8, bf16>(false, true, PASS_BF16_WEIGHTS);
+}
+
+int slab_int8_w8_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
+  return run_slab<SlotI8, int8_t>(false, true, PASS_INT8_WEIGHTS);
 }
 
 // kv_int4 with bf16 panels ("slab4") and int8 panels ("slab4_w8").

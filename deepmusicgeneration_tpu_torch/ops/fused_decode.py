@@ -5,11 +5,11 @@ layers: weight matvecs, attention over a slot-major KV ring with the
 relative-position term rolled by the ring pointer, the in-place write of the
 fresh token's quantized K/V into slot ``ptr``, and the post-norm block tail
 with tanh GELU. It replaces the TPU kernel of the same name in
-``deepmusicgeneration_tpu/ops/fused_decode.py`` in its five modes:
+``deepmusicgeneration_tpu/ops/fused_decode.py`` in its six modes:
 ``slab_w8`` (int8 weight panels with per-column scales) and ``slab`` (bf16
-panels) over an int8 ring; ``slab_int8`` (bf16 panels, q.K and P.V as
-int8 x int8 products); ``slab4`` / ``slab4_w8`` (an int4 ring, two slots a
-byte, bf16 or int8 panels).
+panels) over an int8 ring; ``slab_int8`` / ``slab_int8_w8`` (bf16 or int8
+panels, q.K and P.V as int8 x int8 products); ``slab4`` / ``slab4_w8`` (an
+int4 ring, two slots a byte, bf16 or int8 panels).
 
 ``fused_slab_allrows_core`` computes the slab step with the same int8 cache
 layout and result, in the modes ``slab_ar_w8`` and ``slab_ar``; its CUDA
@@ -20,14 +20,21 @@ version reads each layer's weights once for all B rows.
 and slot-major V panels, bf16 or int8 with per-slot scales; they replace
 the TPU kernels of those names.
 
+``fused_stack_decode`` (B = 1, the token in row 0 of an 8-row h block) and
+``fused_batched_decode`` compute the same step over bf16 K (L, B, H, Dh, M)
+and head-major V (L, B, H, M, Dh), the caches of the JAX tests' path from
+``txl.ring_from_prefill``; they replace the TPU kernels of those names,
+which no engine mode reaches.
+
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
 first use, bound with ctypes) or raises; on a CPU tensor it runs its plain
 version (:func:`slab_plain`, :func:`multirow_plain`,
-:func:`multirow_q_plain`), the same arithmetic in plain PyTorch. Unlike the
-JAX functions, whose cache operands are donated and aliased, the port
-updates the caches in place (slot ``ptr`` only) and returns them. Each
-wrapper's ``launches`` dict counts its kernel launches by mode.
+:func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
+PyTorch. Unlike the JAX functions, whose cache operands are donated and
+aliased, the port updates the caches in place (slot ``ptr`` only) and
+returns them. Each wrapper's ``launches`` dict counts its kernel launches
+by mode.
 """
 
 from __future__ import annotations
@@ -358,6 +365,31 @@ def multirow_q_plain(stacked, cfg, h_in, wkr_f, kt, ks, vc, vs, blocked,
     return h, kt, ks, vc, vs
 
 
+def stack_plain(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr: int,
+                acc: torch.dtype = F32):
+    """Plain PyTorch version of :func:`fused_stack_decode` /
+    :func:`fused_batched_decode`: bf16 K (L, B, H, Dh, M), head-major V
+    (L, B, H, M, Dh) and wkr_t (L, H, Dh, M+1), multirow's arithmetic. The
+    step runs the first B = blocked.shape[0] rows of ``h_in``; any rows
+    after them (rows 1-7 of the single-stream step's 8-row block) come back
+    as they are. The fresh k1 / v1 go into slot ``ptr`` as bf16, in place,
+    after the attention has read the old slot. Returns (h_out, kt, vc)."""
+    L, B, H, Dh, M = kt.shape
+    HD = H * Dh
+
+    def read_kv(l):
+        return (kt[l].reshape(B, HD, M).transpose(1, 2).to(acc), None,
+                vc[l].transpose(1, 2).reshape(B, M, HD).to(acc), None)
+
+    def write_kv(l, k1, v1):
+        kt[l, :, :, :, ptr] = k1.reshape(B, H, Dh).to(kt.dtype)
+        vc[l, :, :, ptr] = v1.reshape(B, H, Dh).to(vc.dtype)
+
+    h = _step_plain(stacked, None, cfg, h_in[:B], wkr_t.reshape(L, HD, M + 1).transpose(1, 2),
+                    blocked, ptr, acc, read_kv, write_kv)
+    return torch.cat([h, h_in[B:].to(acc)]), kt, vc
+
+
 def _check(name, t, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -376,19 +408,24 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # every step function's C signature: 22 device pointers, L B D Dff H Dh M
 # smax ptr rows_per_cell, scale, act, stream
 _STEP_ARGTYPES = [_P] * 22 + [_I] * 10 + [ctypes.c_float, _I, _P]
-SLAB_MODES = ("slab_w8", "slab_ar_w8", "slab", "slab_ar", "slab_int8", "slab4",
-              "slab4_w8")
+SLAB_MODES = ("slab_w8", "slab_ar_w8", "slab", "slab_ar", "slab_int8", "slab_int8_w8",
+              "slab4", "slab4_w8")
+INT8_SCORE_MODES = ("slab_int8", "slab_int8_w8")
+# csrc/multirow_decode.cu's steps: multirow's, and those of fused_stack_decode /
+# fused_batched_decode
 MULTIROW_MODES = ("multirow", "multirow_int8")
+STACK_MODES = ("fused_stack", "fused_batched")
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
     """Build and load ``csrc/<source>.cu``'s library (slab_decode or
     multirow_decode) and declare its functions: one ``<mode>_step`` per
-    mode, and ``<source>_scratch_floats``, ``<source>_kernels_per_step``,
+    mode (multirow_decode: of MULTIROW_MODES and STACK_MODES), and
+    ``<source>_scratch_floats``, ``<source>_kernels_per_step``,
     ``<source>_error_string``."""
     lib = _build.load(source)
-    for mode in SLAB_MODES if source == "slab_decode" else MULTIROW_MODES:
+    for mode in SLAB_MODES if source == "slab_decode" else MULTIROW_MODES + STACK_MODES:
         step = getattr(lib, f"{mode}_step")
         step.restype = ctypes.c_int
         step.argtypes = _STEP_ARGTYPES
@@ -401,22 +438,23 @@ def _lib(source: str) -> ctypes.CDLL:
 
 
 def _source(mode: str) -> str:
-    return "multirow_decode" if mode in MULTIROW_MODES else "slab_decode"
+    return "multirow_decode" if mode in MULTIROW_MODES + STACK_MODES else "slab_decode"
 
 
 def kernels_per_step(n_layers: int, mode: str = "slab_w8") -> int:
     """CUDA kernel launches inside one wrapper launch of ``mode`` (any of
-    :data:`SLAB_MODES` and :data:`MULTIROW_MODES`)."""
+    :data:`SLAB_MODES`, :data:`MULTIROW_MODES` and :data:`STACK_MODES`)."""
     source = _source(mode)
     return getattr(_lib(source), f"{source}_kernels_per_step")(
-        n_layers, int(mode == "slab_int8"))
+        n_layers, int(mode in INT8_SCORE_MODES))
 
 
 def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
             blocked, ptr: int, rows_per_cell: int):
     """Run ``<mode>_step`` of ``csrc/slab_decode.cu`` or
     ``csrc/multirow_decode.cu`` on the card; ``w_scales`` is None for bf16
-    weight panels, ``ks`` / ``vs`` None for bf16 caches. Returns h_out."""
+    weight panels, ``ks`` / ``vs`` None for bf16 caches. The step runs the
+    first B = blocked.shape[0] rows of ``h_in``. Returns h_out (B, D)."""
     source = _source(mode)
     lib = _lib(source)
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
@@ -425,7 +463,7 @@ def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
     dev = h_in.device
     h_out = torch.empty((B, D), dtype=F32, device=dev)
     n_scratch = getattr(lib, f"{source}_scratch_floats")(
-        B, D, Dff, H, Dh, M, int(mode == "slab_int8"))
+        B, D, Dff, H, Dh, M, int(mode in INT8_SCORE_MODES))
     scratch = torch.empty(n_scratch, dtype=F32, device=dev)
     scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
     ptrs = [stacked.qkv_w, stacked.out_w, stacked.ff1_w, stacked.ff2_w, w_scales,
@@ -502,12 +540,7 @@ def _slab_mode(score_mode: str, weights_int8: bool, kv_int4: bool) -> str:
     if score_mode == "int8":
         if kv_int4:
             raise ValueError("kv_int4 supports score_mode='bf16' only")
-        if weights_int8:
-            raise NotImplementedError(
-                "score_mode='int8' with int8 weight panels is none of the JAX "
-                "engine's modes and is not ported; slab_int8 takes bf16 panels "
-                "(ROADMAP.md)")
-        return "slab_int8"
+        return "slab_int8_w8" if weights_int8 else "slab_int8"
     if kv_int4:
         return "slab4_w8" if weights_int8 else "slab4"
     return "slab_w8" if weights_int8 else "slab"
@@ -534,15 +567,16 @@ def fused_slab_core(
     """Slab-write decode core. Returns (h_out, kt, ks, vc, vs), the caches
     updated in place in slot ``ptr``.
 
-    Five modes, as the JAX function's arguments select them: ``slab_w8``
+    Six modes, as the JAX function's arguments select them: ``slab_w8``
     (``weights_int8=True``: int8 panels and ``w_scales``) and ``slab`` (bf16
     panels; any ``w_scales`` is ignored, as in the JAX function);
-    ``slab_int8`` (``score_mode="int8"``, bf16 panels): q.K and P.V as
-    int8 x int8 products; ``slab4`` / ``slab4_w8`` (``kv_int4``, bf16 or
-    int8 panels): K/V hold two slots a byte, M % 64 == 0. ``rows_per_cell``
+    ``slab_int8`` / ``slab_int8_w8`` (``score_mode="int8"``, bf16 or int8
+    panels): q.K and P.V as int8 x int8 products; ``slab4`` / ``slab4_w8``
+    (``kv_int4``, bf16 or int8 panels): K/V hold two slots a byte,
+    M % 64 == 0. ``rows_per_cell``
     is the TPU kernel's row tiling and must divide the batch; it changes the
-    result in ``slab_int8`` only, where q is quantized with one scale per
-    cell of that many rows.
+    result in the int8-score modes only, where q is quantized with one scale
+    per cell of that many rows.
     """
     ptr = int(ptr)
     mode = _slab_mode(score_mode, weights_int8, kv_int4)
@@ -570,8 +604,8 @@ def fused_slab_core(
 
 
 # kernel launches by mode (CUDA tensors only)
-fused_slab_core.launches = {"slab_w8": 0, "slab": 0, "slab_int8": 0, "slab4": 0,
-                            "slab4_w8": 0}
+fused_slab_core.launches = {"slab_w8": 0, "slab": 0, "slab_int8": 0, "slab_int8_w8": 0,
+                            "slab4": 0, "slab4_w8": 0}
 
 
 def fused_slab_allrows_core(
@@ -692,6 +726,76 @@ def fused_multirow_q_core(
 
 
 fused_multirow_q_core.launches = {"multirow_int8": 0}
+
+
+def _check_stack(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr: int, mem_len: int,
+                 B: int, rows: int):
+    """Validate the operands of the two head-major steps: h_in (rows, D),
+    whose first B rows the step runs; returns the device."""
+    _check("h_in", h_in, F32, (rows, cfg.d_model), h_in.device)
+    dev = _check_common(stacked, cfg, h_in[:B], blocked, ptr, mem_len, 1, False, None)
+    L, H, Dh, M = cfg.n_layers, cfg.n_heads, cfg.d_head, mem_len
+    _check_caches(dev, ("wkr_t", wkr_t, BF16, (L, H, Dh, M + 1)),
+                  ("kt", kt, BF16, (L, B, H, Dh, M)), ("vc", vc, BF16, (L, B, H, M, Dh)))
+    return dev
+
+
+def fused_stack_decode(
+    stacked: StackedTXL,
+    cfg,
+    h_in: torch.Tensor,       # (8, D) fp32, the embedded token in row 0
+    wkr_t: torch.Tensor,      # (L, H, Dh, M+1) bf16
+    kt: torch.Tensor,         # (L, 1, H, Dh, M) bf16 transposed K cache
+    vc: torch.Tensor,         # (L, 1, H, M, Dh) bf16
+    blocked: torch.Tensor,    # (1, M) int32
+    ptr,                      # ring slot to overwrite, 0 <= ptr < M
+    mem_len: int,
+):
+    """The single-stream decode step through the whole stack (batch 1,
+    bf16 caches). Returns (h_out (8, D), kt, vc): row 0 of h_out is the
+    token's output, rows 1-7 are h_in's as they are; the fresh k1 / v1 are
+    written as bf16 into slot ``ptr`` of every layer, in place."""
+    ptr = int(ptr)
+    dev = _check_stack(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr, mem_len, 1, 8)
+    if dev.type == "cpu":
+        return stack_plain(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr)
+    h0 = _launch("fused_stack", stacked, None, cfg, h_in, wkr_t, kt, None, vc, None,
+                 blocked, ptr, 1)
+    fused_stack_decode.launches["fused_stack"] += 1
+    h_out = h_in.clone()
+    h_out[:1] = h0
+    return h_out, kt, vc
+
+
+fused_stack_decode.launches = {"fused_stack": 0}
+
+
+def fused_batched_decode(
+    stacked: StackedTXL,
+    cfg,
+    h_in: torch.Tensor,       # (B, D) fp32 embedded tokens
+    wkr_t: torch.Tensor,      # (L, H, Dh, M+1) bf16
+    kt: torch.Tensor,         # (L, B, H, Dh, M) bf16
+    vc: torch.Tensor,         # (L, B, H, M, Dh) bf16
+    blocked: torch.Tensor,    # (B, M) int32
+    ptr,                      # ring slot to overwrite (shared by all rows)
+    mem_len: int,
+):
+    """The batched decode step over the caches of :func:`fused_stack_decode`,
+    one token per batch row. Returns (h_out (B, D), kt, vc), the caches
+    updated in place in slot ``ptr``."""
+    ptr = int(ptr)
+    B = h_in.shape[0]
+    dev = _check_stack(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr, mem_len, B, B)
+    if dev.type == "cpu":
+        return stack_plain(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr)
+    h_out = _launch("fused_batched", stacked, None, cfg, h_in, wkr_t, kt, None, vc, None,
+                    blocked, ptr, 1)
+    fused_batched_decode.launches["fused_batched"] += 1
+    return h_out, kt, vc
+
+
+fused_batched_decode.launches = {"fused_batched": 0}
 
 # The JAX package's jitted standalone wrappers of the three cores: PyTorch
 # runs eagerly, so here they are the cores themselves (ptr an int).

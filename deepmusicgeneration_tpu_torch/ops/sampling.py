@@ -162,3 +162,9 @@ def filter_sample_sorted_rows(keys: torch.Tensor, steps: torch.Tensor,
     spos = torch.where(greedy, torch.zeros_like(sampled), sampled)
     idx = torch.gather(order, -1, spos[..., None])[..., 0]
     return idx, keep.sum(dim=-1)
+
+
+def num_choices(logits: torch.Tensor) -> torch.Tensor:
+    """The number of tokens the filters left (the reference counts the
+    non-zero probabilities)."""
+    return (logits > FILTER_VALUE / 2).sum(dim=-1)

@@ -665,3 +665,35 @@ def test_fused_greedy_follows_the_exact_ring_step():
     from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
     counts = cs.fused_greedy_phase(MultitaskLearner.load(str(cs.MT_DEMO)), 4, n_words=32)
     assert counts == cs.only(s2s_fused=32, nw_fused=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,batches", [("fused_stack", (1,)), ("fused_batched", (1, 16)),
+                                          ("slab_int8_w8", (1, 16))])
+def test_row10_kernels_against_float64(mode, batches):
+    """fused_stack_decode, fused_batched_decode and the int8-score slab step
+    over int8 panels at the demo checkpoint's widths, every case of
+    chip_smoke.py's kernel phase held to its float64 check (raises on a
+    disagreement, or if fused_stack changes rows 1-7 of its h block)."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    cs.reset_launches()
+    dh, ratio = cs.kernel_phase(engine, cs.wkr_table(engine), np.random.default_rng(8),
+                                dev, mode, batches)
+    cases = len(batches) * len(cs.kernel_ptrs(mode, engine.cfg.mem_len)) * len(cs.RINGS)
+    assert cs.launches() == cs.only(**{mode: cases})
+    print(f"{mode} B in {batches}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+def test_stack_path_follows_the_exact_ring_step():
+    """chip_smoke.py's row-10 path on the demo checkpoint: one prompt at
+    B = 1 and 16 at B = 16, 32 greedy steps of one launch each, the logits
+    within the exact ring step's bounds at every step, the MIDI re-parsed."""
+    _card()
+    import chip_smoke as cs
+    learner = MusicLearner.load(DEMO)
+    items = cs.batch_prompts(learner.vocab, 0, 16)
+    assert cs.stack_path_phase(learner, items, 32) == {"fused_stack": 32, "fused_batched": 32}

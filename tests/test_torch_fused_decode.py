@@ -217,11 +217,15 @@ def test_plain_float64_accumulate(model):
 
 
 def test_unported_modes_raise(model):
+    """Every mode of the JAX function is ported, score_mode="int8" over int8
+    panels included (held to JAX in tests/test_torch_slab_modes.py); what
+    the JAX kernel refuses still raises, before any operand is read."""
     jcfg, cfg, _, (tst, tws), _ = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfd.fused_slab_core(tst, cfg, None, None, None, None, None, None, None,
-                            0, jcfg.mem_len, score_mode="int8", weights_int8=True,
-                            w_scales=tws)
+    for kw, match in ((dict(score_mode="int8", kv_int4=True), "kv_int4"),
+                      (dict(score_mode="fp8"), "score_mode")):
+        with pytest.raises(ValueError, match=match):
+            tfd.fused_slab_core(tst, cfg, None, None, None, None, None, None, None,
+                                0, jcfg.mem_len, weights_int8=True, w_scales=tws, **kw)
 
 
 def test_wrapper_checks_inputs(model):

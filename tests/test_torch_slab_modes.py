@@ -7,7 +7,7 @@ tensors) is held against JAX ``fused_slab_core`` in interpret mode on the
 bf16 setup config of ``tests/test_fused_decode.py`` (2 layers, d 128, 2 x 64
 heads, mem_len 128), in the cases of ``test_fused_decode.py``'s slab tests:
 ``slab_int8`` at 8 and 32 rows a cell (one batch, so the query scale per
-cell differs), ``slab4`` with the ring pointer on the high- and the
+cell differs), the same over int8 weight panels (``slab_int8_w8``), ``slab4`` with the ring pointer on the high- and the
 low-nibble side of one packed row, at 8 and 16 rows, and ``slab4_w8``. The
 CUDA kernels are held against the plain version in ``chip_smoke.py``.
 """
@@ -37,7 +37,7 @@ SETUP = dict(vocab_size=324, n_layers=2, d_model=128, d_inner=256, n_heads=2,
 # the int8-score mode also rounds q and the probabilities to int8, where a
 # value within float32 noise of a half-point may round the other way and
 # move one score or one P.V term by a step of 1/127 of its row's largest.
-H_ATOL = {"slab_int8": 2e-3, "slab4": 1e-4, "slab4_w8": 1e-4}
+H_ATOL = {"slab_int8": 2e-3, "slab_int8_w8": 2e-3, "slab4": 1e-4, "slab4_w8": 1e-4}
 # a fresh-slot scale is max|k| / qmax of a float32 row whose sum order
 # differs: at most a few float32 ulps
 SCALE_RTOL = 1e-5
@@ -111,7 +111,7 @@ def _run_both(model, mode, B, R, ptr, full, seed):
     jcfg, cfg, jbf, tbf, jw8, tw8, wkr_mt = model
     int4, w8 = mode.startswith("slab4"), mode.endswith("_w8")
     (jst, jws), (tst, tws) = (jw8, tw8) if w8 else (jbf, tbf)
-    score = "int8" if mode == "slab_int8" else "bf16"
+    score = "int8" if mode.startswith("slab_int8") else "bf16"
     kv, h_in, blocked = _ring(jcfg, B, ptr, full, seed, int4)
     M = jcfg.mem_len
     ref = jfd.fused_slab_decode(
@@ -137,11 +137,9 @@ def _half_point_flips(got, ref):
     return int((d > 0).sum())
 
 
-@pytest.mark.parametrize("R,ptr,full", [(8, 39, False), (32, 127, True)])
-def test_plain_slab_int8_matches_pallas_interpret(model, R, ptr, full):
-    """score_mode='int8' at 4 cells of 8 rows and 1 cell of 32 rows."""
-    got, ref, kv = _run_both(model, "slab_int8", 32, R, ptr, full, seed=R + ptr)
-    np.testing.assert_allclose(got[0], ref[0], atol=H_ATOL["slab_int8"], rtol=0)
+def _check_int8_scores(model, mode, R, ptr, full):
+    got, ref, kv = _run_both(model, mode, 32, R, ptr, full, seed=R + ptr)
+    np.testing.assert_allclose(got[0], ref[0], atol=H_ATOL[mode], rtol=0)
     M = kv[0].shape[2]
     other = np.arange(M) != ptr
     for g, r, before in zip(got[1:], ref[1:], kv):
@@ -154,6 +152,19 @@ def test_plain_slab_int8_matches_pallas_interpret(model, R, ptr, full):
                                    rtol=SCALE_RTOL, atol=0)
         np.testing.assert_allclose(got[i][1:, :, ptr], ref[i][1:, :, ptr],
                                    rtol=INT8_LATER_SCALE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("R,ptr,full", [(8, 39, False), (32, 127, True)])
+def test_plain_slab_int8_matches_pallas_interpret(model, R, ptr, full):
+    """score_mode='int8' at 4 cells of 8 rows and 1 cell of 32 rows."""
+    _check_int8_scores(model, "slab_int8", R, ptr, full)
+
+
+@pytest.mark.parametrize("R,ptr,full", [(8, 39, False), (32, 127, True)])
+def test_plain_slab_int8_w8_matches_pallas_interpret(model, R, ptr, full):
+    """score_mode='int8' over int8 weight panels (weights_int8=True), which
+    no engine mode selects, to slab_int8's bounds."""
+    _check_int8_scores(model, "slab_int8_w8", R, ptr, full)
 
 
 def test_slab_int8_rows_per_cell_changes_the_result(model):
@@ -197,8 +208,8 @@ def test_plain_slab4_matches_pallas_interpret(model, mode, R, ptr):
 
 
 def test_slab_mode_arguments(model):
-    """int4 needs M % 64 == 0 and bf16 scores; int8 scores with int8 weight
-    panels is none of the engine's modes."""
+    """int4 needs M % 64 == 0 and bf16 scores; int8 scores take int8 weight
+    panels too (``slab_int8_w8``)."""
     jcfg, cfg, _, (tst, _), _, (qst, qws), wkr_mt = model
     kv, h_in, blocked = _ring(jcfg, 8, 3, True, seed=1, int4=True)
     args = [torch.from_numpy(h_in),
@@ -207,9 +218,13 @@ def test_slab_mode_arguments(model):
             jcfg.mem_len]
     with pytest.raises(ValueError, match="kv_int4"):
         tfd.fused_slab_core(tst, cfg, *args, score_mode="int8", kv_int4=True)
-    with pytest.raises(NotImplementedError, match="slab_int8"):
-        tfd.fused_slab_core(qst, cfg, *args, score_mode="int8", weights_int8=True,
-                            w_scales=qws)
+    kv8, h8, blocked8 = _ring(jcfg, 8, 3, True, seed=1, int4=False)
+    args8 = [torch.from_numpy(h8), args[1], *[torch.from_numpy(t.copy()) for t in kv8],
+             torch.from_numpy(blocked8), 3, jcfg.mem_len]
+    h_w8 = tfd.fused_slab_core(qst, cfg, *args8, score_mode="int8", weights_int8=True,
+                               w_scales=qws)[0]
+    h_bf = tfd.fused_slab_core(tst, cfg, *args8, score_mode="int8")[0]
+    assert torch.isfinite(h_w8).all() and (h_w8 - h_bf).abs().max().item() > 1e-4
     with pytest.raises(ValueError, match="kt"):   # int8-sized cache given int4 rows
         tfd.fused_slab_core(tst, cfg, *args)
 
