@@ -88,7 +88,9 @@ non-zero without printing a result):
    3, key padding, attention dropout 0.1): the output and the six gradients
    each held to the float64 check (TRAIN_REL, PLAIN_K).
 12. train timing — CUDA-event medians of 100 forward and 100 backward
-   launches and of the plain version, beside the bound.
+   launches and of the plain version, beside the bound; the tile pairs the
+   kernels compute of all (``tile_map``) and the bytes of the backward's
+   dWkr partial slots.
 13. train — the main path of training: a synthetic corpus
    (``synthcorpus.make_corpus``) sized to one epoch of 16-32 steps,
    ``MusicLearner(btp_phase1_config)`` with fresh weights on the card,
@@ -107,7 +109,7 @@ non-zero without printing a result):
 15. mt train timing — CUDA-event medians of 100 forward and 100 backward
    launches of the bidirectional and cross kernels and of
    ``flash_train_attention`` at M = 0, and of their plain versions, beside
-   the bound.
+   the bound; at M = 0 also the tile pairs computed and the partials' bytes.
 16. mt train — the main path of multitask training, as
    ``examples/train_multitask.py`` builds it: mask batches
    (``mask_lm_tfm_pitchdur`` over ``LMStreamLoader``, 8-16 of them) and
@@ -1985,14 +1987,16 @@ def train_timing_phase(cfg, dev, seed, M=TRAIN_M, prefix="train"):
     H, Dh, B, L, K = cfg.n_heads, cfg.d_head, TRAIN_B, TRAIN_L, M + TRAIN_L
     inp = train_inputs(B, L, K, H, Dh, dev, seed)
     vecs = ftr.mask_vectors(B, L, K, 1, 1, M, device=dev)
+    plan = ftr.kernel_plan(*vecs)
     sc = float(np.float32(1.0 / math.sqrt(Dh)))
     ops = [inp[n].contiguous() for n in ("q", "k", "v", "wkr")] + [
         inp["u"].reshape(-1), inp["vb"].reshape(-1)]
     args = dict(H=H, sc=sc, attn_p=cfg.attn_p, seed=TRAIN_SEED)
-    out, m, l = ftr._launch_fwd(*ops, vecs, **args)
-    delta = (inp["do"].float() * out.float()).reshape(B, L, H, Dh).sum(-1).contiguous()
-    fwd = lambda: ftr._launch_fwd(*ops, vecs, **args)
-    bwd = lambda: ftr._launch_bwd(*ops, vecs, inp["do"], delta, m, l, **args)
+    out, m, l = ftr._launch_fwd(*ops, plan, **args)
+    delta = (inp["do"].float() * out.float()).reshape(B, L, H, Dh).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
+    fwd = lambda: ftr._launch_fwd(*ops, plan, **args)
+    bwd = lambda: ftr._launch_bwd(*ops, plan, inp["do"], delta, m, l, **args)
     leaves = [t.detach().clone().requires_grad_(True) for t in ops]
     plain = lambda: ftr.flash_train_attention_plain(*leaves, 1, 1, M, H, None, True,
                                                     cfg.attn_p, TRAIN_SEED)
@@ -2008,6 +2012,12 @@ def train_timing_phase(cfg, dev, seed, M=TRAIN_M, prefix="train"):
             f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP over "
             f"{pairs / (B * H):.0f} visible pairs a head, by {bound_by}; dense L x K "
             f"products: {(3 if key.endswith('fwd') else 8) * dense / 1e9:.2f} GFLOP)")
+    tiles = plan[3]
+    slots = ftr.partial_slots(B, L, H, dev)
+    say(f"timing: flash_train B={B} L={L} K={K} tile pairs computed "
+        f"{int((tiles != ftr.SKIP).sum())} of {tiles.numel()} "
+        f"({int((tiles == ftr.VISIBLE).sum())} without a mask test); dWkr partials "
+        f"{slots} slots of (K, H Dh) f32, {slots * K * H * Dh * 4 / 1e6:.1f} MB")
     return result
 
 

@@ -13,7 +13,11 @@ hand-written CUDA kernels, ``csrc/flash_train.cu``: neither pass writes the
 
 On a CUDA tensor the wrapper launches those kernels (built with nvcc on
 first use, bound with ctypes) or raises; on a CPU tensor it runs
-:func:`flash_train_attention_plain`, whose gradients autograd gives.
+:func:`flash_train_attention_plain`, whose gradients autograd gives. Before
+the kernels, the wrapper classifies every (batch row, 64-query tile, 64-key
+tile) from the mask vectors (:func:`tile_map`), so that the kernels skip the
+tile pairs the mask blocks whole and test no element of those it leaves
+whole.
 
 The mask is rebuilt from four vectors (:func:`mask_vectors`), exactly as
 the TPU kernel's wrapper builds them: query row i is blocked from key j when
@@ -48,6 +52,7 @@ bf16 roundings where the TPU kernels round):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -146,6 +151,56 @@ def blocked_mask(rt, cw, cb, kp) -> torch.Tensor:
     win = cw[None, :] >= rt[:, None]
     col = (cb[None, :] != 0) | (kp != 0)
     return win[None, None] | col[:, None, None, :]
+
+
+SKIP, MIXED, VISIBLE = 0, 1, 2   # tile_map's classes
+
+
+def tile_map(rt, cw, cb, kp) -> torch.Tensor:
+    """(B, L / TILE, K / TILE) int32: how the kernels treat each (batch row,
+    query tile, key tile) of :func:`blocked_mask`. VISIBLE: no pair blocked,
+    no per-element test. SKIP: every pair blocked, so P is exactly 0 there
+    (exp(-1e9 - m) for a row max m of a visible key), unless the query tile
+    holds a row whose keys are ALL blocked: that row's P is 1 / K on every
+    key, so nothing of its query tile is skipped. MIXED: the rest. Works for
+    any vectors, from the tile's extreme thresholds: a pair is blocked when
+    ``cw[j] >= rt[i]`` or its column is."""
+    L, (B, K) = rt.shape[0], kp.shape
+    nq, nk = L // TILE, K // TILE
+    col = (cb != 0)[None, :] | (kp != 0)                           # (B, K)
+    r = rt.reshape(nq, TILE)
+    win_all = cw[None, :] >= r.amax(1)[:, None]   # (nq, K): blocked for every row
+    win_any = cw[None, :] >= r.amin(1)[:, None]   # blocked for the lowest threshold's row
+    tiles = lambda x: x.reshape(B, nq, nk, TILE).all(-1)
+    blocked = tiles(col[:, None, :] | win_all[None])
+    visible = tiles(~col[:, None, :] & ~win_any[None])
+    # the lowest-threshold row is the first a tile has fully blocked
+    row_blocked = (col[:, None, :] | win_any[None]).all(-1)      # (B, nq)
+    skip = blocked & ~row_blocked[:, :, None]
+    return torch.where(visible, VISIBLE, torch.where(skip, SKIP, MIXED)).to(torch.int32)
+
+
+def kernel_plan(rt, cw, cb, kp):
+    """The kernels' mask operands: rt, cw, the blocked columns ``cb | kp``
+    (B, K) and :func:`tile_map`, all int32 and contiguous."""
+    cblk = ((cb != 0)[None, :] | (kp != 0)).to(torch.int32)
+    return (rt.contiguous(), cw.contiguous(), cblk.contiguous(),
+            tile_map(rt, cw, cb, kp).contiguous())
+
+
+@functools.lru_cache(maxsize=64)
+def _unpadded_plan(B, L, K, win_size, win_k, mem_valid, device):
+    return kernel_plan(*mask_vectors(B, L, K, win_size, win_k, mem_valid, None, device))
+
+
+def train_plan(B, L, K, win_size, win_k, mem_valid, pad_mask, device):
+    """:func:`kernel_plan` of :func:`mask_vectors`, built on ``device`` once
+    a forward; without key padding it depends only on the shape and the
+    curriculum, and is built once for them (the genre train step's case)."""
+    if pad_mask is None:
+        return _unpadded_plan(B, L, K, int(win_size), int(win_k), int(mem_valid),
+                              torch.device(device))
+    return kernel_plan(*mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, device))
 
 
 class _Round(torch.autograd.Function):
@@ -274,11 +329,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_train")
     lib.flash_train_fwd.restype = ctypes.c_int
-    lib.flash_train_fwd.argtypes = ([_P] * 10 + [_P] * 3 + [_I] * 5
+    lib.flash_train_fwd.argtypes = ([_P] * 6 + [_P] * 4 + [_P] * 2 + [_P] * 3 + [_I] * 5
                                     + [_F, _I, ctypes.c_uint32, _I, _F, _P])
     lib.flash_train_bwd.restype = ctypes.c_int
-    lib.flash_train_bwd.argtypes = ([_P] * 10 + [_P] * 4 + [_P] * 6 + [_P] * 3
-                                    + [_I] * 5 + [_F, _I, ctypes.c_uint32, _I, _F, _P])
+    lib.flash_train_bwd.argtypes = ([_P] * 6 + [_P] * 4 + [_P] * 2 + [_P] * 4 + [_P] * 6
+                                    + [_P] * 3 + [_I] + [_I] * 5
+                                    + [_F, _I, ctypes.c_uint32, _I, _F, _P])
     lib.flash_train_error_string.restype = ctypes.c_char_p
     lib.flash_train_error_string.argtypes = [_I]
     return lib
@@ -298,75 +354,105 @@ def _dropout_args(attn_p: float, seed: int):
     return 1, int(seed) & _M32, keep_threshold(attn_p), keep_scale(attn_p)
 
 
-def _launch_fwd(q, k, v, wkr, u, vb, vecs, H, sc, attn_p, seed):
+def dq_group(B: int, L: int, H: int, n_sms: int) -> int:
+    """Batch rows G a block of the dQ pass walks, each (G, query tile) with
+    one dWkr partial slot: the largest of 4 and 2 that divides B and still
+    gives two blocks an SM, else 1."""
+    for g in (4, 2):
+        if B % g == 0 and (L // TILE) * H * (B // g) >= 2 * n_sms:
+            return g
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def partial_slots(B: int, L: int, H: int, device) -> int:
+    """The backward's dWkr partial slots on ``device``: (B / G) x L / 64."""
+    return B // dq_group(B, L, H, _n_sms(torch.device(device))) * (L // TILE)
+
+
+def _on_device(dev):
+    """The device context for a launch on ``dev``: none when ``dev`` is
+    already current (a context costs host time a train step pays 16 times)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _launch_fwd(q, k, v, wkr, u, vb, plan, H, sc, attn_p, seed):
     lib = _lib()
     B, L, HD = q.shape
     K = k.shape[1]
     out = torch.empty_like(q)
-    m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    quv = torch.empty((2, B, L, HD), dtype=q.dtype, device=q.device)   # q + u, q + v
+    ml = torch.empty((2, B, H, L), dtype=torch.float32, device=q.device)
+    p_quv, p_ml = quv.data_ptr(), ml.data_ptr()
+    with _on_device(q.device):
         err = lib.flash_train_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(), u.data_ptr(),
-            vb.data_ptr(), *(t.data_ptr() for t in vecs), out.data_ptr(),
-            m.data_ptr(), l.data_ptr(), B, L, K, H, HD // H, sc,
-            *_dropout_args(attn_p, seed), stream)
+            vb.data_ptr(), *(t.data_ptr() for t in plan), p_quv, p_quv + q.numel() * 2,
+            out.data_ptr(), p_ml, p_ml + B * H * L * 4, B, L, K, H, HD // H, sc,
+            *_dropout_args(attn_p, seed), torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, err, "forward")
-    return out, m, l
+    return out, ml[0], ml[1]
 
 
-def _launch_bwd(q, k, v, wkr, u, vb, vecs, do, delta, m, l, H, sc, attn_p, seed):
+def _launch_bwd(q, k, v, wkr, u, vb, plan, do, delta, m, l, H, sc, attn_p, seed):
+    """``delta``: (B, H, L) float32, sum_d dO * O."""
     lib = _lib()
     B, L, HD = q.shape
     K = k.shape[1]
     dev = q.device
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dwkr = torch.empty((K, HD), dtype=torch.float32, device=dev)
-    du = torch.empty((HD,), dtype=torch.float32, device=dev)
-    dvb = torch.empty_like(du)
-    n_part = B * (L // TILE)      # per (batch row, query tile) partial sums
-    part_w = torch.empty((n_part, K, HD), dtype=torch.float32, device=dev)
-    part_u = torch.empty((n_part, HD), dtype=torch.float32, device=dev)
-    part_v = torch.empty_like(part_u)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    dw = torch.empty((K + 2, HD), dtype=torch.float32, device=dev)     # dwkr, du, dv
+    # one scratch allocation: q + u and q + v (bf16), then the partial slots
+    # (n_part, K, HD) of dwkr and (2, n_part, HD) of du and dv (float32)
+    n_part = partial_slots(B, L, H, dev)
+    n_q = 2 * q.numel() * 2
+    scratch = torch.empty(n_q + n_part * (K + 2) * HD * 4, dtype=torch.uint8, device=dev)
+    p_s, p_w = scratch.data_ptr(), dw.data_ptr()
+    p_part = p_s + n_q
+    p_uv = p_part + n_part * K * HD * 4
+    with _on_device(dev):
         err = lib.flash_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(), u.data_ptr(),
-            vb.data_ptr(), *(t.data_ptr() for t in vecs), do.data_ptr(),
+            vb.data_ptr(), *(t.data_ptr() for t in plan), p_s, p_s + n_q // 2, do.data_ptr(),
             delta.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dwkr.data_ptr(), du.data_ptr(), dvb.data_ptr(),
-            part_w.data_ptr(), part_u.data_ptr(), part_v.data_ptr(),
-            B, L, K, H, HD // H, sc, *_dropout_args(attn_p, seed), stream)
+            dv.data_ptr(), p_w, p_w + K * HD * 4, p_w + (K + 1) * HD * 4, p_part, p_uv,
+            p_uv + n_part * HD * 4, B * (L // TILE) // n_part, B, L, K, H, HD // H, sc,
+            *_dropout_args(attn_p, seed), torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, err, "backward")
-    return dq, dk, dv, dwkr, du, dvb
+    return dq, dk, dv, dw[:K], dw[K], dw[K + 1]
 
 
 class _FlashTrain(torch.autograd.Function):
     """The CUDA forward and backward kernels as one differentiable op. The
-    forward saves each query row's softmax max and sum; the backward
-    recomputes the probabilities from them and takes
+    forward saves each query row's softmax max and sum and the tile map; the
+    backward recomputes the probabilities from them and takes
     ``delta = sum_d dO * O`` in float32 outside the kernel, as the TPU
     kernel's backward does (``flash_train.py:321-326``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, wkr, u, vb, rt, cw, cb, kp, H, sc, attn_p, seed):
-        vecs = (rt, cw, cb, kp)
-        out, m, l = _launch_fwd(q, k, v, wkr, u, vb, vecs, H, sc, attn_p, seed)
+    def forward(ctx, q, k, v, wkr, u, vb, rt, cw, cblk, tiles, H, sc, attn_p, seed):
+        plan = (rt, cw, cblk, tiles)
+        out, m, l = _launch_fwd(q, k, v, wkr, u, vb, plan, H, sc, attn_p, seed)
         flash_train_attention.launches["fwd"] += 1
-        ctx.save_for_backward(q, k, v, wkr, u, vb, rt, cw, cb, kp, out, m, l)
+        ctx.save_for_backward(q, k, v, wkr, u, vb, rt, cw, cblk, tiles, out, m, l)
         ctx.meta = (H, sc, attn_p, seed)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, wkr, u, vb, rt, cw, cb, kp, out, m, l = ctx.saved_tensors
+        q, k, v, wkr, u, vb, rt, cw, cblk, tiles, out, m, l = ctx.saved_tensors
         H, sc, attn_p, seed = ctx.meta
         B, L, HD = q.shape
-        delta = (do.float() * out.float()).reshape(B, L, H, HD // H).sum(-1).contiguous()
+        delta = (do.float() * out.float()).reshape(B, L, H, HD // H).sum(-1)
         dq, dk, dv, dwkr, du, dvb = _launch_bwd(
-            q, k, v, wkr, u, vb, (rt, cw, cb, kp), do.to(q.dtype).contiguous(), delta,
-            m, l, H, sc, attn_p, seed)
+            q, k, v, wkr, u, vb, (rt, cw, cblk, tiles), do.to(q.dtype).contiguous(),
+            delta.transpose(1, 2).contiguous(), m, l, H, sc, attn_p, seed)
         flash_train_attention.launches["bwd"] += 1
         return (dq, dk, dv, dwkr.to(wkr.dtype), du.to(u.dtype), dvb.to(vb.dtype),
                 None, None, None, None, None, None, None, None)
@@ -450,9 +536,9 @@ def flash_train_attention(
     if why:
         raise ValueError(f"flash_train_attention: {why}")
     operands = _bf16_operands(q, k, v, wkr, u_bias, v_bias)
-    vecs = mask_vectors(B, L, K, win_size, win_k, mem_valid, pad_mask, q.device)
+    plan = train_plan(B, L, K, win_size, win_k, mem_valid, pad_mask, q.device)
     sc = float(np.float32(1.0 / math.sqrt(HD // H))) if scale else 1.0
-    return _FlashTrain.apply(*operands, *vecs, H, sc, float(attn_p), int(attn_seed or 0))
+    return _FlashTrain.apply(*operands, *plan, H, sc, float(attn_p), int(attn_seed or 0))
 
 
 # CUDA kernel launches (CUDA tensors only): "fwd" per forward, "bwd" per backward

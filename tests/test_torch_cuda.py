@@ -407,18 +407,27 @@ def test_multitask_tasks_go_through_the_kernel(kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Dh", [32, 64])
-@pytest.mark.parametrize("case", ["causal", "mem40", "win3", "pad", "dropout"])
+@pytest.mark.parametrize("case", ["causal", "mem40", "win3", "pad", "dropout", "m0_pad"])
 def test_flash_train_kernels_against_float64(case, Dh):
     """The flash train forward and backward kernels against the plain version
     by chip_smoke.py's float64 check (output and six gradients), at B 2,
-    L 256, K 512, four heads, in the smoke's five cases."""
+    L 256, K 512, four heads, in the smoke's five cases; and at M = 0 (K 256)
+    with key padding and dropout: batch row 1 pads its first 37 keys, so its
+    rows 0..36 see no key, inside query tile 0 whose key tiles 1..3 the
+    causal mask blocks whole: the tile map must skip none of them."""
     dev = _card()
     import chip_smoke as cs
     from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
     torch.backends.cuda.matmul.allow_tf32 = False
-    kw, pad = {name: (c, p) for name, c, p in cs.TRAIN_CASES}[case]
-    kw = dict(kw, mem_valid=min(kw["mem_valid"], 256))
-    inp = cs.train_inputs(2, 256, 512, 4, Dh, dev, seed=Dh, pad=pad)
+    if case == "m0_pad":
+        kw, pad, K = dict(win_size=1, win_k=1, mem_valid=0, attn_p=0.1), True, 256
+    else:
+        kw, pad = {name: (c, p) for name, c, p in cs.TRAIN_CASES}[case]
+        kw, K = dict(kw, mem_valid=min(kw["mem_valid"], 256)), 512
+    inp = cs.train_inputs(2, 256, K, 4, Dh, dev, seed=Dh, pad=pad)
+    if case == "m0_pad":
+        tiles = ftr.tile_map(*ftr.mask_vectors(2, 256, K, 1, 1, 0, inp["pad"], dev))
+        assert (tiles[1, 0] == ftr.MIXED).all() and (tiles[0, 0, 1:] == ftr.SKIP).all()
     before = dict(ftr.flash_train_attention.launches)
     ok, report = cs.train_check(ftr.flash_train_attention, ftr.flash_train_attention_plain,
                                 inp, 4, **kw, attn_seed=cs.TRAIN_SEED)
@@ -436,6 +445,23 @@ def test_flash_train_backward_is_reproducible():
     from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
     inp = cs.train_inputs(4, 128, 256, 2, 64, dev, seed=1)
     runs = [cs.train_run(ftr.flash_train_attention, inp, 2, 1, 1, 128, attn_p=0.1,
+                         attn_seed=7) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_train_backward_is_reproducible_with_skipped_tiles():
+    """The same at the multitask decoder's shape (B 16, L = K = 512, eight
+    heads, M = 0, causal, key padding, dropout): tile pairs skipped, query
+    tiles with fully blocked rows, several batch rows a dQ block."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    inp = cs.train_inputs(16, 512, 512, 8, 64, dev, seed=3, pad=True)
+    tiles = ftr.tile_map(*ftr.mask_vectors(16, 512, 512, 1, 1, 0, inp["pad"], dev))
+    assert (tiles == ftr.SKIP).any() and ftr.partial_slots(16, 512, 8, dev) < 16 * 8
+    runs = [cs.train_run(ftr.flash_train_attention, inp, 8, 1, 1, 0, attn_p=0.1,
                          attn_seed=7) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
