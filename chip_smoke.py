@@ -102,14 +102,17 @@ non-zero without printing a result):
 14. mt train kernel — the multitask train step's kernels against their plain
    versions at the 85M flagship's train shape (B 16, 8 x 64 heads, bf16),
    inputs drawn on the card: ``flash_bidir_attention`` (W 512: plain, key
-   padding, dropout 0.1), ``flash_cross_attention`` (L = K = 512; L 256
+   padding, dropout 0.1, and a fully padded batch row beside one whose last
+   two key tiles are padded), ``flash_cross_attention`` (L = K = 512; L 256
    with K 512; dropout 0.1) and ``flash_train_attention`` with no memory
    (L = K = 512: causal, and a window of 3 at diagonal 0), the output and
    the six gradients each held to the float64 check (TRAIN_REL, PLAIN_K).
 15. mt train timing — CUDA-event medians of 100 forward and 100 backward
    launches of the bidirectional and cross kernels and of
    ``flash_train_attention`` at M = 0, and of their plain versions, beside
-   the bound; at M = 0 also the tile pairs computed and the partials' bytes.
+   the bound; for each the tile pairs computed and the partials' bytes, and
+   the bidirectional kernels' medians again under the leading key padding,
+   beside the tile pairs they skip.
 16. mt train — the main path of multitask training, as
    ``examples/train_multitask.py`` builds it: mask batches
    (``mask_lm_tfm_pitchdur`` over ``LMStreamLoader``, 8-16 of them) and
@@ -359,6 +362,10 @@ MT_TRAIN_CASES = (
     ("cross dropout", "cross", 512, 512, False, dict(attn_p=0.1)),
     ("train M=0 causal", "train", 512, 512, True, dict(win_size=1, win_k=1, mem_valid=0)),
     ("train M=0 win3", "train", 512, 512, False, dict(win_size=3, win_k=0, mem_valid=0)),
+    # last, so that the cases above keep their seeds: batch row 0 fully
+    # padded (it skips nothing), row 1's last two key tiles padded
+    # (skipped), the others' leading padding
+    ("bidir pad rows", "bidir", 512, 512, "rows", dict(attn_p=0.1)),
 )
 MT_TRAIN_FNS = {"bidir": (ftr.flash_bidir_attention, ftr.flash_bidir_attention_plain),
                 "cross": (ftr.flash_cross_attention, ftr.flash_cross_attention_plain),
@@ -1873,7 +1880,8 @@ def http_phase(learner, mt_learner, seed: int):
 def train_inputs(B, L, K, H, Dh, dev, seed, pad=False) -> dict:
     """bf16 operands of the train attention drawn on ``dev``: q, k, v, wkr of
     unit scale, u and v biases of 0.5, dO of unit scale; with ``pad`` each
-    batch row b pads its first (37 b) mod (L / 2) window keys."""
+    batch row b pads its first (37 b) mod (L / 2) window keys; with ``pad ==
+    "rows"`` batch row 0 pads every key instead and row 1 its last 128."""
     rng = np.random.default_rng(seed)
     HD = H * Dh
     bf = lambda shape, std: normal(shape, std, rng, dev).to(torch.bfloat16)
@@ -1881,6 +1889,9 @@ def train_inputs(B, L, K, H, Dh, dev, seed, pad=False) -> dict:
     if pad:
         n = (37 * torch.arange(B, device=dev)) % (L // 2)
         mask = torch.arange(L, device=dev)[None, :] < n[:, None]
+    if pad == "rows":
+        mask[0] = True
+        mask[1] = torch.arange(L, device=dev) >= L - 128
     return dict(q=bf((B, L, HD), 1.0), k=bf((B, K, HD), 1.0), v=bf((B, K, HD), 1.0),
                 wkr=bf((K, HD), 1.0), u=bf((H, Dh), 0.5), vb=bf((H, Dh), 0.5), pad=mask,
                 do=bf((B, L, HD), 1.0))
@@ -2172,11 +2183,13 @@ def mt_train_timing_phase(cfg, dev, seed):
         ops = [inp[n].contiguous() for n in ("q", "k", "v", "wkr")] + [
             inp["u"].reshape(-1), inp["vb"].reshape(-1)]
         kp = torch.zeros((B, W), dtype=torch.int32, device=dev) if bidir else None
+        tiles = ftr.bidir_tile_map(kp) if bidir else None
         args = dict(H=H, sc=sc, attn_p=cfg.attn_p, seed=TRAIN_SEED)
-        out, m, l = ftr._mt_launch_fwd(bidir, *ops, kp, **args)
-        delta = (inp["do"].float() * out.float()).reshape(B, W, H, Dh).sum(-1).contiguous()
-        fwd = lambda: ftr._mt_launch_fwd(bidir, *ops, kp, **args)
-        bwd = lambda: ftr._mt_launch_bwd(bidir, *ops, kp, inp["do"], delta, m, l, **args)
+        fwd = lambda: ftr._mt_launch_fwd(bidir, *ops, kp, tiles, **args)
+        out, m, l = fwd()
+        delta = (inp["do"].float() * out.float()).reshape(B, W, H, Dh).sum(-1)
+        delta = delta.transpose(1, 2).contiguous()
+        bwd = lambda: ftr._mt_launch_bwd(bidir, *ops, kp, tiles, inp["do"], delta, m, l, **args)
         leaves = [t.detach().clone().requires_grad_(True) for t in ops]
         pad = {"pad_mask": None} if bidir else {}
         plain_fn = MT_TRAIN_FNS[kind][1]
@@ -2194,6 +2207,29 @@ def mt_train_timing_phase(cfg, dev, seed):
                 f"ms bound {r['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.2f} GFLOP, by {r['bound_by']})")
         result.update(got)
+        n_tiles = B * (W // ftr.TILE) ** 2
+        band = (ftr.cross_band_classes(W, W) != ftr.NO_BD).sum() * B
+        say(f"timing: flash_{kind} B={B} W={W} tile pairs computed {n_tiles} of {n_tiles}"
+            + ("" if bidir else f" ({int(band)} with a BD term)") + "; dWkr partials "
+            f"{ftr.partial_slots(B, W, H, dev)} slots of (K, H Dh) f32, "
+            f"{ftr.mt_partial_bytes(B, W, W, H, Dh, dev) / 1e6:.1f} MB")
+    # bidir under the smoke's leading key padding: the fully padded key tiles
+    # are skipped
+    inp = train_inputs(B, W, W, H, Dh, dev, seed, pad=True)
+    ops = [inp[n].contiguous() for n in ("q", "k", "v", "wkr")] + [
+        inp["u"].reshape(-1), inp["vb"].reshape(-1)]
+    kp = inp["pad"].to(torch.int32).contiguous()
+    tiles = ftr.bidir_tile_map(kp)
+    args = dict(H=H, sc=sc, attn_p=cfg.attn_p, seed=TRAIN_SEED)
+    fwd = lambda: ftr._mt_launch_fwd(True, *ops, kp, tiles, **args)
+    out, m, l = fwd()
+    delta = (inp["do"].float() * out.float()).reshape(B, W, H, Dh).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
+    bwd = lambda: ftr._mt_launch_bwd(True, *ops, kp, tiles, inp["do"], delta, m, l, **args)
+    say(f"timing: flash_bidir B={B} W={W} leading key padding: tile pairs computed "
+        f"{int((tiles != ftr.SKIP).sum())} of {tiles.numel()} "
+        f"({int((tiles == ftr.VISIBLE).sum())} without a mask test); kernel median "
+        f"fwd {time_ms(fwd, 100):.4f} ms, bwd {time_ms(bwd, 100):.4f} ms")
     result.update(train_timing_phase(cfg, dev, seed, M=0, prefix="train0"))
     return result
 

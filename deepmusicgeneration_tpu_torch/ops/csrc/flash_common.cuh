@@ -1,12 +1,12 @@
-// Device building blocks shared by the hand-written training-attention
-// kernels (flash_train.cu: attention over [XL memory, window] under the
+// Device building blocks shared by the hand-written attention kernels
+// (flash_train.cu: attention over [XL memory, window] under the
 // causal-window curriculum; flash_mt.cu: the multitask model's bidirectional
-// and cross attention): bf16 packing, the warp-level bf16 tensor-core
-// products (ldmatrix + mma.sync m16n8k16), the dropout counter hash, tile
-// loads and stores, the online softmax statistics, and the fixed-order
-// reduction of per-block partial sums. Each .cu includes this header into
-// its own anonymous namespace, so the two libraries share source, not
-// symbols.
+// and cross attention; flash_encoder.cu: the multitask encoder's inference
+// attention): bf16 packing, the warp-level bf16 tensor-core products
+// (ldmatrix + mma.sync m16n8k16, flash_encoder.cu's), the dropout counter
+// hash, the biased query tile load, and the fixed-order reduction of
+// per-block partial sums. Each .cu includes this header into its own
+// anonymous namespace, so the libraries share source, not symbols.
 //
 // Tiles are 64 query rows by 64 keys, one block of 8 warps each; warp w owns
 // rows 16 (w % 4) .. and columns 32 (w / 4) .. of a 64 x 64 tile.
@@ -27,7 +27,6 @@ constexpr int kTile = 64;           // query rows and key columns per tile
 constexpr int kBand = 2 * kTile;    // wkr rows a tile pair reads (127 used)
 constexpr int kSS = kTile + 1;      // f32 stride of a score tile row
 constexpr int kSP = kTile + 8;      // bf16 stride of a probability tile row
-constexpr int kSB = kBand + 8;      // bf16 stride of a band-gradient tile row
 constexpr uint32_t kCB = 0x632be59bu;
 constexpr uint32_t kCH = 0x9E3779B9u;
 
@@ -135,22 +134,6 @@ __device__ __forceinline__ float hash_keep(uint32_t seed, int thresh, float keep
 
 // --- tiles ---------------------------------------------------------------------
 
-// Rows first .. first + n_rows - 1 (mod `mod`) of a bf16 matrix whose row t
-// starts at src + t * ld, one head's DH columns, into shared memory (16-byte
-// copies).
-template <int DH>
-__device__ void load_rows(bf16* dst, const bf16* src, size_t ld, int first, int n_rows,
-                          int mod) {
-  constexpr int VPR = DH / 8;
-  for (int x = threadIdx.x; x < n_rows * VPR; x += kThreads) {
-    const int r = x / VPR, c = x % VPR;
-    int t = first + r;
-    if (t >= mod) t -= mod;
-    *reinterpret_cast<uint4*>(dst + r * stride<DH>() + 8 * c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)t * ld + 8 * c);
-  }
-}
-
 // The qu / qv tile of query rows i0 .. i0 + n - 1 of one head:
 // bf16(f32(q) + f32(bias)); q points at the batch row's (L, HD) queries
 // offset to the head, u and vb at the head's biases. Rows at or past L are
@@ -184,133 +167,63 @@ __device__ void load_q_biased(bf16* s_qu, bf16* s_qv, const bf16* q, const bf16*
   }
 }
 
-// The first wkr row of the band a (64-query, 64-key) tile pair (i0, j0)
-// reads: (j0 + L - 64 - i0) mod K; band row r is wkr row (first + r) mod K,
-// and BD[i, j] of the pair's skew (j + L - 1 - i) mod K is band row
-// j - i + 63.
-__device__ __forceinline__ int band_first(int L, int K, int i0, int j0) {
-  return (j0 + L - kTile - i0) % K;
-}
-
-// Stores a warp's (16 x 8 NB) f32 fragments as bf16 rows of a global matrix
-// whose (row, col) element is at dst[row * ld + col].
-template <int NB>
-__device__ __forceinline__ void store_bf16(bf16* dst, size_t ld, const float (&c)[NB][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    *reinterpret_cast<uint32_t*>(dst + (size_t)g * ld + nb * 8 + t2) = pack(c[nb][0], c[nb][1]);
-    *reinterpret_cast<uint32_t*>(dst + (size_t)(g + 8) * ld + nb * 8 + t2) =
-        pack(c[nb][2], c[nb][3]);
-  }
-}
-
-// --- softmax -----------------------------------------------------------------
-
-// The normalised probability of a masked, scaled score. The _rn intrinsics
-// keep nvcc from contracting the steps into FMAs differently in different
-// kernels, so every pass forms the same probability from the same score bits.
-__device__ __forceinline__ float prob(float s, float m, float l) {
-  return __fdiv_rn(expf(__fsub_rn(s, m)), l);
-}
-
-// One key tile's step of the online row max and sum: s_s holds the tile's
-// 64 x 64 masked, scaled scores (stride kSS); s_m, s_l each row's running
-// max and sum. Four threads a row; the caller syncs before and after.
-__device__ __forceinline__ void update_row_stats(const float* s_s, float* s_m, float* s_l) {
-  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
-  const float* row = s_s + r * kSS + 16 * part;
-  const float m_old = s_m[r];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int x = 0; x < 16; ++x) mx = fmaxf(mx, row[x]);
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  const float m_new = fmaxf(m_old, mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int x = 0; x < 16; ++x) sum += expf(row[x] - m_new);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  if (part == 0) {
-    s_l[r] = s_l[r] * expf(m_old - m_new) + sum;   // expf(-inf) = 0 on the first tile
-    s_m[r] = m_new;
-  }
-}
-
 // --- the batch-wide gradients ----------------------------------------------------
 
 struct Partials {
-  float *w;    // (n_slots, K, HD): dWkr of each (batch row, query tile)
+  float *w;    // (n_slots, K, HD): dWkr of each slot (group of batch rows, query tile)
   float *u;    // (n_slots, HD): du
   float *v;    // (n_slots, HD): dv
 };
 
-// The column sums over a 64-row tile of two warp-fragment accumulators (this
-// warp's 16 rows x DH / 2 columns at oc, NO = DH / 16 blocks), summed over
-// the four row warps in a fixed order and written to pu / pv (the slot's DH
-// entries of the head). s_red: 8 DH floats of free shared memory; the caller
-// syncs before s_red is reused.
-template <int DH, int NO>
-__device__ void tile_column_sums(const float (&au)[NO][4], const float (&av)[NO][4], int oc,
-                                 float* s_red, float* pu, float* pv) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, t2 = 2 * (lane & 3);
-  float* s_su = s_red;
-  float* s_sv = s_red + 4 * DH;
-#pragma unroll
-  for (int nb = 0; nb < NO; ++nb)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float x = au[nb][c] + au[nb][c + 2], y = av[nb][c] + av[nb][c + 2];
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {             // over the 8 row groups
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-        y += __shfl_xor_sync(0xffffffffu, y, o);
-      }
-      if (g8 == 0) {
-        s_su[(warp & 3) * DH + oc + nb * 8 + t2 + c] = x;
-        s_sv[(warp & 3) * DH + oc + nb * 8 + t2 + c] = y;
-      }
-    }
-  __syncthreads();
-  if (tid < DH) {
-    float tu = 0.f, tv = 0.f;
-    for (int r = 0; r < 4; ++r) {
-      tu += s_su[r * DH + tid];
-      tv += s_sv[r * DH + tid];
-    }
-    pu[tid] = tu;
-    pv[tid] = tv;
-  }
-}
+// The bidirectional multitask backward's dQ seam: each query tile's first
+// row of dQ in f32, and the spill's dQ of the row after the tile.
+struct Seam {
+  float* head;     // (B * L / 64, HD); null: no seam
+  float* carry;    // (B * L / 64, HD)
+};
 
 // dwkr (K, HD), du, dv (HD) f32: the partial slots summed in slot order, so
 // a backward is reproducible bit for bit (f32 atomics would add in an order
-// that changes from run to run).
+// that changes from run to run); with a seam, dq[b, t * 64] = bf16(head[b,
+// t] + carry[b, t - 1]) for every query tile t (no carry into t = 0).
 __global__ void __launch_bounds__(kThreads)
 partials_reduce_kernel(Partials part, int n_slots, int K, int HD, float* __restrict__ dwkr,
-                       float* __restrict__ du, float* __restrict__ dv) {
+                       float* __restrict__ du, float* __restrict__ dv, Seam seam, int n_tiles,
+                       int nq, bf16* __restrict__ dq) {
   const size_t n_w = (size_t)K * HD;
-  const size_t x = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  size_t x = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (x < n_w) {
     float s = 0.f;
     for (int p = 0; p < n_slots; ++p) s += part.w[(size_t)p * n_w + x];
     dwkr[x] = s;
-  } else if (x < n_w + 2 * (size_t)HD) {
-    const int c = (int)(x - n_w) % HD;
-    const float* src = x - n_w < (size_t)HD ? part.u : part.v;
+    return;
+  }
+  x -= n_w;
+  if (x < 2 * (size_t)HD) {
+    const int c = (int)(x % HD);
+    const float* src = x < (size_t)HD ? part.u : part.v;
     float s = 0.f;
     for (int p = 0; p < n_slots; ++p) s += src[(size_t)p * HD + c];
-    (x - n_w < (size_t)HD ? du : dv)[c] = s;
+    (x < (size_t)HD ? du : dv)[c] = s;
+    return;
+  }
+  x -= 2 * (size_t)HD;
+  if (seam.head && x < (size_t)n_tiles * HD) {
+    const size_t tile = x / HD;
+    float v = seam.head[x];
+    if (tile % nq) v += seam.carry[x - HD];
+    dq[tile * kTile * HD + x % HD] = __float2bfloat16_rn(v);
   }
 }
 
+// The reduction; with a seam (head not null) of n_tiles query tiles, nq a
+// batch row, also dq's first rows.
 cudaError_t launch_reduce(Partials part, int n_slots, int K, int HD, float* dwkr, float* du,
-                          float* dv, cudaStream_t st) {
-  const size_t n = (size_t)K * HD + 2 * (size_t)HD;
+                          float* dv, cudaStream_t st, Seam seam = Seam{nullptr, nullptr},
+                          int n_tiles = 0, int nq = 1, bf16* dq = nullptr) {
+  const size_t n = (size_t)K * HD + 2 * (size_t)HD + (seam.head ? (size_t)n_tiles * HD : 0);
   partials_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      part, n_slots, K, HD, dwkr, du, dv);
+      part, n_slots, K, HD, dwkr, du, dv, seam, n_tiles, nq, dq);
   return cudaGetLastError();
 }
 

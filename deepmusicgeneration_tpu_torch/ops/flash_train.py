@@ -48,6 +48,11 @@ bf16 roundings where the TPU kernels round):
 * :func:`flash_cross_attention`, the decoder's attention to the encoder
   output: the skew of BD times the band ``j <= i + K - L`` (the band zeroes
   BD, it masks nothing), and no mask at all, not even for encoder padding.
+
+Their kernels skip the bidirectional tile pairs whose keys are all padded
+(:func:`bidir_tile_map`, built once a forward and saved for the backward)
+and compute no band product on the cross pairs above the band
+(:func:`cross_band_classes`).
 """
 
 from __future__ import annotations
@@ -599,15 +604,46 @@ def flash_cross_attention_plain(q, k, v, wkr, u_bias, v_bias, n_heads: int,
 flash_cross_attention_plain.calls = 0
 
 
+def bidir_tile_map(kp: torch.Tensor) -> torch.Tensor:
+    """(B, W / TILE, W / TILE) int32: how the bidirectional kernels treat each
+    (batch row, query tile, key tile) under the key padding ``kp`` (B, W):
+    :func:`tile_map` of a mask that blocks only padded keys. SKIP: all 64
+    keys padded (P is exactly 0 there), unless the batch row has no visible
+    key at all; VISIBLE: none padded; MIXED: the rest."""
+    B, W = kp.shape
+    dev = kp.device
+    return tile_map(torch.zeros(W, dtype=torch.int32, device=dev),
+                    torch.full((W,), -(2 ** 30), dtype=torch.int32, device=dev),
+                    torch.zeros(W, dtype=torch.int32, device=dev), kp)
+
+
+NO_BD, BAND_EDGE, FULL_BD = 0, 1, 2   # cross_band_classes' classes
+
+
+def cross_band_classes(L: int, K: int) -> torch.Tensor:
+    """(L / TILE, K / TILE) int32: the cross kernels' tile pairs by the band
+    ``j <= i + K - L``: NO_BD (wholly above it: no chunk product, no BD),
+    BAND_EDGE (the band's diagonal pair: its lo chunk only), FULL_BD."""
+    e = (torch.arange(K // TILE)[None, :] - torch.arange(L // TILE)[:, None]
+         - (K - L) // TILE)
+    return torch.where(e < 0, FULL_BD, torch.where(e == 0, BAND_EDGE, NO_BD)).to(torch.int32)
+
+
+def mt_partial_bytes(B: int, L: int, K: int, H: int, Dh: int, device) -> int:
+    """Bytes of the multitask backward's dWkr partial slots on ``device``."""
+    return partial_slots(B, L, H, device) * K * H * Dh * 4
+
+
 @functools.lru_cache(maxsize=None)
 def _mt_lib() -> ctypes.CDLL:
     lib = _build.load("flash_mt")
     lib.flash_mt_fwd.restype = ctypes.c_int
-    lib.flash_mt_fwd.argtypes = ([_I] + [_P] * 7 + [_P] * 3 + [_I] * 5
+    lib.flash_mt_fwd.argtypes = ([_I] + [_P] * 6 + [_P] * 2 + [_P] * 2 + [_P] * 3 + [_I] * 5
                                  + [_F, _I, ctypes.c_uint32, _I, _F, _P])
     lib.flash_mt_bwd.restype = ctypes.c_int
-    lib.flash_mt_bwd.argtypes = ([_I] + [_P] * 7 + [_P] * 4 + [_P] * 6 + [_P] * 5
-                                 + [_I] * 5 + [_F, _I, ctypes.c_uint32, _I, _F, _P])
+    lib.flash_mt_bwd.argtypes = ([_I] + [_P] * 6 + [_P] * 2 + [_P] * 2 + [_P] * 4
+                                 + [_P] * 6 + [_P] * 5 + [_I] + [_I] * 5
+                                 + [_F, _I, ctypes.c_uint32, _I, _F, _P])
     lib.flash_mt_error_string.restype = ctypes.c_char_p
     lib.flash_mt_error_string.argtypes = [_I]
     return lib
@@ -619,76 +655,91 @@ def _mt_check(lib, err: int, what: str):
                            f"({lib.flash_mt_error_string(err).decode()})")
 
 
-def _mt_launch_fwd(bidir, q, k, v, wkr, u, vb, kp, H, sc, attn_p, seed):
+def _mt_launch_fwd(bidir, q, k, v, wkr, u, vb, kp, tiles, H, sc, attn_p, seed):
+    """``kp``, ``tiles``: the key padding and its :func:`bidir_tile_map`
+    (bidir), else None."""
     lib = _mt_lib()
     B, L, HD = q.shape
     K = k.shape[1]
     out = torch.empty_like(q)
-    m = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    quv = torch.empty((2, B, L, HD), dtype=q.dtype, device=q.device)   # q + u, q + v
+    ml = torch.empty((2, B, H, L), dtype=torch.float32, device=q.device)
+    p_quv, p_ml = quv.data_ptr(), ml.data_ptr()
+    with _on_device(q.device):
         err = lib.flash_mt_fwd(
             int(bidir), q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(),
-            u.data_ptr(), vb.data_ptr(), kp.data_ptr() if bidir else None, out.data_ptr(),
-            m.data_ptr(), l.data_ptr(), B, L, K, H, HD // H, sc,
-            *_dropout_args(attn_p, seed), stream)
+            u.data_ptr(), vb.data_ptr(), kp.data_ptr() if bidir else None,
+            tiles.data_ptr() if bidir else None, p_quv, p_quv + q.numel() * 2,
+            out.data_ptr(), p_ml, p_ml + B * H * L * 4, B, L, K, H, HD // H, sc,
+            *_dropout_args(attn_p, seed), torch.cuda.current_stream(q.device).cuda_stream)
     _mt_check(lib, err, "forward")
-    return out, m, l
+    return out, ml[0], ml[1]
 
 
-def _mt_launch_bwd(bidir, q, k, v, wkr, u, vb, kp, do, delta, m, l, H, sc, attn_p, seed):
+def _mt_launch_bwd(bidir, q, k, v, wkr, u, vb, kp, tiles, do, delta, m, l, H, sc, attn_p,
+                   seed):
+    """``delta``: (B, H, L) float32, sum_d dO * O."""
     lib = _mt_lib()
     B, L, HD = q.shape
     K = k.shape[1]
     dev = q.device
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dwkr = torch.empty((K, HD), dtype=torch.float32, device=dev)
-    du = torch.empty((HD,), dtype=torch.float32, device=dev)
-    dvb = torch.empty_like(du)
-    n_part = B * (L // TILE)      # per (batch row, query tile) partial sums
-    part_w = torch.empty((n_part, K, HD), dtype=torch.float32, device=dev)
-    part = torch.empty((4, n_part, HD), dtype=torch.float32, device=dev)  # u, v, seam
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    dw = torch.empty((K + 2, HD), dtype=torch.float32, device=dev)     # dwkr, du, dv
+    # one scratch allocation: q + u and q + v (bf16), then the partial slots
+    # (n_part, K, HD) of dwkr and (2, n_part, HD) of du and dv, and the seam's
+    # (2, B L / 64, HD) (float32)
+    n_part = partial_slots(B, L, H, dev)
+    n_tiles = B * (L // TILE)
+    n_q = 2 * q.numel() * 2
+    scratch = torch.empty(n_q + (n_part * (K + 2) + 2 * n_tiles) * HD * 4, dtype=torch.uint8,
+                          device=dev)
+    p_s, p_w = scratch.data_ptr(), dw.data_ptr()
+    p_part = p_s + n_q
+    p_uv = p_part + n_part * K * HD * 4
+    p_seam = p_uv + 2 * n_part * HD * 4
+    with _on_device(dev):
         err = lib.flash_mt_bwd(
             int(bidir), q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(),
-            u.data_ptr(), vb.data_ptr(), kp.data_ptr() if bidir else None, do.data_ptr(),
+            u.data_ptr(), vb.data_ptr(), kp.data_ptr() if bidir else None,
+            tiles.data_ptr() if bidir else None, p_s, p_s + n_q // 2, do.data_ptr(),
             delta.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dwkr.data_ptr(), du.data_ptr(), dvb.data_ptr(),
-            part_w.data_ptr(), *(part[i].data_ptr() for i in range(4)),
-            B, L, K, H, HD // H, sc, *_dropout_args(attn_p, seed), stream)
+            dv.data_ptr(), p_w, p_w + K * HD * 4, p_w + (K + 1) * HD * 4, p_part, p_uv,
+            p_uv + n_part * HD * 4, p_seam, p_seam + n_tiles * HD * 4, n_tiles // n_part,
+            B, L, K, H, HD // H, sc, *_dropout_args(attn_p, seed),
+            torch.cuda.current_stream(dev).cuda_stream)
     _mt_check(lib, err, "backward")
-    return dq, dk, dv, dwkr, du, dvb
+    return dq, dk, dv, dw[:K], dw[K], dw[K + 1]
 
 
 class _FlashMT(torch.autograd.Function):
     """The CUDA forward and backward kernels of the bidirectional (``kp`` a
-    (B, K) int32 padding tensor) or cross (``kp`` None) attention as one
-    differentiable op; delta = sum_d dO * O from the bf16 output, as the TPU
-    kernels' backward takes it (``flash_train.py:752-754``)."""
+    (B, K) int32 padding tensor, ``tiles`` its :func:`bidir_tile_map`) or
+    cross (both None) attention as one differentiable op; delta = sum_d dO *
+    O from the bf16 output, as the TPU kernels' backward takes it
+    (``flash_train.py:752-754``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, wkr, u, vb, kp, H, sc, attn_p, seed):
+    def forward(ctx, q, k, v, wkr, u, vb, kp, tiles, H, sc, attn_p, seed):
         bidir = kp is not None
-        out, m, l = _mt_launch_fwd(bidir, q, k, v, wkr, u, vb, kp, H, sc, attn_p, seed)
+        out, m, l = _mt_launch_fwd(bidir, q, k, v, wkr, u, vb, kp, tiles, H, sc, attn_p, seed)
         (flash_bidir_attention if bidir else flash_cross_attention).launches["fwd"] += 1
         ctx.save_for_backward(q, k, v, wkr, u, vb, out, m, l)
-        ctx.meta = (kp, H, sc, attn_p, seed)
+        ctx.meta = (kp, tiles, H, sc, attn_p, seed)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, wkr, u, vb, out, m, l = ctx.saved_tensors
-        kp, H, sc, attn_p, seed = ctx.meta
+        kp, tiles, H, sc, attn_p, seed = ctx.meta
         B, L, HD = q.shape
-        delta = (do.float() * out.float()).reshape(B, L, H, HD // H).sum(-1).contiguous()
+        bidir = kp is not None
+        delta = (do.float() * out.float()).reshape(B, L, H, HD // H).sum(-1)
         dq, dk, dv, dwkr, du, dvb = _mt_launch_bwd(
-            kp is not None, q, k, v, wkr, u, vb, kp, do.to(q.dtype).contiguous(), delta,
-            m, l, H, sc, attn_p, seed)
-        (flash_bidir_attention if kp is not None else flash_cross_attention).launches["bwd"] += 1
+            bidir, q, k, v, wkr, u, vb, kp, tiles, do.to(q.dtype).contiguous(),
+            delta.transpose(1, 2).contiguous(), m, l, H, sc, attn_p, seed)
+        (flash_bidir_attention if bidir else flash_cross_attention).launches["bwd"] += 1
         return (dq, dk, dv, dwkr.to(wkr.dtype), du.to(u.dtype), dvb.to(vb.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def mt_kernel_supports(mode: str, B: int, L: int, K: int, n_heads: int, HD: int,
@@ -715,12 +766,13 @@ def _mt_wrapper(name, mode, q, k, v, wkr, u_bias, v_bias, n_heads, pad_mask, sca
     if not scale:
         raise ValueError(f"{name}: the kernels scale the scores (scale=True)")
     operands = _bf16_operands(q, k, v, wkr, u_bias, v_bias)
-    kp = None
+    kp = tiles = None
     if mode == "bidir":
         kp = (torch.zeros((B, K), dtype=torch.int32, device=q.device) if pad_mask is None
               else pad_mask.to(torch.int32).contiguous())
+        tiles = bidir_tile_map(kp).contiguous()
     sc = float(np.float32(1.0 / math.sqrt(HD // n_heads)))
-    return _FlashMT.apply(*operands, kp, n_heads, sc, float(attn_p), int(attn_seed or 0))
+    return _FlashMT.apply(*operands, kp, tiles, n_heads, sc, float(attn_p), int(attn_seed or 0))
 
 
 def flash_bidir_attention(

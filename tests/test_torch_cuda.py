@@ -522,6 +522,10 @@ MT_CASES = {   # (kind, L, K, pad, case): chip_smoke.py's multitask cases at B 2
     "cross": ("cross", 256, 256, False, {}),
     "cross_l128_k256": ("cross", 128, 256, False, {}),
     "cross_dropout": ("cross", 256, 256, False, dict(attn_p=0.1)),
+    # batch row 0 fully padded (its query tiles skip nothing), row 1's last
+    # two key tiles padded (skipped)
+    "bidir_pad_rows": ("bidir", 256, 256, "rows", dict(attn_p=0.1)),
+    "cross_l128_k256_dropout": ("cross", 128, 256, False, dict(attn_p=0.1)),
     "train_m0_pad": ("train", 256, 256, True, dict(win_size=1, win_k=1, mem_valid=0)),
     "train_m0_win3": ("train", 256, 256, False, dict(win_size=3, win_k=0, mem_valid=0)),
 }
@@ -540,6 +544,10 @@ def test_flash_mt_kernels_against_float64(case, Dh):
     torch.backends.cuda.matmul.allow_tf32 = False
     kind, L, K, pad, kw = MT_CASES[case]
     inp = cs.train_inputs(2, L, K, 4, Dh, dev, seed=Dh + 1, pad=pad)
+    if pad == "rows":
+        from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+        tiles = ftr.bidir_tile_map(inp["pad"].to(torch.int32))
+        assert (tiles[0] == ftr.MIXED).all() and (tiles[1, :, 2:] == ftr.SKIP).all()
     kernel, plain = cs.MT_TRAIN_FNS[kind]
     run = cs.train_run if kind == "train" else functools.partial(cs.mt_run, kind=kind)
     before = dict(kernel.launches)
@@ -553,11 +561,18 @@ def test_flash_mt_kernels_against_float64(case, Dh):
 @pytest.mark.parametrize("kind", ["bidir", "cross"])
 def test_flash_mt_backward_is_reproducible(kind):
     """dWkr, du and dv (and the bidirectional dQ seam) are summed in a fixed
-    order: two backward passes on the same inputs give the same bits."""
+    order: two backward passes on the same inputs give the same bits, at the
+    multitask train shape (B 16, W 512, eight heads, dropout) with several
+    batch rows a dQ block and, bidir, the leading key padding's skipped
+    tiles."""
     dev = _card()
     import chip_smoke as cs
-    inp = cs.train_inputs(4, 256, 256, 2, 64, dev, seed=2, pad=True)
-    runs = [cs.mt_run(cs.MT_TRAIN_FNS[kind][0], inp, 2, kind, attn_p=0.1, attn_seed=7)
+    from deepmusicgeneration_tpu_torch.ops import flash_train as ftr
+    inp = cs.train_inputs(16, 512, 512, 8, 64, dev, seed=2, pad=True)
+    assert ftr.partial_slots(16, 512, 8, dev) < 16 * 8
+    if kind == "bidir":
+        assert (ftr.bidir_tile_map(inp["pad"].to(torch.int32)) == ftr.SKIP).any()
+    runs = [cs.mt_run(cs.MT_TRAIN_FNS[kind][0], inp, 8, kind, attn_p=0.1, attn_seed=7)
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
