@@ -45,7 +45,9 @@ non-zero without printing a result):
    the operations it must do; slab_w8 and slab_ar_w8 at B in
    {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}, the five explicit
    modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell); the four
-   s2s / nw variants at B = 1, M = 512, Le = 512.
+   s2s / nw variants at B = 1, M = 512, Le = 512, each also under
+   ``torch.profiler`` over 20 wrapper calls: one CUDA kernel a call (the
+   persistent step, on its co-resident grid) and its device time a launch.
 6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel on a seeded
    prompt MIDI built with the port's codec; the slab_w8 launch count must
    equal the number of token steps; the output MIDI is re-parsed and checked.
@@ -147,7 +149,8 @@ non-zero without printing a result):
    encoder columns) and at the demo's, ptr in {0, 31, M - 1} on each kind of
    RINGS.
 21. mt fused timing — CUDA-event medians of both fused steps and of their
-   plain version at B = 1, M = 512, Le = 512, beside the bound.
+   plain version at B = 1, M = 512, Le = 512, beside the bound; one CUDA
+   kernel a wrapper call and its device time, as the mt timing phase.
 22. mt fused tasks — harmonize (200 words), next-word (256) and remix with
    ``decode_kernel='fused'`` on the flagship's shapes and on the demo: one
    fused launch a token step; every output re-parses with no grammar
@@ -883,6 +886,47 @@ def time_ms(fn, n: int, flush=None) -> float:
     return float(np.median(times))
 
 
+def step_kernels(label, fn, n: int = 20):
+    """(device ms, kernels recorded) of ``n`` calls of ``fn`` (one wrapper
+    call of a persistent multitask step) after 3 warm-ups. The wrapper's
+    own launch count must rise by exactly ``n`` (it counts a launch where
+    its cooperative launch returned no error, and raises otherwise), and
+    ``torch.profiler`` over the synchronized window must record only the
+    step kernel, at least once and at most ``n`` times: so each call ran one
+    kernel and nothing else. The profiler can drop a window's records, so
+    it is not the count; the device ms are those of the kernels it
+    recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    before = sum(launches().values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    counted = sum(launches().values()) - before
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    names = sorted({e.key for e in events})
+    recorded = sum(e.count for e in events)
+    if counted != n:
+        raise AssertionError(f"{label}: {n} wrapper calls counted {counted} launches")
+    if not 0 < recorded <= n or not all("s2s_step_kernel" in k for k in names):
+        raise AssertionError(f"{label}: {n} wrapper calls ran {recorded} CUDA kernels {names}")
+    return sum(e.self_device_time_total for e in events) / 1e3, recorded
+
+
+def one_kernel_line(label, fn, grid: int, n: int = 20) -> float:
+    """Checks that each of ``n`` calls of ``fn`` ran one kernel
+    (:func:`step_kernels`), says so with the grid, and returns the device
+    ms a launch."""
+    ms, recorded = step_kernels(label, fn, n)
+    say(f"timing: {label} 1 wrapper launch = 1 CUDA kernel ({n} launches counted by the "
+        f"wrapper; the profiler recorded {recorded} step kernels and no other kernel), grid "
+        f"{grid} blocks, device {ms / recorded:.4f} ms a launch")
+    return ms / recorded
+
+
 def bound(nbytes: float, flops, int8_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak of their type (bf16 ``flops``, ``int8_ops``)."""
@@ -1584,11 +1628,13 @@ def mt_wkr(learner):
     return eng._wkr_mt(mt.precompute_dec_wkr(eng.params, eng.cfg, eng.cfg.mem_len))
 
 
-def mt_step(task, cfg, weights, wkr_mt, kv, cross, blocked, h_in, ptr, acc=None):
+def mt_step(task, cfg, weights, wkr_mt, kv, cross, blocked, h_in, ptr, acc=None, clone=True):
     """One launch of the task's kernel (``acc`` None) or of its plain
-    version in ``acc``, on copies of the self ring ``kv``."""
+    version in ``acc``, on copies of the self ring ``kv`` (on ``kv`` itself
+    with ``clone`` False)."""
     stacked, w_scales = weights
-    kv = [t.clone() for t in kv]
+    if clone:
+        kv = [t.clone() for t in kv]
     M = cfg.mem_len
     if acc is not None:
         return fs.s2s_slab_plain(stacked, w_scales, cfg, h_in, wkr_mt, *kv,
@@ -1684,9 +1730,14 @@ def mt_timing_phase(learner, rng, dev):
                 f"{ms:.4f} ms (again {ms_again:.4f}) plain {plain_ms:.4f} ms bound "
                 f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP, by "
                 f"{bound_by}); library: none; 1 wrapper launch = "
-                f"{fs.kernels_per_step(L, task == 's2s')} CUDA kernels")
+                f"{fs.kernels_per_step(L, task == 's2s')} CUDA kernel")
+            grid = fs.step_grid(mode, cfg, M, 512 if cross else 0, cross is not None, dev)
+            # the wrapper alone on one ring (each call rewrites slot 100)
+            dev_ms = one_kernel_line(f"{task}[{mode}]", lambda: mt_step(*args, clone=False),
+                                     grid)
             times[f"{task}_{mode}"] = dict(ms=min(ms, ms_again), plain_ms=plain_ms,
-                                           bound_ms=bound_ms, bound_by=bound_by)
+                                           bound_ms=bound_ms, bound_by=bound_by,
+                                           device_ms=dev_ms)
     set_launches(before)
     return times
 
@@ -2589,10 +2640,12 @@ def fused_wkr(learner):
     return mt.precompute_dec_wkr(eng.params, eng.cfg, eng.cfg.mem_len)
 
 
-def fused_step(task, cfg, stacked, wkr, kv, cross, blocked, h_in, ptr, acc=None):
+def fused_step(task, cfg, stacked, wkr, kv, cross, blocked, h_in, ptr, acc=None, clone=True):
     """One launch of the task's fused kernel (``acc`` None) or of its plain
-    version in ``acc``, on copies of the ring ``kv``."""
-    kv = [t.clone() for t in kv]
+    version in ``acc``, on copies of the ring ``kv`` (on ``kv`` itself with
+    ``clone`` False)."""
+    if clone:
+        kv = [t.clone() for t in kv]
     M = cfg.mem_len
     if acc is not None:
         return fs.s2s_fused_plain(stacked, cfg, h_in, wkr, *kv, *(cross or (None,) * 4),
@@ -2695,9 +2748,11 @@ def mt_fused_timing_phase(learner, rng, dev):
             f"{ms:.4f} ms (again {ms_again:.4f}) plain {plain_ms:.4f} ms bound "
             f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP, by "
             f"{bound_by}); library: none; 1 wrapper launch = "
-            f"{fs.fused_kernels_per_step(L, task == 's2s')} CUDA kernels")
+            f"{fs.fused_kernels_per_step(L, task == 's2s')} CUDA kernel")
+        grid = fs.step_grid("fused", cfg, M, 512 if cross else 0, cross is not None, dev)
+        dev_ms = one_kernel_line(f"{task}[fused]", lambda: fused_step(*args, clone=False), grid)
         times[f"{task}_fused"] = dict(ms=min(ms, ms_again), plain_ms=plain_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by)
+                                      bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms)
     set_launches(before)
     return times
 

@@ -18,11 +18,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;       // 8 warps
 constexpr int kTile = 64;           // query rows and key columns per tile
 constexpr int kBand = 2 * kTile;    // wkr rows a tile pair reads (127 used)
 constexpr int kSS = kTile + 1;      // f32 stride of a score tile row

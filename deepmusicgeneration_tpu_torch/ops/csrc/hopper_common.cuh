@@ -84,6 +84,16 @@ __device__ __forceinline__ void tma_vec(void* dst, const void* src, uint64_t* ba
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) by bulk copy,
+// counted on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void bar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
 }

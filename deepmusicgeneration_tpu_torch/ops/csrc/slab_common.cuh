@@ -15,9 +15,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;                       // every kernel's block size
 constexpr int kCols = 64;                           // GEMV output columns per block
 constexpr int kColThreads = kCols / 4;              // 16 threads x 4 columns
 constexpr int kKSlices = kThreads / kColThreads;    // 16 interleaved K slices

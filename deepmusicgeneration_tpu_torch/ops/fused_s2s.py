@@ -41,6 +41,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from . import _build
+from .flash_train import _on_device
 from .fused_decode import (BF16, F32, KERNEL_HEAD_DIMS, NEG_INF, _ACT_CODES, _act_tanh,
                            _bf, _check, _ln)
 
@@ -308,6 +309,287 @@ def s2s_fused_plain(stacked, cfg, h_in, wkr, kc, vc, ck, cv, cwkr, cblocked, blo
     return h, kc, vc
 
 
+# ---------------------------------------------------------------------------
+# The persistent step's work plan (csrc/s2s_step.cuh: gemv_plan, chunk_plan,
+# step_plan and the kernel's phase loop) with the kernel's constants, and a
+# plain run of a step through it: the tests hold the schedule with these.
+
+GEMV_COLS = 64                           # output columns a weight item
+GEMV_ITEMS = 128                         # a product's item target
+GEMV_MIN_CHUNK, GEMV_MAX_CHUNK = 32, 128  # K rows an item
+ATTN_ITEMS = 64                          # an attention phase's item target
+ATTN_MIN_CHUNK, ATTN_MAX_CHUNK = 16, 256  # positions an item
+ATTN_TILE_ELEMS = 8192                   # cap on 2 x chunk x d_head
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemv_plan(K: int, N: int):
+    """(kc, tiles, chunks) of a weight product (K, N): items are (column tile
+    of GEMV_COLS, chunk of kc K rows), item = tile * chunks + chunk."""
+    tiles, kc = _cdiv(N, GEMV_COLS), GEMV_MIN_CHUNK
+    while kc < GEMV_MAX_CHUNK and tiles * _cdiv(K, kc) > GEMV_ITEMS:
+        kc *= 2
+    return kc, tiles, _cdiv(K, kc)
+
+
+def chunk_plan(n: int, H: int, Dh: int):
+    """(S, nc): positions a chunk and chunks a head of an attention phase
+    over n positions; items are (head, chunk), item = head * nc + chunk."""
+    S = ATTN_MIN_CHUNK
+    while S < ATTN_MAX_CHUNK and 2 * S * Dh <= ATTN_TILE_ELEMS and H * _cdiv(n, S) > ATTN_ITEMS:
+        S *= 2
+    return S, (_cdiv(n, S) if n > 0 else 0)
+
+
+class Phase(NamedTuple):
+    """One phase of the persistent step, between two grid barriers.
+
+    ``fold`` is what every block first computes from earlier phases'
+    partials (``("ln3", l)``, ``("ln1", l)``, ``("ln2", l)`` or None);
+    ``write`` the layer whose slot ``ptr`` block 0 then writes (-1: none);
+    ``items`` the work items: ``("gemv", chunk, n0, n1, k0, k1)`` writes
+    partial[chunk][n0:n1] of the product over K rows k0:k1; ``("attn",
+    head, chunk, p0, p1)`` covers positions p0:p1 (ring positions of the
+    self ring, slot (p + ptr) mod M; encoder positions of the cross
+    context). The last phase, "end", is block 0's alone."""
+    kind: str
+    layer: int
+    fold: tuple
+    write: int
+    items: tuple
+
+
+def step_plan(cfg, M: int, Le: int, has_cross: bool):
+    """The phases of one step in the kernel's order: 8 a s2s layer (qkv, ssc,
+    spv, q2, csc, cpv, ff1, ff2), 3 a nw layer (qkv, ssc, spv), then "end".
+    Depends on the shape only, never on the grid."""
+    L, D, Dff, H, Dh = cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
+    HD = H * Dh
+
+    def gemv(K, N):
+        kc, tiles, chunks = gemv_plan(K, N)
+        return tuple(("gemv", c, t * GEMV_COLS, min(N, (t + 1) * GEMV_COLS), c * kc,
+                      min(K, (c + 1) * kc)) for t in range(tiles) for c in range(chunks))
+
+    def attn(n):
+        S, nc = chunk_plan(n, H, Dh)
+        return tuple(("attn", h, c, c * S, min(n, (c + 1) * S)) for h in range(H)
+                     for c in range(nc))
+
+    phases = []
+    for l in range(L):
+        fold, write = None, -1
+        if l and has_cross:
+            fold = ("ln3", l - 1)
+        elif l:
+            fold, write = ("ln1", l - 1), l - 1
+        phases += [Phase("qkv", l, fold, write, gemv(D, 3 * HD)),
+                   Phase("ssc", l, None, -1, attn(M)), Phase("spv", l, None, -1, attn(M))]
+        if has_cross:
+            phases += [Phase("q2", l, ("ln1", l), l, gemv(D, HD)),
+                       Phase("csc", l, None, -1, attn(Le)), Phase("cpv", l, None, -1, attn(Le)),
+                       Phase("ff1", l, ("ln2", l), -1, gemv(D, Dff)),
+                       Phase("ff2", l, None, -1, gemv(Dff, D))]
+    end = ("ln3", L - 1) if has_cross else ("ln1", L - 1)
+    phases.append(Phase("end", L - 1, end, -1 if has_cross else L - 1, ()))
+    return phases
+
+
+class _SlabFormat:
+    """The slab step's operands as ``_planned_step`` reads them."""
+
+    def __init__(self, stacked, w_scales, wkr_mt, kq, ksc, vq, vsc, cross, Dh, acc):
+        self.s, self.ws, self.wkr, self.acc, self.Dh = stacked, w_scales, wkr_mt, acc, Dh
+        self.kq, self.ksc, self.vq, self.vsc = kq, ksc, vq, vsc
+        self.ckq, self.cksc, self.cvq, self.cvsc, self.cwkr = cross or (None,) * 5
+
+    def weight(self, name, l):
+        w = getattr(self.s, f"{name}_w")[l].to(self.acc)
+        if self.ws is None:
+            return w
+        row = ("qkv", "q2", "ff1", "ff2").index(name)
+        return _bf(w * self.ws[l, row:row + 1, :w.shape[1]], self.acc)
+
+    def head(self, t, h):
+        return t[..., h * self.Dh:(h + 1) * self.Dh].to(self.acc)
+
+    def scores(self, self_, l, h, slots, pos, qu, qv):
+        if self_:
+            k, ks, w = self.kq[l, 0][slots], self.ksc[l, 0, slots, 0], self.wkr[l][pos]
+        else:
+            k, ks, w = self.ckq[l][slots], self.cksc[l, slots, 0], self.cwkr[l][slots]
+        return (self.head(k, h) @ qu) * ks + self.head(w, h) @ qv
+
+    def fresh_bd(self, l, h, qv):
+        return self.head(self.wkr[l][-1], h) @ qv
+
+    def values(self, self_, l, h, slots, e):
+        v, vs = ((self.vq[l, 0][slots], self.vsc[l, 0, slots, 0]) if self_
+                 else (self.cvq[l][slots], self.cvsc[l, slots, 0]))
+        return _bf(e * vs, self.acc) @ self.head(v, h)
+
+    def write(self, l, k1, v1, ptr):
+        for cache, scales, x in ((self.kq, self.ksc, k1), (self.vq, self.vsc, v1)):
+            s = torch.clamp_min(x.abs().amax(), 1e-6) * (1.0 / 127.0)
+            cache[l, 0, ptr] = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+            scales[l, 0, ptr] = s
+
+
+class _FusedFormat:
+    """The fused step's operands (bf16, head-major) as ``_planned_step``
+    reads them."""
+
+    def __init__(self, stacked, wkr, kc, vc, cross, acc):
+        self.s, self.wkr, self.kc, self.vc, self.acc = stacked, wkr, kc, vc, acc
+        self.ck, self.cv, self.cwkr = cross or (None,) * 3
+
+    def weight(self, name, l):
+        return getattr(self.s, f"{name}_w")[l].to(self.acc)
+
+    def scores(self, self_, l, h, slots, pos, qu, qv):
+        if self_:
+            k, w = self.kc[l, 0, h][slots], self.wkr[l, h][pos]
+        else:
+            k, w = self.ck[l, h][slots], self.cwkr[l, h][slots]
+        return k.to(self.acc) @ qu + w.to(self.acc) @ qv
+
+    def fresh_bd(self, l, h, qv):
+        return self.wkr[l, h, -1].to(self.acc) @ qv
+
+    def values(self, self_, l, h, slots, e):
+        v = self.vc[l, 0, h][slots] if self_ else self.cv[l, h][slots]
+        return _bf(e, self.acc) @ v.to(self.acc)
+
+    def write(self, l, k1, v1, ptr):
+        H = self.kc.shape[2]
+        self.kc[l, 0, :, ptr] = k1.reshape(H, -1).to(self.kc.dtype)
+        self.vc[l, 0, :, ptr] = v1.reshape(H, -1).to(self.vc.dtype)
+
+
+def _planned_step(plan, fmt, stacked, cfg, h_in, blocked, cblocked, ptr: int, M: int, acc,
+                  grid: int):
+    """One step through ``plan`` as a ``grid``-block launch walks it (block
+    b takes items b, b + grid, ...): split-K partials, each chunk's scores
+    and max, the probabilities under the head's global max, every combine in
+    chunk order. Returns h_out (1, D)."""
+    D, Dff, H, Dh = cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
+    HD = H * Dh
+    scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
+    width = {"qkv": 3 * HD, "q2": HD, "ff1": Dff, "ff2": D}
+    bias = {n: getattr(stacked, f"{n}_b") for n in width}
+    dev = h_in.device
+    part, sc, mx, pv, den, fresh = {}, {}, {}, {}, {}, {}
+    vec = {"h": h_in[0].to(acc)}
+
+    def product(name, l):                   # partials summed in chunk order, then the bias
+        chunks = part[name, l]
+        return sum(chunks[c] for c in range(len(chunks))) + bias[name][l, 0].to(acc)
+
+    def queries(q):
+        qb = q.to(BF16)
+        return ((qb + stacked.u[0]).to(acc).reshape(H, Dh),
+                (qb + stacked.v[0]).to(acc).reshape(H, Dh))
+
+    def attention(kind, l):                 # (H, Dh), the chunks combined in order
+        nc = len(pv[kind, l, 0])
+        out = torch.stack([sum(pv[kind, l, h][c] for c in range(nc)) for h in range(H)])
+        total = torch.stack([sum(den[kind, l, h][c] for c in range(nc)) for h in range(H)])
+        if kind == "cpv":
+            return out / total[:, None]
+        es = torch.exp(torch.stack([fresh[l, h] for h in range(H)])
+                       - torch.stack([max(mx["ssc", l, h].values()) for h in range(H)]))
+        v1 = product("qkv", l)[2 * HD:].reshape(H, Dh)
+        return (out + es[:, None] * v1) / (total + es)[:, None]
+
+    def fold(kind, l):
+        if kind == "ln1":
+            key = "h1" if cblocked is not None else "h"
+            vec[key] = _ln(vec["h"] + attention("spv", l).reshape(HD),
+                           stacked.ln1_g[l, 0], stacked.ln1_b[l, 0])
+        elif kind == "ln2":
+            vec["h2"] = _ln(vec["h1"] + attention("cpv", l).reshape(HD),
+                            stacked.ln2_g[l, 0], stacked.ln2_b[l, 0])
+        else:
+            vec["h"] = _ln(vec["h2"] + product("ff2", l), stacked.ff3_g[l, 0],
+                           stacked.ff3_b[l, 0])
+
+    def run(kind, l, item):
+        if item[0] == "gemv":
+            _, c, n0, n1, k0, k1 = item
+            if kind == "ff2":
+                x = _act_tanh(product("ff1", l)[k0:k1], cfg.act)
+            else:
+                x = vec[{"qkv": "h", "q2": "h1", "ff1": "h2"}[kind]][k0:k1]
+            chunk = part.setdefault((kind, l), {}).setdefault(
+                c, torch.zeros(width[kind], dtype=acc, device=dev))
+            chunk[n0:n1] = _bf(x, acc) @ fmt.weight(kind, l)[k0:k1, n0:n1]
+            return
+        _, h, c, p0, p1 = item
+        is_self = kind in ("ssc", "spv")
+        pos = torch.arange(p0, p1, device=dev)
+        slots = (pos + ptr) % M if is_self else pos
+        if kind in ("ssc", "csc"):
+            q = product("qkv", l)[:HD] if is_self else product("q2", l)
+            qu, qv = queries(q)
+            masked = (blocked if is_self else cblocked)[0, slots] != 0
+            s = torch.where(masked, NEG_INF, fmt.scores(is_self, l, h, slots, pos, qu[h],
+                                                        qv[h]) * scale)
+            sc[kind, l, h, c] = s
+            m = s.amax()
+            if is_self and p1 == M:          # the last chunk scores the fresh token too
+                k1 = product("qkv", l)[HD:2 * HD].reshape(H, Dh)[h]
+                fresh[l, h] = ((qu[h] * k1).sum() + fmt.fresh_bd(l, h, qv[h])) * scale
+                m = torch.maximum(m, fresh[l, h])
+            mx.setdefault((kind, l, h), {})[c] = m
+            return
+        score = "ssc" if is_self else "csc"
+        e = torch.exp(sc[score, l, h, c] - max(mx[score, l, h].values()))
+        pv.setdefault((kind, l, h), {})[c] = fmt.values(is_self, l, h, slots, e)
+        den.setdefault((kind, l, h), {})[c] = e.sum()
+
+    for ph in plan:
+        if ph.fold is not None:
+            fold(*ph.fold)
+        if ph.write >= 0:
+            qkv = product("qkv", ph.write)
+            fmt.write(ph.write, qkv[HD:2 * HD], qkv[2 * HD:], ptr)
+        for b in range(grid):
+            for it in range(b, len(ph.items), grid):
+                run(ph.kind, ph.layer, ph.items[it])
+    return vec["h"][None]
+
+
+def s2s_slab_planned(stacked, w_scales, cfg, h_in, wkr_mt, kq, ksc, vq, vsc, ckq, cksc,
+                     cvq, cvsc, cwkr_mt, cblocked, blocked, ptr: int, M: int,
+                     acc: torch.dtype = F32, grid: int = 1):
+    """:func:`s2s_slab_plain`'s step computed through :func:`step_plan`, as
+    ``csrc/s2s_slab.cu`` walks it with ``grid`` blocks; the same arguments
+    and results."""
+    has_cross = ckq is not None
+    plan = step_plan(cfg, M, ckq.shape[1] if has_cross else 0, has_cross)
+    fmt = _SlabFormat(stacked, w_scales, wkr_mt, kq, ksc, vq, vsc,
+                      (ckq, cksc, cvq, cvsc, cwkr_mt) if has_cross else None, cfg.d_head, acc)
+    h = _planned_step(plan, fmt, stacked, cfg, h_in, blocked, cblocked if has_cross else None,
+                      ptr, M, acc, grid)
+    return h, kq, ksc, vq, vsc
+
+
+def s2s_fused_planned(stacked, cfg, h_in, wkr, kc, vc, ck, cv, cwkr, cblocked, blocked,
+                      ptr: int, M: int, acc: torch.dtype = F32, grid: int = 1):
+    """:func:`s2s_fused_plain`'s step computed through :func:`step_plan`, as
+    ``csrc/s2s_fused.cu`` walks it with ``grid`` blocks; the same arguments
+    and results."""
+    has_cross = ck is not None
+    plan = step_plan(cfg, M, ck.shape[2] if has_cross else 0, has_cross)
+    fmt = _FusedFormat(stacked, wkr, kc, vc, (ck, cv, cwkr) if has_cross else None, acc)
+    h = _planned_step(plan, fmt, stacked, cfg, h_in, blocked, cblocked if has_cross else None,
+                      ptr, M, acc, grid)
+    return h, kc, vc
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -315,9 +597,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fused_lib() -> ctypes.CDLL:
     lib = _build.load("s2s_fused")
     lib.s2s_fused_step.restype = ctypes.c_int
-    lib.s2s_fused_step.argtypes = [_P] * 27 + [_I] * 9 + [ctypes.c_float, _I, _P]
+    lib.s2s_fused_step.argtypes = [_P] * 27 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
     lib.s2s_fused_scratch_floats.restype = ctypes.c_size_t
-    lib.s2s_fused_scratch_floats.argtypes = [_I] * 3
+    lib.s2s_fused_scratch_floats.argtypes = [_I] * 8
+    lib.s2s_fused_grid.restype = ctypes.c_int
+    lib.s2s_fused_grid.argtypes = [_I] * 8
     lib.s2s_fused_kernels_per_step.restype = ctypes.c_int
     lib.s2s_fused_kernels_per_step.argtypes = [_I] * 2
     lib.s2s_fused_error_string.restype = ctypes.c_char_p
@@ -327,8 +611,62 @@ def _fused_lib() -> ctypes.CDLL:
 
 def fused_kernels_per_step(n_layers: int, has_cross: bool) -> int:
     """CUDA kernel launches inside one ``fused_s2s_step_core`` (``has_cross``)
-    or ``fused_nw_step_core`` launch."""
+    or ``fused_nw_step_core`` launch: one, the persistent step."""
     return _fused_lib().s2s_fused_kernels_per_step(n_layers, int(has_cross))
+
+
+def _shape(cfg, M: int, Le: int, has_cross: bool):
+    """The C functions' shape arguments: has_cross, L, D, Dff, H, Dh, M, Le."""
+    return (int(has_cross), cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads,
+            cfg.d_head, M, Le if has_cross else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(mode: str, shape, device_index: int) -> int:
+    """Blocks of the persistent step's grid for ``mode`` at ``shape``
+    (``_shape``) on the card: as many as are co-resident there (occupancy x
+    SMs), queried once per shape and card."""
+    fused = mode == "fused"
+    lib = _fused_lib() if fused else _s2s_lib()
+    with torch.cuda.device(device_index):
+        n = (lib.s2s_fused_grid(*shape) if fused
+             else lib.s2s_slab_grid(int(mode == "slab_w8"), *shape))
+    if n < 0:
+        text = (lib.s2s_fused_error_string if fused else lib.s2s_slab_error_string)(-n)
+        raise RuntimeError(f"s2s step ({mode}): the occupancy query failed: CUDA error {-n} "
+                           f"({text.decode()})")
+    if n == 0:
+        raise RuntimeError(f"s2s step ({mode}): no block of the step fits an SM at {shape}")
+    return n
+
+
+def step_grid(mode: str, cfg, M: int, Le: int, has_cross: bool, device) -> int:
+    """Blocks the wrappers launch the ``mode`` step with (slab_w8, slab or
+    fused) on ``device``: the co-resident count for this shape."""
+    device = torch.device(device)
+    return _grid(mode, _shape(cfg, M, Le, has_cross),
+                 device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_specs(L: int, D: int, Dff: int, H: int, Dh: int, M: int, Le: int, has_cross: bool):
+    """(name, dtype, shape) of each operand of a fused step, in
+    ``_fused_core``'s order."""
+    HD = H * Dh
+    specs = [("qkv_w", BF16, (L, D, 3 * HD)), ("qkv_b", BF16, (L, 1, 3 * HD)),
+             ("ln1_g", F32, (L, 1, D)), ("ln1_b", F32, (L, 1, D)),
+             ("u", BF16, (1, HD)), ("v", BF16, (1, HD)), ("h_in", F32, (1, D)),
+             ("wkr", BF16, (L, H, M + 1, Dh)), ("kc", BF16, (L, 1, H, M, Dh)),
+             ("vc", BF16, (L, 1, H, M, Dh)), ("blocked", torch.int32, (1, M))]
+    if has_cross:
+        specs += [("q2_w", BF16, (L, D, HD)), ("q2_b", BF16, (L, 1, HD)),
+                  ("ln2_g", F32, (L, 1, D)), ("ln2_b", F32, (L, 1, D)),
+                  ("ff1_w", BF16, (L, D, Dff)), ("ff1_b", BF16, (L, 1, Dff)),
+                  ("ff2_w", BF16, (L, Dff, D)), ("ff2_b", BF16, (L, 1, D)),
+                  ("ff3_g", F32, (L, 1, D)), ("ff3_b", F32, (L, 1, D)),
+                  ("ck", BF16, (L, H, Le, Dh)), ("cv", BF16, (L, H, Le, Dh)),
+                  ("cwkr", BF16, (L, H, Le, Dh)), ("cblocked", torch.int32, (1, Le))]
+    return tuple(specs)
 
 
 def _fused_core(wrapper, stacked, cfg, h_in, wkr, kc, vc, cross, blocked, ptr, M):
@@ -340,35 +678,18 @@ def _fused_core(wrapper, stacked, cfg, h_in, wkr, kc, vc, cross, blocked, ptr, M
         raise ValueError(f"ptr={ptr} outside [0, {M})")
     if cfg.act not in _ACT_CODES:
         raise ValueError(f"unsupported activation {cfg.act!r}")
-    L, D, Dff, H, Dh = cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
-    HD = H * Dh
     dev = h_in.device
-    checks = [("qkv_w", stacked.qkv_w, BF16, (L, D, 3 * HD)),
-              ("qkv_b", stacked.qkv_b, BF16, (L, 1, 3 * HD)),
-              ("ln1_g", stacked.ln1_g, F32, (L, 1, D)), ("ln1_b", stacked.ln1_b, F32, (L, 1, D)),
-              ("u", stacked.u, BF16, (1, HD)), ("v", stacked.v, BF16, (1, HD)),
-              ("h_in", h_in, F32, (1, D)), ("wkr", wkr, BF16, (L, H, M + 1, Dh)),
-              ("kc", kc, BF16, (L, 1, H, M, Dh)), ("vc", vc, BF16, (L, 1, H, M, Dh)),
-              ("blocked", blocked, torch.int32, (1, M))]
+    tensors = [stacked.qkv_w, stacked.qkv_b, stacked.ln1_g, stacked.ln1_b, stacked.u,
+               stacked.v, h_in, wkr, kc, vc, blocked]
     Le = 0
     if cross is not None:
-        ck, cv, cwkr, cblocked = cross
+        ck = cross[0]
         Le = ck.shape[2] if isinstance(ck, torch.Tensor) and ck.dim() == 4 else 0
-        checks += [("q2_w", stacked.q2_w, BF16, (L, D, HD)),
-                   ("q2_b", stacked.q2_b, BF16, (L, 1, HD)),
-                   ("ln2_g", stacked.ln2_g, F32, (L, 1, D)),
-                   ("ln2_b", stacked.ln2_b, F32, (L, 1, D)),
-                   ("ff1_w", stacked.ff1_w, BF16, (L, D, Dff)),
-                   ("ff1_b", stacked.ff1_b, BF16, (L, 1, Dff)),
-                   ("ff2_w", stacked.ff2_w, BF16, (L, Dff, D)),
-                   ("ff2_b", stacked.ff2_b, BF16, (L, 1, D)),
-                   ("ff3_g", stacked.ff3_g, F32, (L, 1, D)),
-                   ("ff3_b", stacked.ff3_b, F32, (L, 1, D)),
-                   ("ck", ck, BF16, (L, H, Le, Dh)), ("cv", cv, BF16, (L, H, Le, Dh)),
-                   ("cwkr", cwkr, BF16, (L, H, Le, Dh)),
-                   ("cblocked", cblocked, torch.int32, (1, Le))]
-    for name, t, dtype, shape in checks:
-        _check(name, t, dtype, shape, dev)
+        tensors += [stacked.q2_w, stacked.q2_b, stacked.ln2_g, stacked.ln2_b, stacked.ff1_w,
+                    stacked.ff1_b, stacked.ff2_w, stacked.ff2_b, stacked.ff3_g, stacked.ff3_b,
+                    *cross]
+    _check_all(_fused_specs(cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head,
+                            M, Le, cross is not None), tensors, dev)
     if dev.type == "cpu":
         return s2s_fused_plain(stacked, cfg, h_in, wkr, kc, vc, *(cross or (None,) * 4),
                                blocked, ptr, M)
@@ -377,25 +698,37 @@ def _fused_core(wrapper, stacked, cfg, h_in, wkr, kc, vc, cross, blocked, ptr, M
     if not kernel_accepts(cfg):
         raise ValueError(f"the fused s2s kernel needs d_head in {KERNEL_HEAD_DIMS}, "
                          "d_model == n_heads * d_head and widths that are multiples of 4")
+    out = _fused_launch(stacked, cfg, h_in, wkr, kc, vc, cross, blocked, ptr, M)
+    wrapper.launches["fused"] += 1
+    return out
+
+
+def _fused_launch(stacked, cfg, h_in, wkr, kc, vc, cross, blocked, ptr: int, M: int,
+                  grid: int = None):
+    """Run ``csrc/s2s_fused.cu``'s step on checked CUDA operands, one
+    cooperative launch of ``grid`` blocks (default: the co-resident count)."""
     lib = _fused_lib()
-    h_out = torch.empty((1, D), dtype=F32, device=dev)
-    scratch = torch.empty(lib.s2s_fused_scratch_floats(D, Dff, HD), dtype=F32, device=dev)
+    D, Dh = cfg.d_model, cfg.d_head
+    dev = h_in.device
     ck, cv, cwkr, cblocked = cross or (None,) * 4
+    shape = _shape(cfg, M, ck.shape[2] if cross is not None else 0, cross is not None)
+    if grid is None:
+        grid = step_grid("fused", cfg, M, shape[-1], cross is not None, dev)
+    h_out = torch.empty((1, D), dtype=F32, device=dev)
+    scratch = torch.empty(lib.s2s_fused_scratch_floats(*shape), dtype=F32, device=dev)
     ptrs = [stacked.qkv_w, stacked.q2_w, stacked.ff1_w, stacked.ff2_w,
             stacked.qkv_b, stacked.q2_b, stacked.ff1_b, stacked.ff2_b,
             stacked.ln1_g, stacked.ln1_b, stacked.ln2_g, stacked.ln2_b,
             stacked.ff3_g, stacked.ff3_b, wkr, stacked.u, stacked.v, kc, vc,
             ck, cv, cwkr, cblocked, h_in, blocked, h_out, scratch]
     scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.s2s_fused_step(*[None if t is None else t.data_ptr() for t in ptrs],
-                                 int(cross is not None), L, D, Dff, H, Dh, M, Le, ptr, scale,
-                                 _ACT_CODES[cfg.act], stream)
+                                 *shape, ptr, scale, _ACT_CODES[cfg.act], int(grid), stream)
     if err != 0:
         raise RuntimeError(f"fused s2s kernel failed: CUDA error {err} "
                            f"({lib.s2s_fused_error_string(err).decode()})")
-    wrapper.launches["fused"] += 1
     return h_out, kc, vc
 
 
@@ -438,9 +771,11 @@ def _s2s_lib() -> ctypes.CDLL:
     lib = _build.load("s2s_slab")
     for step in (lib.s2s_slab_w8_step, lib.s2s_slab_step):
         step.restype = ctypes.c_int
-        step.argtypes = [_P] * 32 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        step.argtypes = [_P] * 32 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
     lib.s2s_slab_scratch_floats.restype = ctypes.c_size_t
-    lib.s2s_slab_scratch_floats.argtypes = [_I] * 3
+    lib.s2s_slab_scratch_floats.argtypes = [_I] * 8
+    lib.s2s_slab_grid.restype = ctypes.c_int
+    lib.s2s_slab_grid.argtypes = [_I] * 9
     lib.s2s_slab_kernels_per_step.restype = ctypes.c_int
     lib.s2s_slab_kernels_per_step.argtypes = [_I] * 2
     lib.s2s_slab_error_string.restype = ctypes.c_char_p
@@ -450,20 +785,23 @@ def _s2s_lib() -> ctypes.CDLL:
 
 def kernels_per_step(n_layers: int, has_cross: bool) -> int:
     """CUDA kernel launches inside one ``fused_s2s_slab_core`` (``has_cross``)
-    or ``fused_nw_slab_core`` launch."""
+    or ``fused_nw_slab_core`` launch: one, the persistent step."""
     return _s2s_lib().s2s_slab_kernels_per_step(n_layers, int(has_cross))
 
 
 def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr_mt, kq, ksc, vq, vsc,
-            cross, blocked, ptr: int, M: int):
-    """Run ``csrc/s2s_slab.cu``'s step in ``mode`` (slab_w8 or slab);
+            cross, blocked, ptr: int, M: int, grid: int = None):
+    """Run ``csrc/s2s_slab.cu``'s step in ``mode`` (slab_w8 or slab), one
+    cooperative launch of ``grid`` blocks (default: the co-resident count);
     ``cross`` is (ckq, cksc, cvq, cvsc, cwkr_mt, cblocked) or None."""
     lib = _s2s_lib()
-    L, D, Dff, H, Dh = cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head
+    D, Dh = cfg.d_model, cfg.d_head
     dev = h_in.device
+    shape = _shape(cfg, M, cross[0].shape[1] if cross is not None else 0, cross is not None)
+    if grid is None:
+        grid = step_grid(mode, cfg, M, shape[-1], cross is not None, dev)
     h_out = torch.empty((1, D), dtype=F32, device=dev)
-    scratch = torch.empty(lib.s2s_slab_scratch_floats(D, Dff, H * Dh), dtype=F32, device=dev)
-    Le = cross[0].shape[1] if cross is not None else 0
+    scratch = torch.empty(lib.s2s_slab_scratch_floats(*shape), dtype=F32, device=dev)
     ptrs = [stacked.qkv_w, stacked.q2_w, stacked.ff1_w, stacked.ff2_w, w_scales,
             stacked.qkv_b, stacked.q2_b, stacked.ff1_b, stacked.ff2_b,
             stacked.ln1_g, stacked.ln1_b, stacked.ln2_g, stacked.ln2_b,
@@ -472,15 +810,53 @@ def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr_mt, kq, ksc, vq, vsc,
     smax = 0 if w_scales is None else w_scales.shape[2]
     scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
     fn = lib.s2s_slab_w8_step if mode == "slab_w8" else lib.s2s_slab_step
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[None if t is None else t.data_ptr() for t in ptrs],
-                 int(cross is not None), L, D, Dff, H, Dh, M, Le, smax, ptr,
-                 scale, _ACT_CODES[cfg.act], stream)
+        err = fn(*[None if t is None else t.data_ptr() for t in ptrs], *shape, smax, ptr,
+                 scale, _ACT_CODES[cfg.act], int(grid), stream)
     if err != 0:
         raise RuntimeError(f"s2s slab kernel ({mode}) failed: CUDA error {err} "
                            f"({lib.s2s_slab_error_string(err).decode()})")
     return h_out, kq, ksc, vq, vsc
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_specs(L: int, D: int, Dff: int, HD: int, M: int, Le: int, has_cross: bool,
+                weights_int8: bool):
+    """(name, dtype, shape) of each operand of a slab step, in
+    ``_slab_operands``' order."""
+    wdt = torch.int8 if weights_int8 else BF16
+    specs = [("qkv_w", wdt, (L, D, 3 * HD)), ("qkv_b", BF16, (L, 1, 3 * HD)),
+             ("ln1_g", F32, (L, 1, D)), ("ln1_b", F32, (L, 1, D)),
+             ("u", BF16, (1, HD)), ("v", BF16, (1, HD)), ("h_in", F32, (1, D)),
+             ("wkr_mt", BF16, (L, M + 1, HD)),
+             ("kq", torch.int8, (L, 1, M, HD)), ("ksc", F32, (L, 1, M, 1)),
+             ("vq", torch.int8, (L, 1, M, HD)), ("vsc", F32, (L, 1, M, 1)),
+             ("blocked", torch.int32, (1, M))]
+    if has_cross:
+        specs += [("q2_w", wdt, (L, D, HD)), ("q2_b", BF16, (L, 1, HD)),
+                  ("ln2_g", F32, (L, 1, D)), ("ln2_b", F32, (L, 1, D)),
+                  ("ff1_w", wdt, (L, D, Dff)), ("ff1_b", BF16, (L, 1, Dff)),
+                  ("ff2_w", wdt, (L, Dff, D)), ("ff2_b", BF16, (L, 1, D)),
+                  ("ff3_g", F32, (L, 1, D)), ("ff3_b", F32, (L, 1, D)),
+                  ("ckq", torch.int8, (L, Le, HD)), ("cksc", F32, (L, Le, 1)),
+                  ("cvq", torch.int8, (L, Le, HD)), ("cvsc", F32, (L, Le, 1)),
+                  ("cwkr_mt", BF16, (L, Le, HD)), ("cblocked", torch.int32, (1, Le))]
+    if weights_int8:
+        specs.append(("w_scales", F32, (L, 8, max(3 * HD, D, Dff))))
+    return tuple(specs)
+
+
+def _check_all(specs, tensors, dev) -> None:
+    """``_check`` of each operand against its spec: one pass of cheap
+    comparisons where everything is as expected (a token step pays this
+    host time), ``_check``'s message where something is not."""
+    if len(specs) != len(tensors):
+        raise ValueError(f"expected {len(specs)} operands, got {len(tensors)}")
+    for (name, dtype, shape), t in zip(specs, tensors):
+        if not (type(t) is torch.Tensor and t.dtype is dtype and t.shape == shape
+                and t.device == dev and t.is_contiguous()):
+            _check(name, t, dtype, shape, dev)
 
 
 def _check_inputs(stacked, cfg, h_in, wkr_mt, kq, ksc, vq, vsc, cross, blocked,
@@ -494,41 +870,20 @@ def _check_inputs(stacked, cfg, h_in, wkr_mt, kq, ksc, vq, vsc, cross, blocked,
         raise ValueError(f"ptr={ptr} outside [0, {M})")
     if cfg.act not in _ACT_CODES:
         raise ValueError(f"unsupported activation {cfg.act!r}")
-    L, D, Dff = cfg.dec_layers, cfg.d_model, cfg.d_inner
-    HD = cfg.n_heads * cfg.d_head
     dev = h_in.device
-    wdt = torch.int8 if weights_int8 else BF16
-    checks = [("qkv_w", stacked.qkv_w, wdt, (L, D, 3 * HD)),
-              ("qkv_b", stacked.qkv_b, BF16, (L, 1, 3 * HD)),
-              ("ln1_g", stacked.ln1_g, F32, (L, 1, D)),
-              ("ln1_b", stacked.ln1_b, F32, (L, 1, D)),
-              ("u", stacked.u, BF16, (1, HD)), ("v", stacked.v, BF16, (1, HD)),
-              ("h_in", h_in, F32, (1, D)),
-              ("wkr_mt", wkr_mt, BF16, (L, M + 1, HD)),
-              ("kq", kq, torch.int8, (L, 1, M, HD)), ("ksc", ksc, F32, (L, 1, M, 1)),
-              ("vq", vq, torch.int8, (L, 1, M, HD)), ("vsc", vsc, F32, (L, 1, M, 1)),
-              ("blocked", blocked, torch.int32, (1, M))]
+    tensors = [stacked.qkv_w, stacked.qkv_b, stacked.ln1_g, stacked.ln1_b, stacked.u,
+               stacked.v, h_in, wkr_mt, kq, ksc, vq, vsc, blocked]
+    Le = 0
     if cross is not None:
-        ckq, cksc, cvq, cvsc, cwkr_mt, cblocked = cross
+        ckq = cross[0]
         Le = ckq.shape[1] if isinstance(ckq, torch.Tensor) else 0
-        checks += [("q2_w", stacked.q2_w, wdt, (L, D, HD)),
-                   ("q2_b", stacked.q2_b, BF16, (L, 1, HD)),
-                   ("ln2_g", stacked.ln2_g, F32, (L, 1, D)),
-                   ("ln2_b", stacked.ln2_b, F32, (L, 1, D)),
-                   ("ff1_w", stacked.ff1_w, wdt, (L, D, Dff)),
-                   ("ff1_b", stacked.ff1_b, BF16, (L, 1, Dff)),
-                   ("ff2_w", stacked.ff2_w, wdt, (L, Dff, D)),
-                   ("ff2_b", stacked.ff2_b, BF16, (L, 1, D)),
-                   ("ff3_g", stacked.ff3_g, F32, (L, 1, D)),
-                   ("ff3_b", stacked.ff3_b, F32, (L, 1, D)),
-                   ("ckq", ckq, torch.int8, (L, Le, HD)), ("cksc", cksc, F32, (L, Le, 1)),
-                   ("cvq", cvq, torch.int8, (L, Le, HD)), ("cvsc", cvsc, F32, (L, Le, 1)),
-                   ("cwkr_mt", cwkr_mt, BF16, (L, Le, HD)),
-                   ("cblocked", cblocked, torch.int32, (1, Le))]
+        tensors += [stacked.q2_w, stacked.q2_b, stacked.ln2_g, stacked.ln2_b, stacked.ff1_w,
+                    stacked.ff1_b, stacked.ff2_w, stacked.ff2_b, stacked.ff3_g, stacked.ff3_b,
+                    *cross]
     if weights_int8:
-        checks.append(("w_scales", w_scales, F32, (L, 8, max(3 * HD, D, Dff))))
-    for name, t, dtype, shape in checks:
-        _check(name, t, dtype, shape, dev)
+        tensors.append(w_scales)
+    _check_all(_slab_specs(cfg.dec_layers, cfg.d_model, cfg.d_inner, cfg.n_heads * cfg.d_head,
+                           M, Le, cross is not None, weights_int8), tensors, dev)
     if dev.type == "cuda" and not kernel_accepts(cfg):
         raise ValueError(f"the s2s slab kernel needs d_head in {KERNEL_HEAD_DIMS}, "
                          "d_model == n_heads * d_head and widths that are multiples of 4")

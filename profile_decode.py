@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the decode's time goes on the card: single stream, batched and
-continuous.
+continuous; or the multitask model's harmonize and next-word steps.
 
     python3 profile_decode.py [--steps 20] [--batches 16 64]
+    python3 profile_decode.py --model multitask [--steps 64]
 
 Loads the 41M flagship checkpoint with the port and, each under
 ``torch.profiler``: runs ``--steps`` slab_w8 decode steps (``fused_slab_core``
@@ -16,6 +17,17 @@ steps with every slot busy. Prints for each the CUDA kernels by total device
 time, the device-busy share of the window, the host operations by their own
 host time, and the card's name and power limit. Imports only the port;
 needs one CUDA card.
+
+``--model multitask`` takes the 85M multitask flagship's shapes
+(``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
+``chip_smoke.py``'s mt timing and mt fused timing phases (each s2s / nw
+step at B = 1, M = 512, Le = 512: CUDA-event medians beside the bound),
+then for the auto kernel (slab_w8) and the exact ``fused`` one a
+harmonize (``s2s_predict_from_midi``) and a next-word
+(``nw_predict_from_midi``) call of 8 and of 8 + ``--steps`` words on a
+two-track prompt, each under ``torch.profiler``. The difference of the two
+calls gives a decode step's host-clock time, its device time (by kernel)
+and the host's share of the step.
 """
 
 from __future__ import annotations
@@ -80,9 +92,59 @@ def profile_continuous(learner, n_slots: int = 16, chunk: int = 32) -> None:
     report(f"continuous {eng.kernel} {n_slots} slots, 2 chunks of {chunk} steps", prof, wall)
 
 
+def device_ms(prof) -> dict:
+    """Device ms by kernel name over a profiled window."""
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def profile_multitask(steps: int, dev) -> None:
+    """The multitask timing phases, then a harmonize and a next-word decode
+    step's host-clock and device time with the auto and the fused kernel."""
+    from deepmusicgeneration_tpu_torch.tasks.harmonize import (nw_predict_from_midi,
+                                                               s2s_predict_from_midi)
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
+    flagship, _ = chip_smoke.mt_load_phase(dev, 0)
+    rng = np.random.default_rng(0)
+    chip_smoke.mt_timing_phase(flagship, rng, dev)
+    chip_smoke.mt_fused_timing_phase(flagship, rng, dev)
+    midi = chip_smoke.two_track_midi(0, flagship.vocab)
+    n0, n1 = 8, 8 + steps
+    for kernel in ("slab_w8", "fused"):
+        lr = MultitaskLearner(flagship.cfg, flagship.vocab, flagship.params, device=dev,
+                              decode_kernel=kernel)
+        for task, fn in (("harmonize", s2s_predict_from_midi),
+                         ("next-word", nw_predict_from_midi)):
+            fn(lr, midi, n_words=n0, seed=0)                  # warm-up
+            walls, busy = {}, {}
+            for n in (n0, n1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(lr, midi, n_words=n, seed=0)
+                torch.cuda.synchronize()
+                walls[n] = time.perf_counter() - t0
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    fn(lr, midi, n_words=n, seed=0)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                busy[n] = device_ms(prof)
+            report(f"{task} {kernel} flagship {n1} words", prof, wall)
+            step_wall = (walls[n1] - walls[n0]) / steps * 1e3
+            per_kernel = {k: (v - busy[n0].get(k, 0.0)) / steps for k, v in busy[n1].items()}
+            step_dev = sum(per_kernel.values())
+            top = sorted(per_kernel.items(), key=lambda kv: kv[1], reverse=True)[:4]
+            print(f"{task} {kernel}: a decode step {step_wall:.4f} ms host clock (unprofiled), "
+                  f"{step_dev:.4f} ms device, host share {100 * (1 - step_dev / step_wall):.1f}%; "
+                  "by kernel: " + "; ".join(f"{v:.4f} ms {k[:60]}" for k, v in top), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--model", choices=("genre", "multitask"), default="genre")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="decode steps a window (default 20; 64 with --model multitask)")
     ap.add_argument("--batches", type=int, nargs="*", default=[16, 64])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -92,6 +154,10 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda")
+    if args.model == "multitask":
+        profile_multitask(args.steps or 64, dev)
+        return 0
+    args.steps = args.steps or 20
     learner = MusicLearner.load(str(chip_smoke.CKPT))
     engine = learner.engine
     cfg, M = engine.cfg, engine.cfg.mem_len

@@ -696,6 +696,87 @@ def test_fused_kernels_against_float64():
     print(worst)
 
 
+def _mt_step_case(mode, task, Le):
+    """One multitask step case on the demo checkpoint's widths with biases of
+    std 0.1, a short ring at ptr = M - 1 and, for s2s, ``Le`` encoder slots:
+    (call: the wrapper on fresh copies of the ring; at_grid(g): the same
+    step launched on g blocks; the co-resident grid; the float64 check of
+    one launch, which raises on a disagreement)."""
+    dev = _card()
+    import chip_smoke as cs
+    from deepmusicgeneration_tpu_torch.ops import fused_s2s as fs
+    from deepmusicgeneration_tpu_torch.train.learner import MultitaskLearner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    learner = MultitaskLearner.load(str(cs.MT_DEMO))
+    cfg = learner.cfg
+    M, L, HD = cfg.mem_len, cfg.dec_layers, cfg.n_heads * cfg.d_head
+    rng = np.random.default_rng(21)
+    ptr = M - 1
+    blocked = torch.from_numpy(cs.ring_blocked(1, M, ptr, "short")).to(dev)
+    h_in = learner.engine("s2s").params["embed"].float()[:1]
+    grid = fs.step_grid(mode, cfg, M, Le, task == "s2s", dev)
+    if mode == "fused":
+        stacked, _ = cs.mt_weights(learner, "fused", rng, dev, 0.1)
+        wkr = cs.fused_wkr(learner)
+        kv = cs.fused_ring(cfg, "short", rng, dev)
+        cross = cs.fused_cross(cfg, Le, rng, dev) if task == "s2s" else None
+        args = (task, cfg, stacked, wkr, kv, cross, blocked, h_in, ptr)
+
+        def check():
+            ref, f32 = (cs.fused_step(*args, acc=acc) for acc in (torch.float64, torch.float32))
+            got = cs.fused_step(*args)
+            torch.cuda.synchronize()
+            assert cs.within_fused_bounds(cs.fused_diff(got, ref, kv, ptr),
+                                          cs.fused_diff(f32, ref, kv, ptr))
+
+        return (lambda **kw: cs.fused_step(*args, **kw),
+                lambda g: fs._fused_launch(stacked, cfg, h_in, wkr, *[t.clone() for t in kv],
+                                           cross, blocked, ptr, M, grid=g), grid, check)
+    weights = cs.mt_weights(learner, mode, rng, dev, 0.1)
+    wkr_mt = cs.mt_wkr(learner)
+    kv = cs.ring_kv(L, 1, M, HD, "short", rng, dev)
+    cross = cs.mt_cross(cfg, Le, rng, dev) if task == "s2s" else None
+    args = (task, cfg, weights, wkr_mt, kv, cross, blocked, h_in, ptr)
+    return (lambda **kw: cs.mt_step(*args, **kw),
+            lambda g: fs._launch(mode, *weights, cfg, h_in, wkr_mt, *[t.clone() for t in kv],
+                                 cross, blocked, ptr, M, grid=g), grid,
+            lambda: cs.check_case(f"{task}[{mode}]", mode, kv, ptr, lambda: cs.mt_step(*args),
+                                  lambda acc: cs.mt_step(*args, acc=acc), f"Le={Le} ptr={ptr}"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["s2s", "nw"])
+@pytest.mark.parametrize("mode", ["slab_w8", "slab", "fused"])
+def test_mt_step_is_one_kernel_a_call(mode, task):
+    """A wrapper call of each multitask step variant runs exactly one CUDA
+    kernel, the persistent step (5 calls on one ring: 5 launches counted by
+    the wrapper, only the step kernel and at most 5 under torch.profiler;
+    chip_smoke.step_kernels), and counts one launch."""
+    import chip_smoke as cs
+    call, _, _, _ = _mt_step_case(mode, task, 1024)
+    _, recorded = cs.step_kernels(f"{task}[{mode}]", lambda: call(clone=False), 5)
+    assert 0 < recorded <= 5
+    cs.reset_launches()
+    call(clone=False)
+    assert cs.launches() == cs.only(**{f"{task}_{mode}": 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["s2s", "nw"])
+@pytest.mark.parametrize("mode", ["slab_w8", "slab", "fused"])
+def test_mt_step_bits_do_not_depend_on_launch_or_grid(mode, task):
+    """At Le = 1024 and ptr = M - 1: two launches give the same bits, a
+    launch on half the co-resident grid (and on 7 blocks) gives them too,
+    and the step passes the float64 check."""
+    call, at_grid, grid, check = _mt_step_case(mode, task, 1024)
+    a, b = call(), call()
+    c, d = at_grid(max(1, grid // 2)), at_grid(7)
+    torch.cuda.synchronize()
+    for other in (b, c, d):
+        assert all(torch.equal(x, y) for x, y in zip(a, other))
+    check()
+
+
 @pytest.mark.cuda
 def test_fused_greedy_follows_the_exact_ring_step():
     """32 greedy steps of harmonize and next-word on the demo with the fused
