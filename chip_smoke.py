@@ -22,9 +22,11 @@ non-zero without printing a result):
    explicit modes, drawn from an rng of their own (MODE_CASE_BATCHES): the
    slab step's slab_int8 (B in {1, 64}, and B = 64 at 32 rows a cell),
    slab4 (ptr also M/2 - 1 and M/2, the two nibble sides of one packed row;
-   B in {1, 64}, and 64 at 16 and 32 rows a cell) and slab4_w8, and
-   ``fused_multirow_core`` / ``fused_multirow_q_core`` (multirow,
-   multirow_int8; B in {1, 64}) on head-major panels, by the same float64
+   B in {1, 64}, and 64 at 16 and 32 rows a cell) and slab4_w8 (B in {1,
+   24, 64}: the old chain at B = 1, the tensor-core chain of
+   csrc/tc_decode.cuh at B >= 8), and ``fused_multirow_core`` /
+   ``fused_multirow_q_core`` (multirow; multirow_int8 as slab4_w8, B in {1,
+   24, 64}) on head-major panels, by the same float64
    check (written slots in int8 or int4 steps, or for bf16 panels in units
    of 2^-7 of the row's largest entry). Then
    ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
@@ -44,7 +46,10 @@ non-zero without printing a result):
    the main paths' shapes, beside the bound from the bytes it must move and
    the operations it must do; slab_w8 and slab_ar_w8 at B in
    {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}, the five explicit
-   modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell); the four
+   modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell; slab4_w8 and
+   multirow_int8 also at 8 and 16, each step on the tensor-core chain also
+   under ``torch.profiler``: its kernels a step by the wrapper's count and
+   by the profiler, every one a chain kernel); the four
    s2s / nw variants at B = 1, M = 512, Le = 512, each also under
    ``torch.profiler`` over 20 wrapper calls: one CUDA kernel a call (the
    persistent step, on its co-resident grid) and its device time a launch.
@@ -965,13 +970,51 @@ def slab_timing(engine, wkr_mt, rng, dev, name, B, flush, rows=None):
     nbytes, (flops, int8_ops) = step_bytes_and_flops(cfg, stacked, w_scales, wkr, kv,
                                                      blocked, B, name)
     bound_ms, bound_by = bound(nbytes, flops, int8_ops)
+    tc = name in fd.TC_MODES and fd.tc_path(name, cfg, B, M)
+    per_step = fd.kernels_per_step(cfg.n_layers, name, tc)
+    if per_step != fd.planned_kernels_per_step(cfg.n_layers, name, tc):
+        raise AssertionError(f"{name}: the library's kernels a step differ from the plan")
     say(f"timing: {name} B={B} R={R} M={M} kernel median {ms:.4f} ms (again "
         f"{ms_again:.4f}, L2 flushed {ms_cold:.4f}) plain {plain_ms:.4f} ms bound "
         f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP bf16, "
         f"{int8_ops / 1e6:.1f} MOP int8, by {bound_by}); 1 wrapper launch = "
-        f"{fd.kernels_per_step(cfg.n_layers, name)} CUDA kernels per step")
+        f"{per_step} CUDA kernels per step" + (" (tensor-core chain)" if tc else ""))
+    if tc:
+        chain_kernels(f"{name} B={B}", kernel, per_step)
     return dict(ms=min(ms, ms_again), plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+# the kernels of the tensor-core chain (csrc/tc_decode.cuh) of fd.TC_MODES
+TC_CHAIN_KERNELS = ("tc_product", "group_attention", "tc_layer_norm")
+
+
+def chain_kernels(label, fn, per_step: int, n: int = 10) -> int:
+    """The CUDA kernels of ``n`` wrapper calls of a tensor-core chain step
+    under ``torch.profiler``: all of them the chain's (TC_CHAIN_KERNELS), at
+    most ``per_step`` (the wrapper's count) a call, by name; says them and
+    returns the number recorded. The profiler can drop records, so the
+    wrapper's count is the count and the profiler shows what ran."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset")):
+            short = next((k for k in TC_CHAIN_KERNELS if k in e.key), e.key[:60])
+            kernels[short] = kernels.get(short, 0) + e.count
+    recorded = sum(kernels.values())
+    if recorded > n * per_step or not set(kernels) <= set(TC_CHAIN_KERNELS):
+        raise AssertionError(f"{label}: {n} wrapper calls ran {kernels}")
+    say(f"timing: {label} {per_step} CUDA kernels a step by the wrapper's count; the "
+        f"profiler recorded {recorded} over {n} steps ({recorded / n:g} a step): "
+        + ", ".join(f"{k} {c / n:g}" for k, c in sorted(kernels.items())))
+    return recorded
 
 
 def flash_timing(cfg, dev, B, W, seed):
@@ -1001,8 +1044,13 @@ def flash_timing(cfg, dev, B, W, seed):
 MODE_CASE_BATCHES = (("slab_int8", (1, 64), None), ("slab_int8", (64,), 32),
                      ("slab4", (1, 64), None), ("slab4", (64,), 16), ("slab4", (64,), 32),
                      ("slab4_w8", (1, 64), None), ("multirow", (1, 64), None),
-                     ("multirow_int8", (1, 64), None))
+                     ("multirow_int8", (1, 64), None), ("slab4_w8", (24,), None),
+                     ("multirow_int8", (24,), None))
 EXPLICIT_MODES = ("slab_int8", "slab4", "slab4_w8", "multirow", "multirow_int8")
+# the explicit modes' timed batch sizes: the tensor-core chain's modes
+# (fd.TC_MODES) on both sides of its B >= 8 rule
+MODE_TIMING_BATCHES = {mode: (1, 8, 16, 64) if mode in fd.TC_MODES else (1, 64)
+                       for mode in EXPLICIT_MODES}
 
 
 def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
@@ -1010,7 +1058,8 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     at every B of the crossover between their weight products (the
     row-tiled GEMV of slab_w8, the all-rows GEMM of slab_ar_w8), and the
     bf16-weight steps at B = 16 and 64; the explicit modes at B = 1 and 64
-    (slab4 also at 16 and 32 rows a cell); the launches made here do not
+    (slab4 also at 16 and 32 rows a cell; slab4_w8 and multirow_int8 also at
+    8 and 16, where their tensor-core chain starts); the launches made here do not
     count as the main paths'. Returns the timings of the JSON line: slab_w8
     at B = 1; slab_ar_w8 and the flash prefill at B = 16, W = 512 (the
     service's batch); slab and slab_ar at B = 16 (the continuous engine's
@@ -1024,7 +1073,7 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
                                    ("slab_ar_w8", (1, 4, 8, 16, 64)),
                                    ("slab", (16, 64)), ("slab_ar", (16, 64)))}
     times.update({mode: {B: slab_timing(engine, wkr_mt, modes_rng, dev, mode, B, flush)
-                         for B in (1, 64)} for mode in EXPLICIT_MODES})
+                         for B in MODE_TIMING_BATCHES[mode]} for mode in EXPLICIT_MODES})
     for R in (16, 32):
         slab_timing(engine, wkr_mt, modes_rng, dev, "slab4", 64, flush, rows=R)
     flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}

@@ -41,6 +41,12 @@
 // 75.5 MB of weights a step (~0.26 ms at 3.35 TB/s), multirow_int8 402.7 MB
 // of int8 K/V plus 0.26 MB of scales (~0.14 ms), both bound by bytes.
 //
+// At B >= 8, multirow_int8 runs the tensor-core chain of tc_decode.cuh
+// (multirow_int8_tc_step): bf16 weight tiles read once a step for up to 64
+// rows on the tensor cores, and an attention that stages a head's relative
+// panel once per cluster of 4 rows and reads the int8 K panel 16 slots a
+// load (GroupPanelI8), 7 kernels a layer. At B < 8 it keeps the chain above.
+//
 // The same file holds the steps of fused_decode.py::fused_stack_decode
 // (pallas_call built by _make_kernel: B = 1, h as an 8-row block whose row 0
 // is the token) and fused_batched_decode (_make_batched_kernel: grid
@@ -55,6 +61,7 @@
 // ~263 us at B = 64, 3.35 TB/s), bound by bytes.
 
 #include "slab_common.cuh"
+#include "tc_decode.cuh"
 
 namespace {
 
@@ -220,13 +227,18 @@ int run_head_major(DECODE_STEP_ARGS(bf16, bf16)) {
 
 extern "C" {
 
-// Float32 scratch elements a step needs for these sizes.
-size_t multirow_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M, int) {
+// Float32 scratch elements a step needs for these sizes; flags bit 1: the
+// tensor-core chain's (multirow_int8_tc_step).
+size_t multirow_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M, int flags) {
+  if (flags & 2) return tc_scratch_floats(B, D, Dff, H * Dh);
   return step_scratch_floats(B, D, Dff, H * Dh);
 }
 
-// Kernel launches a step makes per call (for the launch accounting).
-int multirow_decode_kernels_per_step(int L, int) { return L * (kChainKernelsPerLayer + 2); }
+// Kernel launches a step makes per call (for the launch accounting): the
+// chain of decode_step, or with tc the tensor-core chain.
+int multirow_decode_kernels_per_step(int L, int, int tc) {
+  return L * (tc ? kTcKernelsPerLayer : kChainKernelsPerLayer + 2);
+}
 
 const char* multirow_decode_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -254,6 +266,17 @@ int multirow_int8_step(DECODE_STEP_ARGS(bf16, int8_t)) {
                                ln1_b, ln2_g, ln2_b, wkr, u, v, kt, ks, vc, vs, h_in, blocked,
                                h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,
                                rows_per_cell, scale, act, stream);
+}
+
+// multirow_int8 on the tensor-core chain (tc_decode.cuh), for B >= 8: the
+// same arguments; scratch of multirow_decode_scratch_floats(..., flags = 2)
+// floats. Returns cudaErrorInvalidValue for sizes tc_accepts refuses.
+int multirow_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
+  if (!tc_accepts<GroupPanelI8>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  return tc_decode_step<bf16, GroupPanelI8, PanelI8>(
+      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr, scale, act,
+      PanelI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
 // The steps of fused_stack_decode (B = 1: the wrapper passes row 0 of its

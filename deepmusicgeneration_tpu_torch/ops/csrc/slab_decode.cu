@@ -87,6 +87,12 @@
 // attention block of that row reads in the same step. At B = 64, M = 512
 // the int4 K/V are 201.3 MB a step.
 //
+// At B >= 8, slab4_w8 runs the tensor-core chain of tc_decode.cuh
+// (slab4_w8_tc_step): the weight products on the tensor cores, each weight
+// tile read once a step for up to 64 rows, and an attention that reads a
+// head's relative table once per cluster of rows (GroupI4), 7 kernels a layer.
+// At B < 8 it keeps the chain above (slab4_w8_step).
+//
 // Order contract of every step: attention reads the OLD slot `ptr` of every
 // row (on a full ring that slot holds the oldest token, at distance exactly
 // M, which is visible), and the fresh-slot write is a separate kernel
@@ -95,6 +101,7 @@
 // carried over.
 
 #include "slab_common.cuh"
+#include "tc_decode.cuh"
 
 namespace {
 
@@ -355,16 +362,19 @@ int run_slab(bool allrows, bool int8_scores, DECODE_STEP_ARGS(WT, int8_t)) {
 
 extern "C" {
 
-// Float32 scratch elements a step of any mode needs for these sizes
-// (int8_scores: the slab_int8 mode's extra buffers).
-size_t slab_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M,
-                                  int int8_scores) {
+// Float32 scratch elements a step of any mode needs for these sizes. flags
+// bit 0: the slab_int8 mode's extra buffers; bit 1: the tensor-core chain's
+// scratch (slab4_w8_tc_step).
+size_t slab_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M, int flags) {
+  if (flags & 2) return tc_scratch_floats(B, D, Dff, H * Dh);
   return step_scratch_floats(B, D, Dff, H * Dh) +
-         (int8_scores ? int8_scratch_floats(B, H, Dh, M) : 0);
+         ((flags & 1) ? int8_scratch_floats(B, H, Dh, M) : 0);
 }
 
-// Kernel launches a step makes per call (for the launch accounting).
-int slab_decode_kernels_per_step(int L, int int8_scores) {
+// Kernel launches a step makes per call (for the launch accounting): the
+// chain of decode_step, or with tc the tensor-core chain.
+int slab_decode_kernels_per_step(int L, int int8_scores, int tc) {
+  if (tc) return L * kTcKernelsPerLayer;
   return L * (kChainKernelsPerLayer + (int8_scores ? 4 : 2));
 }
 
@@ -425,6 +435,17 @@ int slab4_step(DECODE_STEP_ARGS(bf16, int8_t)) {
 
 int slab4_w8_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
   return run_slab<SlotI4, int8_t>(false, false, PASS_INT8_WEIGHTS);
+}
+
+// slab4_w8 on the tensor-core chain (tc_decode.cuh), for B >= 8: the same
+// arguments; scratch of slab_decode_scratch_floats(..., flags = 2) floats.
+// Returns cudaErrorInvalidValue for sizes tc_accepts refuses.
+int slab4_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
+  if (!tc_accepts<GroupI4>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  return tc_decode_step<int8_t, GroupI4, SlotI4>(
+      qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr, scale,
+      act, SlotI4::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
 }  // extern "C"

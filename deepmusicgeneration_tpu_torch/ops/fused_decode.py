@@ -28,8 +28,10 @@ which no engine mode reaches.
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
-first use, bound with ctypes) or raises; on a CPU tensor it runs its plain
-version (:func:`slab_plain`, :func:`multirow_plain`,
+first use, bound with ctypes) or raises; ``slab4_w8`` and ``multirow_int8``
+take the tensor-core chain of ``csrc/tc_decode.cuh`` where :func:`tc_path`
+says so (B >= 8), the chain of the other modes below that; on a CPU tensor
+it runs its plain version (:func:`slab_plain`, :func:`multirow_plain`,
 :func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
 PyTorch. Unlike the JAX functions, whose cache operands are donated and
 aliased, the port updates the caches in place (slot ``ptr`` only) and
@@ -415,22 +417,107 @@ INT8_SCORE_MODES = ("slab_int8", "slab_int8_w8")
 # fused_batched_decode
 MULTIROW_MODES = ("multirow", "multirow_int8")
 STACK_MODES = ("fused_stack", "fused_batched")
+# the modes with a tensor-core chain (csrc/tc_decode.cuh) at B >= TC_MIN_ROWS
+TC_MODES = ("slab4_w8", "multirow_int8")
+
+# csrc/tc_decode.cuh's plan, mirrored (tests/test_torch_tc_plan.py holds the
+# tiling, the partial order, the attention's row groups and the launch count)
+TC_MIN_ROWS = 8            # kTcMinRows
+TC_COLS = 64               # kTcCols: weight columns a product block owns
+TC_ROWS = 64               # kTcRows: batch rows a product block applies
+TC_STAGE_K = 64            # kTcStageK: K rows a pipeline stage brings
+TC_TARGET_BLOCKS = 132     # kTcTargetBlocks: the H100's SMs
+TC_MAX_CLUSTER = 8         # kTcMaxCluster: ff1's K chunks, one cluster
+GROUP_ROWS = 4             # kGroupRows: batch rows an attention block takes
+TC_KERNELS_PER_LAYER = 7   # kTcKernelsPerLayer
+CHAIN_KERNELS_PER_LAYER = 8  # kChainKernelsPerLayer, besides the attention's
+MAX_SMEM = 232448          # kMaxSmem: a block's dynamic shared memory
+ATTN_THREADS = 256         # kAttnThreads
+
+
+def tc_k_chunk(K: int, N: int, max_chunks: int = None) -> int:
+    """K rows a tensor-core product block takes (``tc_k_chunk``): K split
+    into as few chunks of whole TC_STAGE_K-row stages as fill
+    TC_TARGET_BLOCKS blocks with the ceil(N / TC_COLS) column tiles, and at
+    most ``max_chunks`` of them. It depends on K and N alone, never on B."""
+    up = lambda a, b: -(-a // b) * b
+    splits = -(-TC_TARGET_BLOCKS // -(-N // TC_COLS))
+    if max_chunks is not None:
+        splits = min(splits, max_chunks)
+    return up(-(-K // splits), TC_STAGE_K)
+
+
+def tc_product_plan(B: int, K: int, N: int, cluster: bool = False) -> dict:
+    """The grid of one tensor-core product: K chunks of ``kc`` rows (their
+    partials summed in chunk order by the consumer; ``cluster``: ff1's,
+    at most TC_MAX_CLUSTER chunks, one thread block cluster a column tile),
+    column tiles, row groups of TC_ROWS rows, and the n8 tiles each group
+    takes (the fewest of 1, 2, 4, 8 that hold min(B, TC_ROWS) rows; rows
+    past B are zeros)."""
+    kc = tc_k_chunk(K, N, TC_MAX_CLUSTER if cluster else None)
+    rows = min(B, TC_ROWS)
+    n8 = next(n for n in (1, 2, 4, 8) if 8 * n >= rows)
+    return dict(kc=kc, k_blocks=-(-K // kc), col_tiles=-(-N // TC_COLS),
+                row_groups=-(-B // TC_ROWS), n8_tiles=n8)
+
+
+def tc_attention_clusters(B: int, H: int):
+    """The clusters of the grouped attention, grid (GROUP_ROWS ceil(B /
+    GROUP_ROWS), H): for each, its head and the rows of its GROUP_ROWS
+    blocks (one row a block; rows past B only form their share of the
+    relative scores)."""
+    return [(h, list(range(b0, b0 + GROUP_ROWS)))
+            for h in range(H) for b0 in range(0, B, GROUP_ROWS)]
+
+
+def tc_attention_smem(Dh: int, M: int, panel: bool) -> int:
+    """Bytes of shared memory of a grouped-attention block
+    (``group_attention_smem``); ``panel``: multirow_int8's, which stages its
+    quarter of the head's relative-table slice (in the region the work
+    buffer takes after it)."""
+    G = GROUP_ROWS
+    floats = -(-(G * Dh + 3 * Dh + 3 * M + 2 * (M + 1) + 32 + G * (M + 1)) // 4) * 4
+    work = 4 * max(ATTN_THREADS * 16, (ATTN_THREADS // 32) * M)
+    stage = -(-(Dh // G * (M + 1) * 2) // 16) * 16 if panel else 0
+    return floats * 4 + max(work, stage)
+
+
+def tc_path(mode: str, cfg, B: int, mem_len: int) -> bool:
+    """Whether ``mode``'s step runs the tensor-core chain on the card (the
+    library's ``tc_accepts``, mirrored): one of TC_MODES, B >= TC_MIN_ROWS,
+    d_model, d_inner and mem_len multiples of 16, and the attention block's
+    shared memory within MAX_SMEM."""
+    return (mode in TC_MODES and B >= TC_MIN_ROWS and cfg.d_model % 16 == 0
+            and cfg.d_inner % 16 == 0 and mem_len % 16 == 0
+            and cfg.d_head in KERNEL_HEAD_DIMS
+            and tc_attention_smem(cfg.d_head, mem_len, mode == "multirow_int8") <= MAX_SMEM)
+
+
+def planned_kernels_per_step(n_layers: int, mode: str, tc: bool) -> int:
+    """:func:`kernels_per_step` mirrored: the tensor-core chain's 7 kernels
+    a layer, or the chain's 8 plus the attention's (2; 4 in the int8-score
+    modes)."""
+    if tc:
+        return n_layers * TC_KERNELS_PER_LAYER
+    return n_layers * (CHAIN_KERNELS_PER_LAYER + (4 if mode in INT8_SCORE_MODES else 2))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
     """Build and load ``csrc/<source>.cu``'s library (slab_decode or
     multirow_decode) and declare its functions: one ``<mode>_step`` per
-    mode (multirow_decode: of MULTIROW_MODES and STACK_MODES), and
+    mode (multirow_decode: of MULTIROW_MODES and STACK_MODES), a
+    ``<mode>_tc_step`` for its mode of TC_MODES, and
     ``<source>_scratch_floats``, ``<source>_kernels_per_step``,
     ``<source>_error_string``."""
     lib = _build.load(source)
-    for mode in SLAB_MODES if source == "slab_decode" else MULTIROW_MODES + STACK_MODES:
-        step = getattr(lib, f"{mode}_step")
+    modes = SLAB_MODES if source == "slab_decode" else MULTIROW_MODES + STACK_MODES
+    for name in [f"{m}_step" for m in modes] + [f"{m}_tc_step" for m in TC_MODES if m in modes]:
+        step = getattr(lib, name)
         step.restype = ctypes.c_int
         step.argtypes = _STEP_ARGTYPES
     for name, restype, argtypes in (("scratch_floats", ctypes.c_size_t, [_I] * 7),
-                                    ("kernels_per_step", ctypes.c_int, [_I] * 2),
+                                    ("kernels_per_step", ctypes.c_int, [_I] * 3),
                                     ("error_string", ctypes.c_char_p, [_I])):
         fn = getattr(lib, f"{source}_{name}")
         fn.restype, fn.argtypes = restype, argtypes
@@ -441,29 +528,35 @@ def _source(mode: str) -> str:
     return "multirow_decode" if mode in MULTIROW_MODES + STACK_MODES else "slab_decode"
 
 
-def kernels_per_step(n_layers: int, mode: str = "slab_w8") -> int:
+def kernels_per_step(n_layers: int, mode: str = "slab_w8", tc: bool = False) -> int:
     """CUDA kernel launches inside one wrapper launch of ``mode`` (any of
-    :data:`SLAB_MODES`, :data:`MULTIROW_MODES` and :data:`STACK_MODES`)."""
+    :data:`SLAB_MODES`, :data:`MULTIROW_MODES` and :data:`STACK_MODES`), as
+    the kernel library counts them; ``tc``: on the tensor-core chain
+    (:func:`tc_path`)."""
     source = _source(mode)
     return getattr(_lib(source), f"{source}_kernels_per_step")(
-        n_layers, int(mode in INT8_SCORE_MODES))
+        n_layers, int(mode in INT8_SCORE_MODES), int(tc))
 
 
 def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
             blocked, ptr: int, rows_per_cell: int):
     """Run ``<mode>_step`` of ``csrc/slab_decode.cu`` or
-    ``csrc/multirow_decode.cu`` on the card; ``w_scales`` is None for bf16
-    weight panels, ``ks`` / ``vs`` None for bf16 caches. The step runs the
-    first B = blocked.shape[0] rows of ``h_in``. Returns h_out (B, D)."""
+    ``csrc/multirow_decode.cu`` on the card, or ``<mode>_tc_step`` where
+    :func:`tc_path` says so (the library refuses, and this raises on, a size
+    its own rule ``tc_accepts`` does not take); ``w_scales`` is None for bf16
+    weight panels,
+    ``ks`` / ``vs`` None for bf16 caches. The step runs the first B =
+    blocked.shape[0] rows of ``h_in``. Returns h_out (B, D)."""
     source = _source(mode)
     lib = _lib(source)
     L, D, Dff = cfg.n_layers, cfg.d_model, cfg.d_inner
     H, Dh = cfg.n_heads, cfg.d_head
     B, M = blocked.shape
+    tc = tc_path(mode, cfg, B, M)
     dev = h_in.device
     h_out = torch.empty((B, D), dtype=F32, device=dev)
     n_scratch = getattr(lib, f"{source}_scratch_floats")(
-        B, D, Dff, H, Dh, M, int(mode in INT8_SCORE_MODES))
+        B, D, Dff, H, Dh, M, int(mode in INT8_SCORE_MODES) | (2 if tc else 0))
     scratch = torch.empty(n_scratch, dtype=F32, device=dev)
     scale = 1.0 / math.sqrt(Dh) if cfg.scale else 1.0
     ptrs = [stacked.qkv_w, stacked.out_w, stacked.ff1_w, stacked.ff2_w, w_scales,
@@ -473,7 +566,7 @@ def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
     smax = 0 if w_scales is None else w_scales.shape[2]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{mode}_step")(
+        err = getattr(lib, f"{mode}_tc_step" if tc else f"{mode}_step")(
             *[None if t is None else t.data_ptr() for t in ptrs],
             L, B, D, Dff, H, Dh, M, smax, ptr, rows_per_cell,
             scale, _ACT_CODES[cfg.act], stream)

@@ -3,6 +3,7 @@
 continuous; or the multitask model's harmonize and next-word steps.
 
     python3 profile_decode.py [--steps 20] [--batches 16 64]
+    python3 profile_decode.py --modes slab4_w8 multirow_int8 --batches 64 [--steps 20]
     python3 profile_decode.py --model multitask [--steps 64]
 
 Loads the 41M flagship checkpoint with the port and, each under
@@ -17,6 +18,17 @@ steps with every slot busy. Prints for each the CUDA kernels by total device
 time, the device-busy share of the window, the host operations by their own
 host time, and the card's name and power limit. Imports only the port;
 needs one CUDA card.
+
+``--modes`` profiles explicit decode modes instead (any of
+``chip_smoke.EXPLICIT_MODES``): for each B of ``--batches``, ``--steps``
+steps of the mode's wrapper on a full ring (ptr 100) of the flagship, the
+CUDA kernels by device time a step; then, beside it, the yardstick of its
+weight products: ``torch.matmul`` of the same bf16 operands (the int8
+panels dequantized by their column scales and rounded to bf16, as the
+kernels use them) by the same (B, K) rows, 4 a layer x 8 layers, its
+device time a step (never called by the port). It uses only functions that
+every tree of the port has, so the same script profiles a parent checkout
+(copy it there).
 
 ``--model multitask`` takes the 85M multitask flagship's shapes
 (``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
@@ -98,6 +110,70 @@ def device_ms(prof) -> dict:
             if e.self_device_time_total > 0}
 
 
+def profile_modes(engine, modes, batches, steps: int, dev) -> None:
+    """Device time by kernel of ``steps`` steps of each explicit mode at each
+    B, then the torch.matmul yardstick of its weight products."""
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    L, D, Dff, HD = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads * cfg.d_head
+    wkr_mt = chip_smoke.wkr_table(engine)
+    rng = np.random.default_rng(0)
+    for mode in modes:
+        stacked, w_scales = chip_smoke.weights(engine, mode)
+        wkr = chip_smoke.mode_wkr(mode, wkr_mt)
+        # the products' bf16 operands as the kernels use them: (K, N) a product
+        panels = []
+        for l in range(L):
+            for row, w in enumerate((stacked.qkv_w, stacked.out_w, stacked.ff1_w, stacked.ff2_w)):
+                w = w[l].float()
+                if w_scales is not None:
+                    w = w * w_scales[l, row, :w.shape[1]]
+                panels.append(w.to(torch.bfloat16))
+        for B in batches:
+            kv, blocked = chip_smoke.ring_inputs(cfg, B, M, 100, "full", rng, dev, mode)
+            h_in = engine.params["embed"].float()[
+                torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
+            kw = {} if mode in chip_smoke.MULTIROW_MODES else dict(
+                weights_int8=w_scales is not None, w_scales=w_scales,
+                **chip_smoke.SLAB_ARGS.get(mode, {}))
+
+            def step():
+                chip_smoke.CORES[mode](stacked, cfg, h_in, wkr, *kv, blocked, 100, M,
+                                       rows_per_cell=min(B, 8), **kw)
+
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report(f"{mode} step B={B} x{steps}", prof, wall)
+            by_kernel = device_ms(prof)
+            print(f"{mode} B={B}: device {sum(by_kernel.values()) / steps:.4f} ms a step; by "
+                  "kernel a step: " + "; ".join(
+                      f"{v / steps:.4f} ms {k[:70]}"
+                      for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])), flush=True)
+            xs = {K: torch.randn(B, K, device=dev).to(torch.bfloat16) for K in {D, HD, Dff}}
+
+            def products():
+                for w in panels:
+                    torch.matmul(xs[w.shape[0]], w)
+
+            for _ in range(3):
+                products()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    products()
+                torch.cuda.synchronize()
+            yard = sum(device_ms(prof).values()) / steps
+            print(f"{mode} B={B} yardstick: torch.matmul of the {len(panels)} bf16 weight "
+                  f"products ({4} a layer x {L} layers) {yard:.4f} ms of device time a step "
+                  f"({chip_smoke.time_ms(products, 20):.4f} ms CUDA-event median)", flush=True)
+
+
 def profile_multitask(steps: int, dev) -> None:
     """The multitask timing phases, then a harmonize and a next-word decode
     step's host-clock and device time with the auto and the fused kernel."""
@@ -146,6 +222,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=None,
                     help="decode steps a window (default 20; 64 with --model multitask)")
     ap.add_argument("--batches", type=int, nargs="*", default=[16, 64])
+    ap.add_argument("--modes", nargs="*", default=None,
+                    help="explicit decode modes to profile (chip_smoke.EXPLICIT_MODES)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -160,14 +238,17 @@ def main(argv=None) -> int:
     args.steps = args.steps or 20
     learner = MusicLearner.load(str(chip_smoke.CKPT))
     engine = learner.engine
+    if args.modes:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        profile_modes(engine, args.modes, args.batches, args.steps, dev)
+        return 0
     cfg, M = engine.cfg, engine.cfg.mem_len
     stacked, w_scales = engine.stacked_q()
     wkr_mt = chip_smoke.wkr_table(engine)
     rng = np.random.default_rng(0)
 
     def profile_steps(core, name, B):
-        kv, blocked = chip_smoke.ring_inputs(cfg, B, M, 100, True, rng, dev,
-                                             on_device=True)
+        kv, blocked = chip_smoke.ring_inputs(cfg, B, M, 100, "full", rng, dev)
         h_in = engine.params["embed"].float()[
             torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
 

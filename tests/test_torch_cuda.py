@@ -819,3 +819,79 @@ def test_stack_path_follows_the_exact_ring_step():
     learner = MusicLearner.load(DEMO)
     items = cs.batch_prompts(learner.vocab, 0, 16)
     assert cs.stack_path_phase(learner, items, 32) == {"fused_stack": 32, "fused_batched": 32}
+
+
+TC_MODES = ("slab4_w8", "multirow_int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 24, 64])
+@pytest.mark.parametrize("mode", TC_MODES)
+def test_tc_modes_against_float64(mode, B):
+    """slab4_w8 and multirow_int8 on their tensor-core chain (B >= 8,
+    csrc/tc_decode.cuh) at the demo checkpoint's widths: every case of
+    chip_smoke.py's kernel phase held to its float64 check (raises on a
+    disagreement), one launch counted a case."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    M = engine.cfg.mem_len
+    assert fd.tc_path(mode, engine.cfg, B, M)
+    cs.reset_launches()
+    dh, ratio = cs.kernel_phase(engine, cs.wkr_table(engine), np.random.default_rng(9), dev,
+                                mode, (B,))
+    assert cs.launches() == cs.only(**{mode: len(cs.kernel_ptrs(mode, M)) * len(cs.RINGS)})
+    print(f"{mode} B={B}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", TC_MODES)
+def test_tc_step_bits_repeat_and_do_not_depend_on_the_batch(mode):
+    """On the tensor-core chain two launches on the same B = 64 inputs give
+    the same bits, and rows 8-15 of that step (h_out and the caches) equal
+    a B = 8 step of those rows alone, bit for bit: the K chunks and every
+    sum order are fixed by the widths, never by B."""
+    dev = _card()
+    import chip_smoke as cs
+    engine = MusicLearner.load(DEMO).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    wkr_mt = cs.wkr_table(engine)
+    rng = np.random.default_rng(12)
+    for ptr, kind in ((31, "part"), (M - 1, "full"), (5, "short")):
+        kv, blocked = cs.ring_inputs(cfg, 64, M, ptr, kind, rng, dev, mode)
+        h_in = engine.params["embed"].float()[torch.from_numpy(rng.integers(12, 140, 64)).to(dev)]
+        args = (mode, engine, wkr_mt, kv, blocked, h_in, ptr)
+        a, b = cs.run_step(*args), cs.run_step(*args)
+        sub = [t[:, 8:16].contiguous() for t in kv]
+        r8 = cs.run_step(mode, engine, wkr_mt, sub, blocked[8:16].contiguous(),
+                         h_in[8:16].contiguous(), ptr)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), (kind, ptr)
+        assert torch.equal(a[0][8:16], r8[0]), (kind, ptr)
+        assert all(torch.equal(x[:, 8:16], y) for x, y in zip(a[1:], r8[1:])), (kind, ptr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", TC_MODES)
+def test_tc_step_kernels(mode):
+    """The kernel library counts 7 kernels a layer on the tensor-core chain
+    and 10 on the old one, as planned_kernels_per_step mirrors it; under
+    torch.profiler a chain step at B = 16 runs only the chain's kernels, at
+    most that many (chip_smoke.chain_kernels raises otherwise)."""
+    dev = _card()
+    import chip_smoke as cs
+    engine = MusicLearner.load(DEMO).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    L = cfg.n_layers
+    for tc in (False, True):
+        assert fd.kernels_per_step(L, mode, tc) == fd.planned_kernels_per_step(L, mode, tc)
+    assert fd.kernels_per_step(L, mode, True) == 7 * L
+    kv, blocked = cs.ring_inputs(cfg, 16, M, 40, "part", np.random.default_rng(13), dev, mode)
+    h_in = engine.params["embed"].float()[:16].contiguous()
+    stacked, w_scales = cs.weights(engine, mode)
+    wkr = cs.mode_wkr(mode, cs.wkr_table(engine))
+    kw = {} if mode in cs.MULTIROW_MODES else dict(weights_int8=True, w_scales=w_scales,
+                                                    **cs.SLAB_ARGS[mode])
+    step = lambda: cs.CORES[mode](stacked, cfg, h_in, wkr, *kv, blocked, 40, M, **kw)
+    assert 0 < cs.chain_kernels(mode, step, 7 * L, n=4) <= 4 * 7 * L
