@@ -20,11 +20,11 @@ non-zero without printing a result):
    slab_ar_w8 and slab_ar (B in {8, 64}, then 16), so every B a main path
    gives a kernel is among them, at the genre flagship's widths. Then the
    explicit modes, drawn from an rng of their own (MODE_CASE_BATCHES): the
-   slab step's slab_int8 (B in {1, 64}, and B = 64 at 32 rows a cell),
-   slab4 (ptr also M/2 - 1 and M/2, the two nibble sides of one packed row;
-   B in {1, 64}, and 64 at 16 and 32 rows a cell) and slab4_w8 (B in {1,
-   24, 64}: the old chain at B = 1, the tensor-core chain of
-   csrc/tc_decode.cuh at B >= 8), and ``fused_multirow_core`` /
+   slab step's slab_int8 (B in {1, 24, 64}, B = 64 at 32 rows a cell and
+   B = 24 at 24), slab4 (ptr also M/2 - 1 and M/2, the two nibble sides of
+   one packed row; B in {1, 24, 64}, and 64 at 16 and 32 rows a cell) and
+   slab4_w8 (B in {1, 24, 64}): the old chain at B = 1, the tensor-core
+   chain of csrc/tc_decode.cuh at B >= 8; and ``fused_multirow_core`` /
    ``fused_multirow_q_core`` (multirow; multirow_int8 as slab4_w8, B in {1,
    24, 64}) on head-major panels, by the same float64
    check (written slots in int8 or int4 steps, or for bf16 panels in units
@@ -46,8 +46,9 @@ non-zero without printing a result):
    the main paths' shapes, beside the bound from the bytes it must move and
    the operations it must do; slab_w8 and slab_ar_w8 at B in
    {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}, the five explicit
-   modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell; slab4_w8 and
-   multirow_int8 also at 8 and 16, each step on the tensor-core chain also
+   modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell; slab4_w8,
+   slab4, slab_int8 and multirow_int8 also at 8 and 16, each step on the
+   tensor-core chain also
    under ``torch.profiler``: its kernels a step by the wrapper's count and
    by the profiler, every one a chain kernel); the four
    s2s / nw variants at B = 1, M = 512, Le = 512, each also under
@@ -195,6 +196,7 @@ import base64
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -985,8 +987,10 @@ def slab_timing(engine, wkr_mt, rng, dev, name, B, flush, rows=None):
                 bound_by=bound_by)
 
 
-# the kernels of the tensor-core chain (csrc/tc_decode.cuh) of fd.TC_MODES
-TC_CHAIN_KERNELS = ("tc_product", "group_attention", "tc_layer_norm")
+# the kernels of the tensor-core chain (csrc/tc_decode.cuh) of fd.TC_MODES,
+# slab_int8's attention three of them
+TC_CHAIN_KERNELS = ("tc_product", "group_attention", "tc_layer_norm", "qkv_sum_i8",
+                    "group_scores_i8", "pv_i8")
 
 
 def chain_kernels(label, fn, per_step: int, n: int = 10) -> int:
@@ -1006,7 +1010,8 @@ def chain_kernels(label, fn, per_step: int, n: int = 10) -> int:
     kernels = {}
     for e in prof.key_averages():
         if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset")):
-            short = next((k for k in TC_CHAIN_KERNELS if k in e.key), e.key[:60])
+            short = next((k for k in TC_CHAIN_KERNELS if re.search(rf"\b{k}\b", e.key)),
+                         e.key[:60])
             kernels[short] = kernels.get(short, 0) + e.count
     recorded = sum(kernels.values())
     if recorded > n * per_step or not set(kernels) <= set(TC_CHAIN_KERNELS):
@@ -1045,7 +1050,8 @@ MODE_CASE_BATCHES = (("slab_int8", (1, 64), None), ("slab_int8", (64,), 32),
                      ("slab4", (1, 64), None), ("slab4", (64,), 16), ("slab4", (64,), 32),
                      ("slab4_w8", (1, 64), None), ("multirow", (1, 64), None),
                      ("multirow_int8", (1, 64), None), ("slab4_w8", (24,), None),
-                     ("multirow_int8", (24,), None))
+                     ("multirow_int8", (24,), None), ("slab4", (24,), None),
+                     ("slab_int8", (24,), None), ("slab_int8", (24,), 24))
 EXPLICIT_MODES = ("slab_int8", "slab4", "slab4_w8", "multirow", "multirow_int8")
 # the explicit modes' timed batch sizes: the tensor-core chain's modes
 # (fd.TC_MODES) on both sides of its B >= 8 rule
@@ -1058,7 +1064,7 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     at every B of the crossover between their weight products (the
     row-tiled GEMV of slab_w8, the all-rows GEMM of slab_ar_w8), and the
     bf16-weight steps at B = 16 and 64; the explicit modes at B = 1 and 64
-    (slab4 also at 16 and 32 rows a cell; slab4_w8 and multirow_int8 also at
+    (slab4 also at 16 and 32 rows a cell; the modes of fd.TC_MODES also at
     8 and 16, where their tensor-core chain starts); the launches made here do not
     count as the main paths'. Returns the timings of the JSON line: slab_w8
     at B = 1; slab_ar_w8 and the flash prefill at B = 16, W = 512 (the

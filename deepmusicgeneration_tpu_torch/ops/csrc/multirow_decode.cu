@@ -275,8 +275,8 @@ int multirow_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
   if (!tc_accepts<GroupPanelI8>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
   return tc_decode_step<bf16, GroupPanelI8, PanelI8>(
       qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
-      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr, scale, act,
-      PanelI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+      rows_per_cell, scale, act, PanelI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
 // The steps of fused_stack_decode (B = 1: the wrapper passes row 0 of its

@@ -87,11 +87,15 @@
 // attention block of that row reads in the same step. At B = 64, M = 512
 // the int4 K/V are 201.3 MB a step.
 //
-// At B >= 8, slab4_w8 runs the tensor-core chain of tc_decode.cuh
-// (slab4_w8_tc_step): the weight products on the tensor cores, each weight
-// tile read once a step for up to 64 rows, and an attention that reads a
-// head's relative table once per cluster of rows (GroupI4), 7 kernels a layer.
-// At B < 8 it keeps the chain above (slab4_w8_step).
+// At B >= 8, slab4_w8, slab4 and slab_int8 run the tensor-core chain of
+// tc_decode.cuh (slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step): the
+// weight products on the tensor cores, each weight tile read once a step for
+// up to 64 rows, and an attention that reads a head's relative table once
+// per cluster of rows: GroupI4's for the int4 ring (7 kernels a layer), and
+// for slab_int8 the int8-score attention of tc_decode.cuh (its query scale
+// reduced from per-(row, head) maxima over the cell, its P.V scale from the
+// row's per-head maxima; 9 kernels a layer). At B < 8 they keep the chain
+// above (<mode>_step).
 //
 // Order contract of every step: attention reads the OLD slot `ptr` of every
 // row (on a full ring that slot holds the oldest token, at distance exactly
@@ -358,15 +362,73 @@ int run_slab(bool allrows, bool int8_scores, DECODE_STEP_ARGS(WT, int8_t)) {
                          act, st, attend);
 }
 
+// Blocks a card holds at once of one launch of `kernel` with `threads`
+// threads, `smem` bytes and clusters of `cluster` blocks (for the wave
+// count: grid blocks over this).
+template <typename... KArgs>
+cudaError_t resident_blocks(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem,
+                            int cluster, int* out) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (cluster > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+    *out = clusters * cluster;
+    return err;
+  }
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = per_sm * sms;
+  return err;
+}
+
+template <int DH>
+int attention_occupancy_dh(int B, int H, int M, int int8_scores, int* out) {
+  const dim3 grouped(ceil_div(B, kGroupRows) * kGroupRows, H), rows(B, H);
+  cudaError_t err;
+  if (!int8_scores) {
+    out[0] = grouped.x * grouped.y;
+    err = resident_blocks(group_attention<DH, GroupI4>, grouped, kAttnThreads,
+                          group_attention_smem<GroupI4>(DH, M), kGroupRows, out + 1);
+    return err != cudaSuccess ? -(int)err : 1;
+  }
+  out[0] = out[4] = B * H;
+  out[2] = grouped.x * grouped.y;
+  err = resident_blocks(qkv_sum_i8<DH>, rows, kSumThreads, 0, 1, out + 1);
+  if (err == cudaSuccess)
+    err = resident_blocks(group_scores_i8<DH>, grouped, kScoreThreads, scores_i8_smem(DH, M),
+                          kGroupRows, out + 3);
+  if (err == cudaSuccess)
+    err = resident_blocks(pv_i8<DH>, rows, kPvThreads, pv_i8_smem(DH, M), 1, out + 5);
+  return err != cudaSuccess ? -(int)err : 3;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Float32 scratch elements a step of any mode needs for these sizes. flags
-// bit 0: the slab_int8 mode's extra buffers; bit 1: the tensor-core chain's
-// scratch (slab4_w8_tc_step).
+// bit 0: the int8-score modes' extra buffers; bit 1: the tensor-core chain's
+// scratch (the <mode>_tc_step functions; with bit 0, slab_int8_tc_step's).
 size_t slab_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M, int flags) {
-  if (flags & 2) return tc_scratch_floats(B, D, Dff, H * Dh);
+  if (flags & 2)
+    return tc_scratch_floats(B, D, Dff, H * Dh) + ((flags & 1) ? TcI8Scratch(B, H, M).total : 0);
   return step_scratch_floats(B, D, Dff, H * Dh) +
          ((flags & 1) ? int8_scratch_floats(B, H, Dh, M) : 0);
 }
@@ -374,11 +436,26 @@ size_t slab_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M, i
 // Kernel launches a step makes per call (for the launch accounting): the
 // chain of decode_step, or with tc the tensor-core chain.
 int slab_decode_kernels_per_step(int L, int int8_scores, int tc) {
-  if (tc) return L * kTcKernelsPerLayer;
+  if (tc) return L * (int8_scores ? kTcI8KernelsPerLayer : kTcKernelsPerLayer);
   return L * (kChainKernelsPerLayer + (int8_scores ? 4 : 2));
 }
 
 const char* slab_decode_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// The tensor-core chain's attention kernels of slab4 / slab4_w8
+// (group_attention<GroupI4>) or, int8_scores, of slab_int8 (qkv_sum_i8,
+// group_scores_i8, pv_i8) at these sizes: out[2 k] = blocks of kernel k's
+// launch, out[2 k + 1] = blocks the card holds at once (the occupancy API,
+// clusters counted whole). Returns the number of kernels, or -(CUDA error).
+int slab_decode_attention_occupancy(int B, int H, int Dh, int M, int int8_scores, int* out) {
+  switch (Dh) {
+    case 16: return attention_occupancy_dh<16>(B, H, M, int8_scores, out);
+    case 32: return attention_occupancy_dh<32>(B, H, M, int8_scores, out);
+    case 64: return attention_occupancy_dh<64>(B, H, M, int8_scores, out);
+    case 128: return attention_occupancy_dh<128>(B, H, M, int8_scores, out);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
 
 // One token step for all B rows through all L layers (DECODE_STEP_ARGS in
 // slab_common.cuh): qkv_w (L,D,3HD) out_w (L,HD,D) ff1_w (L,D,Dff) ff2_w
@@ -437,15 +514,34 @@ int slab4_w8_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
   return run_slab<SlotI4, int8_t>(false, false, PASS_INT8_WEIGHTS);
 }
 
-// slab4_w8 on the tensor-core chain (tc_decode.cuh), for B >= 8: the same
-// arguments; scratch of slab_decode_scratch_floats(..., flags = 2) floats.
-// Returns cudaErrorInvalidValue for sizes tc_accepts refuses.
+// slab4_w8, slab4 and slab_int8 on the tensor-core chain (tc_decode.cuh),
+// for B >= 8: the same arguments; scratch of slab_decode_scratch_floats(...,
+// flags = 2; slab_int8: 3) floats. Each returns cudaErrorInvalidValue for
+// sizes tc_accepts refuses (slab_int8 also where rows_per_cell does not
+// divide B).
 int slab4_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
   if (!tc_accepts<GroupI4>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
   return tc_decode_step<int8_t, GroupI4, SlotI4>(
       qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
-      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr, scale,
-      act, SlotI4::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,
+      rows_per_cell, scale, act, SlotI4::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+}
+
+int slab4_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
+  if (!tc_accepts<GroupI4>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  return tc_decode_step<bf16, GroupI4, SlotI4>(
+      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+      rows_per_cell, scale, act, SlotI4::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+}
+
+int slab_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
+  if (!tc_accepts<ScoresI8>(B, D, Dff, Dh, M) || rows_per_cell < 1 || B % rows_per_cell)
+    return cudaErrorInvalidValue;
+  return tc_decode_step<bf16, ScoresI8, SlotI8>(
+      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+      rows_per_cell, scale, act, SlotI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
 }  // extern "C"

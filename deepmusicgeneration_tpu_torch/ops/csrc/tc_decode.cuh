@@ -1,5 +1,6 @@
-// The tensor-core decode chain of the slab4_w8 and multirow_int8 steps at
-// B >= kTcMinRows (slab_decode.cu's slab4_w8_tc_step, multirow_decode.cu's
+// The tensor-core decode chain of the slab4_w8, slab4, slab_int8 and
+// multirow_int8 steps at B >= kTcMinRows (slab_decode.cu's slab4_w8_tc_step,
+// slab4_tc_step and slab_int8_tc_step, multirow_decode.cu's
 // multirow_int8_tc_step). It computes the function of decode_step in
 // slab_common.cuh (the same bf16 cast points, int8 panels dequantized by
 // their column scales and rounded to bf16, bf16 panels as they are, float32
@@ -12,6 +13,10 @@
 //   one) -> tc_product (ff1, its K chunks a cluster that sums them in shared
 //   memory, adds the bias and applies the activation, bf16) -> tc_product
 //   (ff2, partials) -> tc_layer_norm (h and bf16(h))
+//
+// slab_int8 (q.K and P.V as int8 x int8 products) takes 9: its attention is
+// three kernels (qkv_sum_i8, group_scores_i8, pv_i8; see "Int8-score
+// attention" below), because its scales span heads and rows.
 //
 // Every launch allows programmatic dependent launch: a kernel's blocks may
 // be scheduled while its predecessor finishes, and wait (griddepcontrol)
@@ -82,6 +87,7 @@ constexpr int kTcXPitch = kTcStageK + 8;     // bf16 stride of a staged x row
 constexpr int kTcXPitchF = kTcStageK + 4;    // f32 stride of a staged x row
 constexpr int kGroupRows = 4;          // batch rows a group_attention block takes
 constexpr int kTcKernelsPerLayer = 7;
+constexpr int kTcI8KernelsPerLayer = 9;  // slab_int8: the attention in three
 constexpr size_t kMaxSmem = 232448;    // the most dynamic shared memory a block may have
 constexpr int kTcMaxCluster = 8;       // the most blocks of a portable cluster
 constexpr int kTcPPitch = kTcCols + 4;  // f32 stride of a block's output tile
@@ -835,6 +841,32 @@ struct GroupPanelI8 {
   }
 };
 
+// Row b's slot K scales, V scales and mask (M each, M % 16 == 0) into dst
+// (3 M floats, 16-byte aligned) by cp.async, 16 bytes a copy, committed.
+__device__ __forceinline__ void stage_slot_meta(const float* ks, const float* vs,
+                                                const int32_t* blocked, int b, int M,
+                                                float* dst) {
+  for (int i = threadIdx.x; i < 3 * M / 4; i += blockDim.x) {
+    const int a = i / (M / 4), j = 4 * (i % (M / 4));
+    const void* src = a == 0 ? (const void*)(ks + (size_t)b * M + j)
+                    : a == 1 ? (const void*)(vs + (size_t)b * M + j)
+                             : (const void*)(blocked + (size_t)b * M + j);
+    tc_cp16(dst + a * M + j, src);
+  }
+  tc_commit();
+}
+
+// The self term's score, by the first warp: (q + u) . k1 a lane's d strided
+// by 32, then the warp's sum; lane 0 writes (t + sd_self) * scale to *out.
+template <int DH>
+__device__ __forceinline__ void self_score(const float* qu, const float* k1, float sd_self,
+                                           float scale, float* out) {
+  float t = 0.f;
+  for (int d = threadIdx.x; d < DH; d += 32) t = fmaf(qu[d], k1[d], t);
+  t = warp_sum(t);
+  if (threadIdx.x == 0) *out = (t + sd_self) * scale;
+}
+
 // sd[m] of cluster row q: the G blocks' shares (part[q][m] of each, part of
 // G rows of M + 1) summed in block order
 template <typename Cluster>
@@ -923,16 +955,7 @@ group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
   // written by its slot write in the previous step): their copies start
   // before the grid sync
   F::template stage<DH>(wkr, h, M, q, wk);
-  if (live) {  // this row's slot scales and mask, 16 bytes a copy (M % 16 == 0)
-    for (int i = tid; i < 3 * M / 4; i += kAttnThreads) {
-      const int a = i / (M / 4), j = 4 * (i % (M / 4));
-      const void* src = a == 0 ? (const void*)(ks + (size_t)b * M + j)
-                      : a == 1 ? (const void*)(vs + (size_t)b * M + j)
-                               : (const void*)(blocked + (size_t)b * M + j);
-      tc_cp16(ksr + a * M + j, src);
-    }
-    tc_commit();
-  }
+  if (live) stage_slot_meta(ks, vs, blocked, b, M, ksr);
   tc_grid_sync();
   // q + v of the cluster's rows; q + u, k1, v1 of this one: the KB partials
   // of every item a thread takes summed in chunk order, four chunks' loads
@@ -998,12 +1021,7 @@ group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
       const int src = (m - ptr < 0) ? m - ptr + M : m - ptr;  // roll by ptr
       sc[m] = blk[m] ? -1e9f : (sc[m] * ksr[m] + sd[src]) * scale;
     }
-    if (tid < 32) {  // the self term: a lane's d strided by 32, then the warp's sum
-      float t = 0.f;
-      for (int d = tid; d < DH; d += 32) t = fmaf(qu[d], k1[d], t);
-      t = warp_sum(t);
-      if (tid == 0) sc[M] = (t + sd[M]) * scale;
-    }
+    if (tid < 32) self_score<DH>(qu, k1, sd[M], scale, sc + M);
     __syncthreads();
     float mx = -INFINITY;
     for (int m = tid; m <= M; m += kAttnThreads) mx = fmaxf(mx, sc[m]);
@@ -1073,15 +1091,361 @@ cudaError_t tc_attention(int Dh, const float* qkv_part, int KB, int B, int H, in
 #undef TC_ATTENTION_ARGS
 }
 
+// ---------------------------------------------------------------------------
+// Int8-score attention (slab_int8 on the chain)
+// ---------------------------------------------------------------------------
+//
+// score_mode="int8" takes q.K and P.V as int8 x int8 products summed in
+// int32 (slab_decode.cu's slab_int8_step states the function): q is
+// quantized with one scale per cell of R rows over every head, and the P.V
+// weights e * v_scale with one scale per row over every head. No (row,
+// head) block can form either scale alone, so the attention is three
+// kernels, each a block a (row, head):
+//   qkv_sum_i8: sums the qkv partials of its row's head columns (q, k, v)
+//     in chunk order into qkv (the LN1 slot write and the next two kernels
+//     read it), and writes hmax[b][h] = max |bf16(bf16(q) + u)| over the
+//     head;
+//   group_scores_i8, clusters of kGroupRows rows of a head as
+//     group_attention's: the cell's query scale qs = max(max of hmax over
+//     the cell's R rows and H heads, 1e-6) / 127 (a max, so every block of
+//     the cell forms the same bits), q_i = int8(qu / qs); the relative
+//     scores shared by the cluster (GroupI4::rel_part: the slot-major table
+//     leaves L2 once per cluster); q_i . K[m] in int32 by __dp4a from
+//     16-byte K loads; the softmax in ring order; writes ev[b][h][m] = e[m]
+//     * vs[m] and stats[b][h] = (max_m ev, denominator, e_self);
+//   pv_i8: es = max(max over the row's H heads of max ev, 1e-9) / 127, e_i
+//     = clip(rint(ev / es), 0, 127) and attn_b = bf16((int32 sum_m e_i[m]
+//     V[m] * es + e_self v1) / den), 4 slots x 16 columns a thread by __dp4a.
+// The int32 sums are exact, so only the two quantizations can differ from
+// the plain version (where a value lies within float32 noise of a
+// half-point). No reduction crosses cells: a row's result depends on its
+// cell alone.
+
+struct ScoresI8 {};  // tc_decode_step's attention format for slab_int8
+
+constexpr int kSumThreads = 128;  // threads of a qkv_sum_i8 block
+constexpr int kScoreThreads = 256;  // threads of a group_scores_i8 block
+constexpr int kScoreBlocksPerSM = 6;  // 40 registers a thread
+constexpr int kPvThreads = 128;   // threads of a pv_i8 block
+
+// The int8-score attention's scratch after the chain's (TcScratch), in
+// float32 units, each run a multiple of 16 bytes: ev (B x H x M), stats
+// (B x H x 3), hmax (B x H).
+struct TcI8Scratch {
+  size_t ev, stats, hmax, total;
+  TcI8Scratch(int B, int H, int M) {
+    auto r4 = [](size_t n) { return (n + 3) / 4 * 4; };
+    ev = 0;
+    stats = ev + r4((size_t)B * H * M);
+    hmax = stats + r4((size_t)B * H * 3);
+    total = hmax + r4((size_t)B * H);
+  }
+};
+
+// qkv[b] columns of head h = blockIdx.y (q, k and v) for row b = blockIdx.x:
+// the KB partials summed in chunk order; hmax[b][h] = the largest |bf16(
+// bf16(q) + u)| of the head.
+template <int DH>
+__global__ void __launch_bounds__(kSumThreads)
+qkv_sum_i8(const float* __restrict__ qkv_part, int KB, int B, int H,
+           const tc_bf16* __restrict__ u, float* __restrict__ qkv, float* __restrict__ hmax) {
+  __shared__ float red[32];
+  tc_grid_sync();
+  const int b = blockIdx.x, h = blockIdx.y, HD = H * DH;
+  const size_t pstride = (size_t)B * 3 * HD;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < 3 * DH; i += kSumThreads) {
+    const int part = i / DH, d = i % DH;
+    const size_t at = (size_t)b * 3 * HD + (size_t)part * HD + h * DH + d;
+    const float t = tc_sum_chunks(qkv_part + at, KB, pstride);
+    qkv[at] = t;
+    if (part == 0)
+      mx = fmaxf(mx, fabsf(bf16_round(bf16_round(t) + __bfloat162float(u[h * DH + d]))));
+  }
+  mx = block_max(mx, red);
+  if (threadIdx.x == 0) hmax[(size_t)b * H + h] = mx;
+}
+
+// Shared memory of a group_scores_i8 block, in floats: the cluster's rows'
+// q + v (G x DH), this row's q + u and k1 (DH each), its slots' K scales, V
+// scales and mask (M each), sd and the scores (M + 1 each), the block
+// reductions' 32, q_i (DH / 4 words), the cluster's relative-score shares
+// (G x (M + 1)).
+__host__ __device__ inline size_t scores_i8_floats(int Dh, int M) {
+  return (size_t)kGroupRows * Dh + 2 * Dh + 3 * M + 2 * (M + 1) + 32 + Dh / 4 +
+         (size_t)kGroupRows * (M + 1);
+}
+
+inline size_t scores_i8_smem(int Dh, int M) { return scores_i8_floats(Dh, M) * sizeof(float); }
+
+// Scores and softmax numerators of row b = blockIdx.x, head h = blockIdx.y
+// (kGroupRows consecutive rows of a head one cluster, as group_attention's;
+// rows past B form their share of the relative scores and nothing else):
+// score = (int32 dot(K_int8[m], q_i) * (ks[m] * qs) + roll((q + v) . wkr,
+// ptr)[m]) * scale, masked by blocked; the self term from the fresh k1 and
+// the float q + u; the denominator in ring order, oldest first. Writes
+// ev[b][h][m] = e[m] * vs[m] and stats[b][h] = (max_m ev, den, e_self).
+template <int DH>
+__global__ void __launch_bounds__(kScoreThreads, kScoreBlocksPerSM)
+group_scores_i8(const float* __restrict__ qkv, const float* __restrict__ hmax, int B, int H,
+                int M, int R, const tc_bf16* __restrict__ u, const tc_bf16* __restrict__ vb,
+                const tc_bf16* __restrict__ wkr, const int8_t* __restrict__ kt,
+                const float* __restrict__ ks, const float* __restrict__ vs,
+                const int32_t* __restrict__ blocked, int ptr, float scale,
+                float* __restrict__ ev, float* __restrict__ stats) {
+  constexpr int G = kGroupRows;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float gs_sm[];
+  float* qv = gs_sm;               // G x DH: bf16(bf16(q) + v) of the cluster's rows
+  float* qu = qv + G * DH;         // DH: bf16(bf16(q) + u) of this row
+  float* k1 = qu + DH;             // DH: the fresh k1
+  float* ksr = k1 + DH;            // M: this row's K scales
+  float* vsr = ksr + M;            // M: its V scales
+  int* blk = reinterpret_cast<int*>(vsr + M);  // M: its mask
+  float* sd = vsr + 2 * M;         // M + 1: distance-space relative scores
+  float* sc = sd + M + 1;          // M + 1: scores, then numerators (slot M: e_self)
+  float* red = sc + M + 1;         // 32
+  int* qw = reinterpret_cast<int*>(red + 32);  // DH / 4: q_i, four int8 a word
+  float* part = red + 32 + DH / 4;             // the cluster's relative-score share
+  const int b = blockIdx.x, h = blockIdx.y, q = b % G, b0 = b - q;
+  const int HD = H * DH, tid = threadIdx.x;
+  const bool live = b < B;
+  if (live) stage_slot_meta(ks, vs, blocked, b, M, ksr);  // no output of the previous kernel
+  tc_grid_sync();
+  for (int i = tid; i < G * DH; i += kScoreThreads) {
+    const int r = i / DH, d = i % DH, row = b0 + r;
+    float x = 0.f;
+    if (row < B) {
+      const float qb = bf16_round(qkv[(size_t)row * 3 * HD + h * DH + d]);
+      x = bf16_round(qb + __bfloat162float(vb[h * DH + d]));
+      if (row == b) qu[d] = bf16_round(qb + __bfloat162float(u[h * DH + d]));
+    }
+    qv[i] = x;
+  }
+  if (live)
+    for (int d = tid; d < DH; d += kScoreThreads) k1[d] = qkv[(size_t)b * 3 * HD + HD + h * DH + d];
+  // the cell's query scale: the largest head maximum of its R rows
+  float mx = 0.f;
+  if (live) {
+    const float* hm = hmax + (size_t)(b - b % R) * H;
+    for (int i = tid; i < R * H; i += kScoreThreads) mx = fmaxf(mx, hm[i]);
+  }
+  const float qs = fmaxf(block_max(mx, red), 1e-6f) * (float)(1.0 / 127.0);  // its barriers publish qu
+  if (live)
+    for (int w = tid; w < DH / 4; w += kScoreThreads) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        word |= ((uint32_t)(int)quantize(qu[4 * w + k], qs, 127.f) & 0xFFu) << (8 * k);
+      qw[w] = (int)word;
+    }
+  tc_wait<0>();
+  __syncthreads();
+  GroupI4::rel_part<DH>(wkr, nullptr, h, M, HD, q, qv, part);
+  // q_i . K[m] in int32, every slot of this row: a slot row (DH bytes of
+  // 16-byte loads, at most 4 in flight: 40 registers) a thread
+  if (live) {
+    const int8_t* base = kt + (size_t)b * M * HD + h * DH;
+    constexpr int NC = DH / 16 < 4 ? DH / 16 : 4;
+    for (int m = tid; m < M; m += kScoreThreads) {
+      const int4* kr = reinterpret_cast<const int4*>(base + (size_t)m * HD);
+      int acc = 0;
+#pragma unroll
+      for (int c0 = 0; c0 < DH / 16; c0 += NC) {
+        int4 k16[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) k16[c] = kr[c0 + c];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int* w = qw + 4 * (c0 + c);
+          acc = __dp4a(k16[c].x, w[0], acc);
+          acc = __dp4a(k16[c].y, w[1], acc);
+          acc = __dp4a(k16[c].z, w[2], acc);
+          acc = __dp4a(k16[c].w, w[3], acc);
+        }
+      }
+      sc[m] = (float)acc;  // exact: |acc| <= 127^2 DH < 2^24
+    }
+  }
+  cluster.sync();  // every share is written
+  gather_shares(cluster, part, M, q, sd);
+  __syncthreads();
+  if (live) {
+    for (int m = tid; m < M; m += kScoreThreads) {
+      const int src = (m - ptr < 0) ? m - ptr + M : m - ptr;  // roll by ptr
+      sc[m] = blk[m] ? -1e9f : (sc[m] * (ksr[m] * qs) + sd[src]) * scale;
+    }
+    if (tid < 32) self_score<DH>(qu, k1, sd[M], scale, sc + M);
+    __syncthreads();
+    float smax = -INFINITY;
+    for (int m = tid; m <= M; m += kScoreThreads) smax = fmaxf(smax, sc[m]);
+    smax = block_max(smax, red);
+    float den = 0.f;  // in ring order, oldest first, the self term last
+    for (int i = tid; i <= M; i += kScoreThreads) {
+      const int m = i < M ? ring_slot(i, ptr, M) : M;
+      const float e = expf(sc[m] - smax);
+      sc[m] = e;
+      den += e;
+    }
+    den = block_sum(den, red);  // its barriers also publish sc
+    float* out = ev + ((size_t)b * H + h) * M;
+    float emax = 0.f;
+    for (int m = tid; m < M; m += kScoreThreads) {
+      const float x = sc[m] * vsr[m];
+      out[m] = x;
+      emax = fmaxf(emax, x);
+    }
+    emax = block_max(emax, red);
+    if (tid == 0) {
+      float* st = stats + ((size_t)b * H + h) * 3;
+      st[0] = emax;
+      st[1] = den;
+      st[2] = sc[M];
+    }
+  }
+  cluster.sync();  // no block leaves while the others read its share
+}
+
+// word j (0..3) of a 16-byte load
+__device__ __forceinline__ unsigned tc_word(const int4& v, int j) {
+  return (unsigned)(j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w);
+}
+
+// Shared memory of a pv_i8 block: the slot groups' int32 sums (S x DH) and
+// the row's quantized weights (M bytes).
+inline size_t pv_i8_smem(int Dh, int M) {
+  return (size_t)kPvThreads / (Dh / 16) * Dh * sizeof(int) + ((size_t)M + 15) / 16 * 16;
+}
+
+// P.V of row b = blockIdx.x, head h = blockIdx.y as an int8 x int8 product:
+// es = max(max over the row's H heads of max ev, 1e-9) / 127, e_i =
+// clip(rint(ev / es), 0, 127), attn_b = bf16((int32 sum_m e_i[m] V[m] * es +
+// e_self v1) / den). A thread owns 16 columns (one 16-byte load of a slot
+// row) of a group of 4 slots at a time: the 4 x 16 int8 block is transposed
+// by byte permutes so that each column's 4 slots form one word for __dp4a
+// with the 4 slots' e_i; the slot groups' int32 sums are added in shared
+// memory (exact, in any order).
+template <int DH>
+__global__ void __launch_bounds__(kPvThreads)
+pv_i8(const float* __restrict__ qkv, const float* __restrict__ ev,
+      const float* __restrict__ stats, int H, int M, const int8_t* __restrict__ vc,
+      tc_bf16* __restrict__ attn_b) {
+  constexpr int CH = DH / 16;         // 16-column chunks of a head
+  constexpr int S = kPvThreads / CH;  // slot groups
+  extern __shared__ __align__(16) int pv_sm[];
+  int* sums = pv_sm;                                         // S x DH
+  uint8_t* eq = reinterpret_cast<uint8_t*>(pv_sm + S * DH);  // M: e_i
+  __shared__ float es_s;
+  const int b = blockIdx.x, h = blockIdx.y, HD = H * DH, tid = threadIdx.x;
+  tc_grid_sync();
+  if (tid < 32) {
+    float mx = 0.f;
+    for (int g = tid; g < H; g += 32) mx = fmaxf(mx, stats[((size_t)b * H + g) * 3]);
+    mx = warp_max(mx);
+    if (tid == 0) es_s = fmaxf(mx, 1e-9f) * (float)(1.0 / 127.0);
+  }
+  __syncthreads();
+  const float es = es_s;
+  const float* e = ev + ((size_t)b * H + h) * M;
+  for (int m = tid; m < M; m += kPvThreads)
+    eq[m] = (uint8_t)(int)fminf(fmaxf(rintf(e[m] / es), 0.f), 127.f);
+  __syncthreads();
+  const int c = tid % CH, s = tid / CH;
+  int acc[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc[j] = 0;
+  const int8_t* col = vc + (size_t)b * M * HD + h * DH + 16 * c;
+  constexpr int U = 2;  // slot groups in flight
+  for (int m0 = 4 * s; m0 < M; m0 += U * 4 * S) {
+    int4 r[U][4];
+#pragma unroll
+    for (int uu = 0; uu < U; ++uu)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        r[uu][k] = *reinterpret_cast<const int4*>(
+            col + (size_t)min(m0 + uu * 4 * S + k, M - 1) * HD);
+#pragma unroll
+    for (int uu = 0; uu < U; ++uu) {
+      const int mq = m0 + uu * 4 * S;
+      if (mq < M) {
+        const int ew = *reinterpret_cast<const int*>(eq + mq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // word j of each slot row: columns 4 j .. 4 j + 3 of slots mq .. mq + 3
+          const unsigned w0 = tc_word(r[uu][0], j), w1 = tc_word(r[uu][1], j);
+          const unsigned w2 = tc_word(r[uu][2], j), w3 = tc_word(r[uu][3], j);
+          const unsigned lo01 = __byte_perm(w0, w1, 0x5140), lo23 = __byte_perm(w2, w3, 0x5140);
+          const unsigned hi01 = __byte_perm(w0, w1, 0x7362), hi23 = __byte_perm(w2, w3, 0x7362);
+          acc[4 * j] = __dp4a((int)__byte_perm(lo01, lo23, 0x5410), ew, acc[4 * j]);
+          acc[4 * j + 1] = __dp4a((int)__byte_perm(lo01, lo23, 0x7632), ew, acc[4 * j + 1]);
+          acc[4 * j + 2] = __dp4a((int)__byte_perm(hi01, hi23, 0x5410), ew, acc[4 * j + 2]);
+          acc[4 * j + 3] = __dp4a((int)__byte_perm(hi01, hi23, 0x7632), ew, acc[4 * j + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) sums[s * DH + 16 * c + j] = acc[j];
+  __syncthreads();
+  for (int d = tid; d < DH; d += kPvThreads) {
+    int t = 0;
+    for (int g = 0; g < S; ++g) t += sums[g * DH + d];
+    const float* st = stats + ((size_t)b * H + h) * 3;
+    const float v1 = qkv[(size_t)b * 3 * HD + 2 * HD + h * DH + d];
+    attn_b[(size_t)b * HD + h * DH + d] = __float2bfloat16_rn(((float)t * es + st[2] * v1) / st[1]);
+  }
+}
+
+// The three kernels of the int8-score attention of one layer; extra holds
+// TcI8Scratch(B, H, M).
+template <int DH>
+cudaError_t tc_attention_i8_dh(const float* qkv_part, int KB, int B, int H, int M, int R,
+                               const tc_bf16* u, const tc_bf16* v, const tc_bf16* wkr,
+                               const int8_t* kt, const float* ks, const int8_t* vc,
+                               const float* vs, const int32_t* blocked, int ptr, float scale,
+                               float* qkv, float* extra, tc_bf16* attn_b, cudaStream_t st) {
+  const TcI8Scratch at(B, H, M);
+  float* ev = extra + at.ev;
+  float* stats = extra + at.stats;
+  float* hmax = extra + at.hmax;
+  cudaError_t err = tc_launch(qkv_sum_i8<DH>, dim3(B, H), kSumThreads, 0, 1, 1, st, qkv_part,
+                              KB, B, H, u, qkv, hmax);
+  if (err != cudaSuccess) return err;
+  err = tc_launch(group_scores_i8<DH>, dim3(ceil_div(B, kGroupRows) * kGroupRows, H),
+                  kScoreThreads, scores_i8_smem(DH, M), kGroupRows, 1, st, (const float*)qkv,
+                  (const float*)hmax, B, H, M, R, u, v, wkr, kt, ks, vs, blocked, ptr, scale, ev,
+                  stats);
+  if (err != cudaSuccess) return err;
+  return tc_launch(pv_i8<DH>, dim3(B, H), kPvThreads, pv_i8_smem(DH, M), 1, 1, st,
+                   (const float*)qkv, (const float*)ev, (const float*)stats, H, M, vc, attn_b);
+}
+
+template <typename... Args>
+cudaError_t tc_attention_i8(int Dh, Args... args) {
+  switch (Dh) {
+    case 16: return tc_attention_i8_dh<16>(args...);
+    case 32: return tc_attention_i8_dh<32>(args...);
+    case 64: return tc_attention_i8_dh<64>(args...);
+    case 128: return tc_attention_i8_dh<128>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Whether the chain takes these widths: B >= kTcMinRows, D and Dff multiples
 // of 16 (whole 16-byte copies of every operand row), M a multiple of 16 (the
 // K panel's 16-slot loads; the int4 ring's M is one of 64), and the
-// attention's shared memory within a block's.
+// attention's shared memory within a block's (F: a grouped format, or
+// ScoresI8 for the int8-score attention's two kernels).
 template <typename F>
 inline bool tc_accepts(int B, int D, int Dff, int Dh, int M) {
-  return B >= kTcMinRows && D % 16 == 0 && Dff % 16 == 0 && M % 16 == 0 &&
-         (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128) &&
-         group_attention_smem<F>(Dh, M) <= kMaxSmem;
+  if (!(B >= kTcMinRows && D % 16 == 0 && Dff % 16 == 0 && M % 16 == 0 &&
+        (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128)))
+    return false;
+  if constexpr (std::is_same<F, ScoresI8>::value)
+    return scores_i8_smem(Dh, M) <= kMaxSmem && pv_i8_smem(Dh, M) <= kMaxSmem;
+  else
+    return group_attention_smem<F>(Dh, M) <= kMaxSmem;
 }
 
 // tc_decode_step's scratch, in float32 units, each run a multiple of 16
@@ -1114,10 +1478,11 @@ inline size_t tc_scratch_floats(int B, int D, int Dff, int HD) {
 // One token step for all B rows through all L layers on the tensor-core
 // chain: decode_step's arguments and the caches (layer l's K / V at kt, vc
 // + l * kv_layer, scales at ks, vs + l * B * M, relative table at wkr + l *
-// (M + 1) * HD), read by the grouped attention of format GF and written
-// (slot ptr) in the format F. Layer 0 reads h_in as it is (its qkv operand
-// is rounded as the fragments are formed); h_out holds h after every layer.
-// Returns the first CUDA error.
+// (M + 1) * HD), read by the grouped attention of format GF (or, GF =
+// ScoresI8, the int8-score attention at R rows a cell, its scratch after
+// TcScratch's) and written (slot ptr) in the format F. Layer 0 reads h_in as
+// it is (its qkv operand is rounded as the fragments are formed); h_out
+// holds h after every layer. Returns the first CUDA error.
 template <typename WT, typename GF, typename F>
 int tc_decode_step(const WT* qkv_w, const WT* out_w, const WT* ff1_w, const WT* ff2_w,
                    const float* w_scales, const tc_bf16* ff1_b, const tc_bf16* ff2_b,
@@ -1125,7 +1490,7 @@ int tc_decode_step(const WT* qkv_w, const WT* out_w, const WT* ff1_w, const WT* 
                    const float* ln2_b, const tc_bf16* wkr, const tc_bf16* u, const tc_bf16* v,
                    int8_t* kt, float* ks, int8_t* vc, float* vs, const float* h_in,
                    const int32_t* blocked, float* h_out, float* scratch, int L, int B, int D,
-                   int Dff, int H, int Dh, int M, int smax, int ptr, float scale, int act,
+                   int Dff, int H, int Dh, int M, int smax, int ptr, int R, float scale, int act,
                    size_t kv_layer, cudaStream_t st) {
   const int HD = H * Dh;
   const TcScratch at(B, D, Dff, HD);
@@ -1148,6 +1513,7 @@ int tc_decode_step(const WT* qkv_w, const WT* out_w, const WT* ff1_w, const WT* 
     int8_t* vl = vc + l * kv_layer;
     float* ksl = ks + (size_t)l * B * M;
     float* vsl = vs + (size_t)l * B * M;
+    const tc_bf16* wl = wkr + (size_t)l * (M + 1) * HD;
     const float* resid = l == 0 ? h_in : h_out;
     err = l == 0 ? tc_gemm<WT, float, kTcPartials>(h_in, B, D, 3 * HD, qkv_w, sc(0), qkv_part,
                                                    nullptr, kNone, nullptr, st)
@@ -1156,10 +1522,15 @@ int tc_decode_step(const WT* qkv_w, const WT* out_w, const WT* ff1_w, const WT* 
                                                      qkv_part, nullptr, kNone, nullptr, st);
     if (err != cudaSuccess) return err;
     // attention over the old cache + self; it also sums the qkv partials into qkv
-    if ((err = tc_attention<GF>(Dh, qkv_part, kbq, B, H, M, u, v,
-                                wkr + (size_t)l * (M + 1) * HD, kl, ksl, vl, vsl, blocked, ptr,
-                                scale, qkv, attn_b, st)))
-      return err;
+    if constexpr (std::is_same<GF, ScoresI8>::value)
+      err = tc_attention_i8(Dh, (const float*)qkv_part, kbq, B, H, M, R, u, v, wl,
+                            (const int8_t*)kl, (const float*)ksl, (const int8_t*)vl,
+                            (const float*)vsl, blocked, ptr, scale, qkv, scratch + at.total,
+                            attn_b, st);
+    else
+      err = tc_attention<GF>(Dh, qkv_part, kbq, B, H, M, u, v, wl, kl, ksl, vl, vsl, blocked,
+                             ptr, scale, qkv, attn_b, st);
+    if (err != cudaSuccess) return err;
     if ((err = tc_gemm<WT, tc_bf16, kTcPartials>(attn_b, B, HD, D, out_w + (size_t)l * HD * D,
                                                  sc(1), part, nullptr, kNone, nullptr, st)))
       return err;

@@ -28,9 +28,10 @@ which no engine mode reaches.
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
-first use, bound with ctypes) or raises; ``slab4_w8`` and ``multirow_int8``
-take the tensor-core chain of ``csrc/tc_decode.cuh`` where :func:`tc_path`
-says so (B >= 8), the chain of the other modes below that; on a CPU tensor
+first use, bound with ctypes) or raises; ``slab4_w8``, ``slab4``,
+``slab_int8`` and ``multirow_int8`` take the tensor-core chain of
+``csrc/tc_decode.cuh`` where :func:`tc_path` says so (B >= 8), the chain of
+the other modes below that; on a CPU tensor
 it runs its plain version (:func:`slab_plain`, :func:`multirow_plain`,
 :func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
 PyTorch. Unlike the JAX functions, whose cache operands are donated and
@@ -418,7 +419,7 @@ INT8_SCORE_MODES = ("slab_int8", "slab_int8_w8")
 MULTIROW_MODES = ("multirow", "multirow_int8")
 STACK_MODES = ("fused_stack", "fused_batched")
 # the modes with a tensor-core chain (csrc/tc_decode.cuh) at B >= TC_MIN_ROWS
-TC_MODES = ("slab4_w8", "multirow_int8")
+TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8")
 
 # csrc/tc_decode.cuh's plan, mirrored (tests/test_torch_tc_plan.py holds the
 # tiling, the partial order, the attention's row groups and the launch count)
@@ -430,9 +431,11 @@ TC_TARGET_BLOCKS = 132     # kTcTargetBlocks: the H100's SMs
 TC_MAX_CLUSTER = 8         # kTcMaxCluster: ff1's K chunks, one cluster
 GROUP_ROWS = 4             # kGroupRows: batch rows an attention block takes
 TC_KERNELS_PER_LAYER = 7   # kTcKernelsPerLayer
+TC_I8_KERNELS_PER_LAYER = 9  # kTcI8KernelsPerLayer: slab_int8's attention in three
 CHAIN_KERNELS_PER_LAYER = 8  # kChainKernelsPerLayer, besides the attention's
 MAX_SMEM = 232448          # kMaxSmem: a block's dynamic shared memory
 ATTN_THREADS = 256         # kAttnThreads
+PV_THREADS = 128           # kPvThreads: threads of slab_int8's P.V block
 
 
 def tc_k_chunk(K: int, N: int, max_chunks: int = None) -> int:
@@ -482,24 +485,86 @@ def tc_attention_smem(Dh: int, M: int, panel: bool) -> int:
     return floats * 4 + max(work, stage)
 
 
+def tc_scores_i8_smem(Dh: int, M: int) -> int:
+    """Bytes of shared memory of slab_int8's scores block
+    (``scores_i8_smem``): q + v of the cluster's rows, this row's q + u and
+    k1, its slot scales and mask, the relative and the full scores, 32
+    floats of reductions, q_i, the cluster's relative-score shares."""
+    G = GROUP_ROWS
+    return 4 * (G * Dh + 2 * Dh + 3 * M + 2 * (M + 1) + 32 + Dh // 4 + G * (M + 1))
+
+
+def tc_pv_i8_smem(Dh: int, M: int) -> int:
+    """Bytes of shared memory of slab_int8's P.V block (``pv_i8_smem``): the
+    slot groups' int32 sums and the row's quantized weights."""
+    return 4 * (PV_THREADS // (Dh // 16)) * Dh + -(-M // 16) * 16
+
+
 def tc_path(mode: str, cfg, B: int, mem_len: int) -> bool:
     """Whether ``mode``'s step runs the tensor-core chain on the card (the
     library's ``tc_accepts``, mirrored): one of TC_MODES, B >= TC_MIN_ROWS,
-    d_model, d_inner and mem_len multiples of 16, and the attention block's
+    d_model, d_inner and mem_len multiples of 16, and the attention blocks'
     shared memory within MAX_SMEM."""
-    return (mode in TC_MODES and B >= TC_MIN_ROWS and cfg.d_model % 16 == 0
+    if not (mode in TC_MODES and B >= TC_MIN_ROWS and cfg.d_model % 16 == 0
             and cfg.d_inner % 16 == 0 and mem_len % 16 == 0
-            and cfg.d_head in KERNEL_HEAD_DIMS
-            and tc_attention_smem(cfg.d_head, mem_len, mode == "multirow_int8") <= MAX_SMEM)
+            and cfg.d_head in KERNEL_HEAD_DIMS):
+        return False
+    Dh, M = cfg.d_head, mem_len
+    if mode in INT8_SCORE_MODES:
+        return max(tc_scores_i8_smem(Dh, M), tc_pv_i8_smem(Dh, M)) <= MAX_SMEM
+    return tc_attention_smem(Dh, M, mode == "multirow_int8") <= MAX_SMEM
 
 
 def planned_kernels_per_step(n_layers: int, mode: str, tc: bool) -> int:
     """:func:`kernels_per_step` mirrored: the tensor-core chain's 7 kernels
-    a layer, or the chain's 8 plus the attention's (2; 4 in the int8-score
-    modes)."""
+    a layer (9 in the int8-score modes: their attention is three), or the
+    chain's 8 plus the attention's (2; 4 in the int8-score modes)."""
+    int8 = mode in INT8_SCORE_MODES
     if tc:
-        return n_layers * TC_KERNELS_PER_LAYER
-    return n_layers * (CHAIN_KERNELS_PER_LAYER + (4 if mode in INT8_SCORE_MODES else 2))
+        return n_layers * (TC_I8_KERNELS_PER_LAYER if int8 else TC_KERNELS_PER_LAYER)
+    return n_layers * (CHAIN_KERNELS_PER_LAYER + (4 if int8 else 2))
+
+
+def tc_scratch_layout(B: int, D: int, Dff: int, H: int, Dh: int, M: int,
+                      int8_scores: bool = False) -> Dict[str, tuple]:
+    """The tensor-core chain's float32 scratch (``TcScratch``, then with
+    ``int8_scores`` slab_int8's ``TcI8Scratch``), mirrored: each buffer's
+    (offset, floats it needs) in float32 units, every offset a multiple of 4
+    (16 bytes), and ``total`` the floats the library's
+    ``slab_decode_scratch_floats`` asks for."""
+    HD = H * Dh
+    r4 = lambda n: -(-n // 4) * 4
+    kb = lambda K, N: -(-K // tc_k_chunk(K, N))
+    part = max(kb(HD, D), kb(Dff, D)) * D * B
+    runs = [("qkv_part", kb(D, 3 * HD) * B * 3 * HD), ("qkv", B * 3 * HD), ("h1", B * D),
+            ("part", part), ("attn_b", -(-B * HD // 2)), ("h1_b", -(-B * D // 2)),
+            ("h_b", -(-B * D // 2)), ("ffx_b", -(-B * Dff // 2))]
+    if int8_scores:
+        runs += [("ev", B * H * M), ("stats", B * H * 3), ("hmax", B * H)]
+    layout, at = {}, 0
+    for name, n in runs:
+        layout[name] = (at, n)
+        at += r4(n)
+    layout["total"] = (at, 0)
+    return layout
+
+
+def tc_score_cells(B: int, R: int):
+    """slab_int8's cells on the chain: rows [c, c + R) for c = 0, R, ...;
+    R divides B."""
+    return [list(range(c, c + R)) for c in range(0, B, R)]
+
+
+def tc_scale_sources(B: int, H: int, R: int):
+    """Which per-(row, head) maxima each (row, head) block of slab_int8's
+    chain reads for its scales, mirrored: ``query[(b, h)]``, those of
+    ``qkv_sum_i8`` (hmax) that set the query scale of the scores block, the
+    R x H of b's cell; ``pv[(b, h)]``, those of the scores kernel (stats)
+    that set the P.V block's weight scale, row b's H heads."""
+    query = {(b, h): [(c, g) for c in range(b - b % R, b - b % R + R) for g in range(H)]
+             for b in range(B) for h in range(H)}
+    pv = {(b, h): [(b, g) for g in range(H)] for b in range(B) for h in range(H)}
+    return query, pv
 
 
 @functools.lru_cache(maxsize=None)
@@ -507,7 +572,7 @@ def _lib(source: str) -> ctypes.CDLL:
     """Build and load ``csrc/<source>.cu``'s library (slab_decode or
     multirow_decode) and declare its functions: one ``<mode>_step`` per
     mode (multirow_decode: of MULTIROW_MODES and STACK_MODES), a
-    ``<mode>_tc_step`` for its mode of TC_MODES, and
+    ``<mode>_tc_step`` for each of its modes of TC_MODES, and
     ``<source>_scratch_floats``, ``<source>_kernels_per_step``,
     ``<source>_error_string``."""
     lib = _build.load(source)

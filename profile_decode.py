@@ -3,7 +3,7 @@
 continuous; or the multitask model's harmonize and next-word steps.
 
     python3 profile_decode.py [--steps 20] [--batches 16 64]
-    python3 profile_decode.py --modes slab4_w8 multirow_int8 --batches 64 [--steps 20]
+    python3 profile_decode.py --modes slab4 slab_int8 --batches 64 8 [--steps 20]
     python3 profile_decode.py --model multitask [--steps 64]
 
 Loads the 41M flagship checkpoint with the port and, each under
@@ -26,9 +26,12 @@ CUDA kernels by device time a step; then, beside it, the yardstick of its
 weight products: ``torch.matmul`` of the same bf16 operands (the int8
 panels dequantized by their column scales and rounded to bf16, as the
 kernels use them) by the same (B, K) rows, 4 a layer x 8 layers, its
-device time a step (never called by the port). It uses only functions that
-every tree of the port has, so the same script profiles a parent checkout
-(copy it there).
+device time a step (never called by the port). For slab4, slab4_w8 and
+slab_int8 on the tensor-core chain it also prints each attention kernel's
+blocks, the blocks the card holds at once and so its waves (the kernel
+library's ``slab_decode_attention_occupancy``, where the tree has it). It
+uses only functions that every tree of the port has otherwise, so the
+same script profiles a parent checkout (copy it there).
 
 ``--model multitask`` takes the 85M multitask flagship's shapes
 (``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
@@ -45,6 +48,7 @@ and the host's share of the step.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
 import sys
 import time
@@ -110,6 +114,25 @@ def device_ms(prof) -> dict:
             if e.self_device_time_total > 0}
 
 
+def attention_waves(mode, cfg, B: int, M: int):
+    """[(kernel, blocks of its launch, blocks the card holds at once)] of
+    the chain's attention kernels of ``mode`` at B, or None where the mode
+    does not run the chain's slab attention or the library has no such
+    query."""
+    if mode not in ("slab4", "slab4_w8", "slab_int8") or not fd.tc_path(mode, cfg, B, M):
+        return None
+    fn = getattr(fd._lib("slab_decode"), "slab_decode_attention_occupancy", None)
+    if fn is None:
+        return None
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 6)()
+    n = fn(B, cfg.n_heads, cfg.d_head, M, int(mode == "slab_int8"), out)
+    if n < 0:
+        raise RuntimeError(f"slab_decode_attention_occupancy: CUDA error {-n}")
+    names = ("qkv_sum_i8", "group_scores_i8", "pv_i8") if n == 3 else ("group_attention",)
+    return [(name, out[2 * k], out[2 * k + 1]) for k, name in enumerate(names)]
+
+
 def profile_modes(engine, modes, batches, steps: int, dev) -> None:
     """Device time by kernel of ``steps`` steps of each explicit mode at each
     B, then the torch.matmul yardstick of its weight products."""
@@ -155,6 +178,11 @@ def profile_modes(engine, modes, batches, steps: int, dev) -> None:
                   "kernel a step: " + "; ".join(
                       f"{v / steps:.4f} ms {k[:70]}"
                       for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])), flush=True)
+            waves = attention_waves(mode, cfg, B, M)
+            if waves:
+                print(f"{mode} B={B} attention waves: " + "; ".join(
+                    f"{name} {blocks} blocks, {held} held at once: {-(-blocks // held)} "
+                    f"wave(s) ({blocks / held:.2f})" for name, blocks, held in waves), flush=True)
             xs = {K: torch.randn(B, K, device=dev).to(torch.bfloat16) for K in {D, HD, Dff}}
 
             def products():

@@ -821,17 +821,18 @@ def test_stack_path_follows_the_exact_ring_step():
     assert cs.stack_path_phase(learner, items, 32) == {"fused_stack": 32, "fused_batched": 32}
 
 
-TC_MODES = ("slab4_w8", "multirow_int8")
+TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [8, 24, 64])
 @pytest.mark.parametrize("mode", TC_MODES)
 def test_tc_modes_against_float64(mode, B):
-    """slab4_w8 and multirow_int8 on their tensor-core chain (B >= 8,
-    csrc/tc_decode.cuh) at the demo checkpoint's widths: every case of
-    chip_smoke.py's kernel phase held to its float64 check (raises on a
-    disagreement), one launch counted a case."""
+    """slab4_w8, multirow_int8, slab4 and slab_int8 (min(B, 8) rows a
+    cell) on their tensor-core chain (B >= 8, csrc/tc_decode.cuh) at the
+    demo checkpoint's widths: every case of chip_smoke.py's kernel phase
+    held to its float64 check (raises on a disagreement), one launch counted
+    a case."""
     dev = _card()
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -851,7 +852,9 @@ def test_tc_step_bits_repeat_and_do_not_depend_on_the_batch(mode):
     """On the tensor-core chain two launches on the same B = 64 inputs give
     the same bits, and rows 8-15 of that step (h_out and the caches) equal
     a B = 8 step of those rows alone, bit for bit: the K chunks and every
-    sum order are fixed by the widths, never by B."""
+    sum order are fixed by the widths, never by B. slab_int8 runs 8 rows a
+    cell, so rows 8-15 are one cell in both steps: its scales come from that
+    cell alone."""
     dev = _card()
     import chip_smoke as cs
     engine = MusicLearner.load(DEMO).engine
@@ -876,22 +879,31 @@ def test_tc_step_bits_repeat_and_do_not_depend_on_the_batch(mode):
 @pytest.mark.parametrize("mode", TC_MODES)
 def test_tc_step_kernels(mode):
     """The kernel library counts 7 kernels a layer on the tensor-core chain
-    and 10 on the old one, as planned_kernels_per_step mirrors it; under
-    torch.profiler a chain step at B = 16 runs only the chain's kernels, at
-    most that many (chip_smoke.chain_kernels raises otherwise)."""
+    (9 for slab_int8) and 10 (12) on the old one, as planned_kernels_per_step
+    mirrors it, and asks for the scratch that fd.tc_scratch_layout mirrors;
+    under torch.profiler a chain step at B = 16 runs only the chain's
+    kernels, at most that many (chip_smoke.chain_kernels raises otherwise)."""
     dev = _card()
     import chip_smoke as cs
     engine = MusicLearner.load(DEMO).engine
     cfg, M = engine.cfg, engine.cfg.mem_len
-    L = cfg.n_layers
+    L, int8 = cfg.n_layers, mode in fd.INT8_SCORE_MODES
     for tc in (False, True):
         assert fd.kernels_per_step(L, mode, tc) == fd.planned_kernels_per_step(L, mode, tc)
-    assert fd.kernels_per_step(L, mode, True) == 7 * L
+    per_step = (9 if int8 else 7) * L
+    assert fd.kernels_per_step(L, mode, True) == per_step
+    source = fd._source(mode)
+    for B in (8, 16, 64):
+        want = fd.tc_scratch_layout(B, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head, M,
+                                    int8)["total"][0]
+        got = getattr(fd._lib(source), f"{source}_scratch_floats")(
+            B, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_head, M, int(int8) | 2)
+        assert got == want, (B, got, want)
     kv, blocked = cs.ring_inputs(cfg, 16, M, 40, "part", np.random.default_rng(13), dev, mode)
     h_in = engine.params["embed"].float()[:16].contiguous()
     stacked, w_scales = cs.weights(engine, mode)
     wkr = cs.mode_wkr(mode, cs.wkr_table(engine))
-    kw = {} if mode in cs.MULTIROW_MODES else dict(weights_int8=True, w_scales=w_scales,
-                                                    **cs.SLAB_ARGS[mode])
+    kw = {} if mode in cs.MULTIROW_MODES else dict(weights_int8=w_scales is not None,
+                                                    w_scales=w_scales, **cs.SLAB_ARGS[mode])
     step = lambda: cs.CORES[mode](stacked, cfg, h_in, wkr, *kv, blocked, 40, M, **kw)
-    assert 0 < cs.chain_kernels(mode, step, 7 * L, n=4) <= 4 * 7 * L
+    assert 0 < cs.chain_kernels(mode, step, per_step, n=4) <= 4 * per_step

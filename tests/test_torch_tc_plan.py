@@ -1,9 +1,10 @@
 """The plan of the tensor-core decode chain (``csrc/tc_decode.cuh``) of the
-slab4_w8 and multirow_int8 steps at B >= 8, mirrored in
+slab4_w8, slab4, slab_int8 and multirow_int8 steps at B >= 8, mirrored in
 ``ops/fused_decode.py`` and held here on the CPU: the products' tiling and
 partial order, the dequantized weight tile, the attention's row clusters,
-the shared memory rule and the launch count. The kernels themselves run on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+the shared memory rule, the launch count, the scratch layout, and
+slab_int8's cells and the sources of its two scales. The kernels themselves
+run on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import numpy as np
 import pytest
@@ -151,28 +152,187 @@ def test_attention_clusters_cover_each_row_and_head_once(B):
 
 
 def test_tc_path_rule():
-    """The chain serves slab4_w8 and multirow_int8 at B >= 8 at the
-    flagship's and small widths, never another mode or B < 8, and not
-    where the attention block's shared memory would pass a block's."""
+    """The chain serves slab4_w8, slab4, slab_int8 and multirow_int8 at
+    B >= 8 at the flagship's and small widths, never another mode (nor
+    slab_int8_w8) or B < 8, and not where an attention block's shared
+    memory would pass a block's."""
     for cfg in (FLAGSHIP, SMALL):
         for mode in fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES:
             for B in (1, 4, 7, 8, 24, 64):
-                want = mode in ("slab4_w8", "multirow_int8") and B >= 8
+                want = mode in ("slab4_w8", "slab4", "slab_int8", "multirow_int8") and B >= 8
                 assert fd.tc_path(mode, cfg, B, cfg.mem_len) == want, (mode, B)
     assert fd.tc_attention_smem(64, 512, True) <= fd.MAX_SMEM
     assert not fd.tc_path("multirow_int8", FLAGSHIP, 64, 8192)
     assert not fd.tc_path("slab4_w8", FLAGSHIP, 64, 520)     # mem_len % 16
+    assert not fd.tc_path("slab4", FLAGSHIP, 64, 520)
+    # slab_int8's scores block at Dh 64: 4 (9 M + 438) bytes, so M 6400
+    # passes and 6416 not; its P.V block is far smaller
+    assert fd.tc_scores_i8_smem(64, 512) == 4 * (4 * 64 + 128 + 1536 + 1026 + 32 + 16 + 2052)
+    assert fd.tc_pv_i8_smem(64, 6416) < fd.tc_scores_i8_smem(64, 6416)
+    assert fd.tc_path("slab_int8", FLAGSHIP, 64, 6400)
+    assert not fd.tc_path("slab_int8", FLAGSHIP, 64, 6416)
 
 
 @pytest.mark.parametrize("mode", fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES)
 def test_launch_count_mirror(mode):
     """Kernels a wrapper launch makes, as the kernel library counts them
     (``*_kernels_per_step``; compared on the card): 7 a layer on the
-    tensor-core chain, else the chain's 8 and the attention's 2 (4 in the
-    int8-score modes)."""
+    tensor-core chain (9 for slab_int8: its attention is three kernels),
+    else the chain's 8 and the attention's 2 (4 in the int8-score modes)."""
     L = FLAGSHIP.n_layers
     tc = fd.tc_path(mode, FLAGSHIP, 64, FLAGSHIP.mem_len)
-    want = 7 * L if tc else (12 * L if mode in fd.INT8_SCORE_MODES else 10 * L)
+    int8 = mode in fd.INT8_SCORE_MODES
+    want = (9 * L if int8 else 7 * L) if tc else (12 * L if int8 else 10 * L)
     assert fd.planned_kernels_per_step(L, mode, tc) == want
     assert fd.planned_kernels_per_step(L, mode, False) == (12 * L if mode in fd.INT8_SCORE_MODES
                                                            else 10 * L)
+
+
+@pytest.mark.parametrize("B,R", [(8, 8), (24, 8), (24, 24), (64, 8), (64, 32)])
+def test_score_cells_hold_each_row_once(B, R):
+    """slab_int8's cells on the chain are R consecutive rows each, and every
+    row lies in exactly one of them."""
+    cells = fd.tc_score_cells(B, R)
+    assert len(cells) == B // R and all(c == list(range(c[0], c[0] + R)) for c in cells)
+    assert sorted(b for c in cells for b in c) == list(range(B))
+
+
+def _plain_scales(qu, ev, R):
+    """The query scale per row and the P.V weight scale per row, as the plain
+    version (``_step_plain``) forms them from qu (B, H, Dh) and e * v_scale
+    (B, H, M)."""
+    B = qu.shape[0]
+    qmax = qu.abs().reshape(B // R, -1).amax(1)
+    qs = (torch.clamp_min(qmax, 1e-6) * (1.0 / 127.0)).repeat_interleave(R)
+    es = torch.clamp_min(ev.amax(dim=(1, 2)), 1e-9) * (1.0 / 127.0)
+    return qs, es
+
+
+@pytest.mark.parametrize("B,R", [(8, 8), (24, 8), (24, 24), (64, 32)])
+def test_query_scale_comes_from_its_cell_only(B, R):
+    """The scores block (b, h) forms its query scale from the head maxima of
+    qkv_sum_i8 over b's cell's R rows and all H heads, nothing else; the max
+    over those sources is the plain version's cell scale bit for bit, and
+    changing another cell's queries leaves it as it was."""
+    H, Dh = 12, 16
+    query, _ = fd.tc_scale_sources(B, H, R)
+    cell = {b: c for c in fd.tc_score_cells(B, R) for b in c}
+    for (b, h), src in query.items():
+        assert sorted(src) == sorted((r, g) for r in cell[b] for g in range(H))
+    rng = np.random.default_rng(B + R)
+    qu = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32)).bfloat16().float()
+    qu[0] = 0.0                          # an all-zero row; cell 0 keeps other rows
+    qs_plain, _ = _plain_scales(qu, torch.ones(B, H, 4), R)
+
+    def kernel_scales(qu):
+        hmax = qu.abs().amax(-1)         # qkv_sum_i8: one maximum a (row, head)
+        return {key: torch.clamp_min(torch.stack([hmax[r, g] for r, g in src]).max(), 1e-6)
+                * (1.0 / 127.0) for key, src in query.items()}
+    got = kernel_scales(qu)
+    for (b, h), qs in got.items():
+        assert qs.view(torch.int32) == qs_plain[b].view(torch.int32), (b, h)
+    other = qu.clone()
+    other[R:] *= 3.0                     # every cell but the first
+    again = kernel_scales(other)
+    assert all(torch.equal(again[(b, h)], got[(b, h)]) for b in range(R) for h in range(H))
+
+
+@pytest.mark.parametrize("B", [8, 24])
+def test_pv_scale_reads_every_head_of_its_row(B):
+    """The P.V block (b, h) forms its weight scale from the scores kernel's
+    maxima of row b's H heads; their max is the plain version's row scale
+    bit for bit, and a head's maximum moves the scale of every head of its
+    row and of no other row."""
+    H, M = 12, 32
+    _, pv = fd.tc_scale_sources(B, H, 8)
+    for (b, h), src in pv.items():
+        assert sorted(src) == [(b, g) for g in range(H)]
+    rng = np.random.default_rng(B)
+    ev = torch.from_numpy(rng.exponential(size=(B, H, M)).astype(np.float32))
+    ev[1] = 0.0                          # a row whose every weight is 0: the 1e-9 floor
+    _, es_plain = _plain_scales(torch.ones(B, H, 4), ev, 8)
+    emax = ev.amax(-1)                   # group_scores_i8's stats[b][h][0]
+
+    def kernel_scales(emax):
+        return {key: torch.clamp_min(torch.stack([emax[r, g] for r, g in src]).max(), 1e-9)
+                * (1.0 / 127.0) for key, src in pv.items()}
+    got = kernel_scales(emax)
+    for (b, h), es in got.items():
+        assert es.view(torch.int32) == es_plain[b].view(torch.int32), (b, h)
+    bumped = emax.clone()
+    bumped[2, 5] = 100.0
+    again = kernel_scales(bumped)
+    assert all(torch.equal(again[(b, h)], got[(b, h)]) != (b == 2)
+               for b in range(B) for h in range(H))
+
+
+@pytest.mark.parametrize("int8_scores", [False, True])
+@pytest.mark.parametrize("cfg", [FLAGSHIP, SMALL], ids=["flagship", "small"])
+def test_scratch_layout(cfg, int8_scores):
+    """The mirrored scratch (TcScratch, then slab_int8's TcI8Scratch): every
+    buffer starts on 16 bytes, after the end of the one before it; the
+    int8-score layout is the chain's with ev, stats and hmax after it; the
+    flagship's totals at B = 64, worked out by hand from the products'
+    K chunks (qkv 4, out 12, ff2 16)."""
+    L_, H, Dh, M = cfg.n_layers, cfg.n_heads, cfg.d_head, cfg.mem_len
+    for B in (8, 24, 64):
+        lay = fd.tc_scratch_layout(B, cfg.d_model, cfg.d_inner, H, Dh, M, int8_scores)
+        runs = [v for k, v in lay.items() if k != "total"]
+        assert all(off % 4 == 0 for off, _ in runs)
+        assert all(a[0] + a[1] <= b[0] for a, b in zip(runs, runs[1:]))
+        assert runs[-1][0] + runs[-1][1] <= lay["total"][0]
+        base = fd.tc_scratch_layout(B, cfg.d_model, cfg.d_inner, H, Dh, M)
+        if int8_scores:
+            assert lay["ev"][0] == base["total"][0]
+            assert (lay["ev"][1], lay["stats"][1], lay["hmax"][1]) == (B * H * M, B * H * 3, B * H)
+        else:
+            assert lay == base
+    if cfg is FLAGSHIP:
+        lay = fd.tc_scratch_layout(64, 512, 3072, 12, 64, 512, int8_scores)
+        chain = (4 * 64 * 2304 + 64 * 2304 + 64 * 512 + 16 * 512 * 64 + 64 * 768 // 2
+                 + 2 * 64 * 512 // 2 + 64 * 3072 // 2)
+        assert lay["total"][0] == chain + (64 * 12 * 512 + 64 * 12 * 3 + 64 * 12
+                                           if int8_scores else 0)
+
+
+def _slab_int8_inputs(cfg, B, seed):
+    """bf16 weights, an int8 ring with its scales, blocked and h_in of the
+    small config, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    L, D, Dff, HD, M = cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads * cfg.d_head, cfg.mem_len
+    t = lambda *s, std=0.1: torch.from_numpy(rng.normal(scale=std, size=s).astype(np.float32))
+    stacked = fd.StackedTXL(
+        qkv_w=t(L, D, 3 * HD).bfloat16(), out_w=t(L, HD, D).bfloat16(),
+        ff1_w=t(L, D, Dff).bfloat16(), ff1_b=t(L, 1, Dff).bfloat16(),
+        ff2_w=t(L, Dff, D).bfloat16(), ff2_b=t(L, 1, D).bfloat16(),
+        ln1_g=1 + t(L, 1, D), ln1_b=t(L, 1, D), ln2_g=1 + t(L, 1, D), ln2_b=t(L, 1, D),
+        u=t(1, HD).bfloat16(), v=t(1, HD).bfloat16())
+    wkr = t(L, M + 1, HD, std=0.3).bfloat16()
+    kv = list(fd.quantize_kv_slot_major(t(L, B, M, HD, std=0.5).bfloat16(),
+                                        t(L, B, M, HD, std=0.5).bfloat16()))
+    blocked = torch.from_numpy((rng.random((B, M)) < 0.2).astype(np.int32))
+    return stacked, wkr, kv, blocked, t(B, D, std=1.0)
+
+
+@pytest.mark.parametrize("B,R", [(16, 8), (24, 8), (12, 4)])
+def test_plain_slab_int8_cell_ignores_other_cells(B, R):
+    """A CPU run of the port's plain slab_int8 (what the wrapper runs on CPU
+    tensors) at two batch layouts that share cell 0 and differ in every
+    other cell: rows of cell 0 give the same bits (h_out and the written
+    slot), as the chain's rule asks: a row's result depends on its cell
+    alone."""
+    cfg = SMALL
+    stacked, wkr, kv, blocked, h_in = _slab_int8_inputs(cfg, B, 7)
+    _, _, kv2, blocked2, h_in2 = _slab_int8_inputs(cfg, B, 8)
+    mix = lambda a, b, axis: torch.cat([a.narrow(axis, 0, R), b.narrow(axis, R, B - R)], axis)
+    kv_b = [mix(a, b, 1) for a, b in zip(kv, kv2)]
+    blocked_b, h_in_b = mix(blocked, blocked2, 0), mix(h_in, h_in2, 0)
+    ptr = 5
+    run = lambda h, caches, blk: fd.fused_slab_core(
+        stacked, cfg, h, wkr, *[c.clone() for c in caches], blk, ptr, cfg.mem_len,
+        rows_per_cell=R, score_mode="int8")
+    a, b = run(h_in, kv, blocked), run(h_in_b, kv_b, blocked_b)
+    assert not torch.equal(a[0][R:], b[0][R:])
+    assert torch.equal(a[0][:R], b[0][:R])
+    for x, y in zip(a[1:], b[1:]):
+        assert torch.equal(x[:, :R], y[:, :R])
