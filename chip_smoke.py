@@ -25,10 +25,16 @@ non-zero without printing a result):
    one packed row; B in {1, 24, 64}, and 64 at 16 and 32 rows a cell) and
    slab4_w8 (B in {1, 24, 64}): the old chain at B = 1, the tensor-core
    chain of csrc/tc_decode.cuh at B >= 8; and ``fused_multirow_core`` /
-   ``fused_multirow_q_core`` (multirow; multirow_int8 as slab4_w8, B in {1,
-   24, 64}) on head-major panels, by the same float64
+   ``fused_multirow_q_core`` (multirow and multirow_int8 as slab4_w8, B in
+   {1, 24, 64}; multirow's chain serves B = 1 too) on head-major panels, by
+   the same float64
    check (written slots in int8 or int4 steps, or for bf16 panels in units
-   of 2^-7 of the row's largest entry). Then
+   of 2^-7 of the row's largest entry); then slab on its tensor-core chain
+   at B in {8, 24, 64} (B = 16 is among the slab cases above). Then
+   multirow's edge cases (MULTIROW_EDGE_CASES, an rng of their own): its
+   chain at B in {3, 5}, clusters of 4 rows with padded ones, and its old
+   chain (multirow_step, the sizes the chain refuses) at M = 520, B in
+   {1, 5, 64}, by the same check. Then
    ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
    W = 512, the batched paths' shapes; B = 2, W = 4096; B = 1, W = 128;
    B = 8, W = 96, a tail tile) against the float32 plain version. Then the
@@ -45,10 +51,10 @@ non-zero without printing a result):
 5. timing — CUDA-event medians of each kernel and of its plain version at
    the main paths' shapes, beside the bound from the bytes it must move and
    the operations it must do; slab_w8 and slab_ar_w8 at B in
-   {1, 4, 8, 16, 64}, slab and slab_ar at B in {16, 64}, the five explicit
-   modes at B in {1, 64} (slab4 also at 16 and 32 rows a cell; slab4_w8,
-   slab4, slab_int8 and multirow_int8 also at 8 and 16, each step on the
-   tensor-core chain also
+   {1, 4, 8, 16, 64}, slab at B in {8, 16, 64}, slab_ar at B in {16, 64},
+   the five explicit modes at B in {1, 64} (slab4 also at 16 and 32 rows a
+   cell; slab4_w8, slab4, slab_int8, multirow_int8 and multirow also at 8
+   and 16), each step on the tensor-core chain also
    under ``torch.profiler``: its kernels a step by the wrapper's count and
    by the profiler, every one a chain kernel); the four
    s2s / nw variants at B = 1, M = 512, Le = 512, each also under
@@ -193,6 +199,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import functools
 import json
 import math
@@ -207,6 +214,7 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -749,6 +757,30 @@ def kernel_phase(engine, wkr_mt, rng, dev, mode, batches, rows=None):
     return worst[mode]
 
 
+def at_mem_len(engine, M):
+    """``engine``'s weights under a config whose mem_len is ``M`` (None:
+    ``engine`` itself): what kernel_cases, run_step and plain_step read."""
+    if M is None:
+        return engine
+    return SimpleNamespace(cfg=dataclasses.replace(engine.cfg, mem_len=M),
+                           params=engine.params, stacked=engine.stacked,
+                           stacked_q=engine.stacked_q)
+
+
+def edge_phase(engine, rng, dev, mode, batches, mem_len, chain):
+    """kernel_phase of ``mode`` at ``mem_len`` slots (None: the engine's),
+    after checking that every B of ``batches`` takes the chain ``chain``
+    says (the tensor-core chain, else the old one)."""
+    eng = at_mem_len(engine, mem_len)
+    M = eng.cfg.mem_len
+    for B in batches:
+        if fd.tc_path(mode, eng.cfg, B, M) != chain:
+            raise AssertionError(f"{mode} at B={B} M={M} does not take the chain asked for")
+    say(f"kernel: {mode} at M={M}, B in {batches}: the "
+        f"{'tensor-core chain' if chain else 'old chain'}")
+    return kernel_phase(eng, wkr_table(eng), rng, dev, mode, batches)
+
+
 def flash_inputs(B, W, pads, H, Dh, dev, seed, right=False):
     """bf16 q, k, v (B, W, H * Dh), wkr (W, H * Dh), u and v biases (H, Dh),
     and a pad mask whose row b is left-padded (``right``: right-padded) by
@@ -1051,10 +1083,19 @@ MODE_CASE_BATCHES = (("slab_int8", (1, 64), None), ("slab_int8", (64,), 32),
                      ("slab4_w8", (1, 64), None), ("multirow", (1, 64), None),
                      ("multirow_int8", (1, 64), None), ("slab4_w8", (24,), None),
                      ("multirow_int8", (24,), None), ("slab4", (24,), None),
-                     ("slab_int8", (24,), None), ("slab_int8", (24,), 24))
+                     ("slab_int8", (24,), None), ("slab_int8", (24,), 24),
+                     ("multirow", (24,), None), ("slab", (8, 24, 64), None))
 EXPLICIT_MODES = ("slab_int8", "slab4", "slab4_w8", "multirow", "multirow_int8")
+# multirow's edge cases, drawn after MODE_CASE_BATCHES from an rng of their
+# own: (mode, batch sizes, mem_len or None for the engine's, whether the
+# tensor-core chain serves them). Its chain below 8 rows with 3 live rows in a
+# cluster of 4, and 1 beside a whole cluster; and multirow_step, which serves
+# the sizes tc_accepts refuses, at M = 520 (not a multiple of 16).
+MULTIROW_EDGE_CASES = (("multirow", (3, 5), None, True),
+                       ("multirow", (1, 5, 64), 520, False))
 # the explicit modes' timed batch sizes: the tensor-core chain's modes
-# (fd.TC_MODES) on both sides of its B >= 8 rule
+# (fd.TC_MODES) also at 8 and 16, on both sides of its B >= 8 rule (multirow:
+# the chain at every B)
 MODE_TIMING_BATCHES = {mode: (1, 8, 16, 64) if mode in fd.TC_MODES else (1, 64)
                        for mode in EXPLICIT_MODES}
 
@@ -1063,9 +1104,10 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     """Kernel timings at the main paths' shapes, the int8-weight slab steps
     at every B of the crossover between their weight products (the
     row-tiled GEMV of slab_w8, the all-rows GEMM of slab_ar_w8), and the
-    bf16-weight steps at B = 16 and 64; the explicit modes at B = 1 and 64
-    (slab4 also at 16 and 32 rows a cell; the modes of fd.TC_MODES also at
-    8 and 16, where their tensor-core chain starts); the launches made here do not
+    bf16-weight steps at B = 16 and 64 (slab also at 8, where its
+    tensor-core chain starts, drawn last); the explicit modes at B = 1 and
+    64 (slab4 also at 16 and 32 rows a cell; the modes of fd.TC_MODES also
+    at 8 and 16); the launches made here do not
     count as the main paths'. Returns the timings of the JSON line: slab_w8
     at B = 1; slab_ar_w8 and the flash prefill at B = 16, W = 512 (the
     service's batch); slab and slab_ar at B = 16 (the continuous engine's
@@ -1082,6 +1124,7 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
                          for B in MODE_TIMING_BATCHES[mode]} for mode in EXPLICIT_MODES})
     for R in (16, 32):
         slab_timing(engine, wkr_mt, modes_rng, dev, "slab4", 64, flush, rows=R)
+    times["slab"][8] = slab_timing(engine, wkr_mt, modes_rng, dev, "slab", 8, flush)
     flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}
     set_launches(before)
     return {"slab_w8": times["slab_w8"][1], "slab_ar_w8": times["slab_ar_w8"][16],
@@ -2935,6 +2978,10 @@ def main(argv=None) -> int:
         worse(err, mode, timed(f"kernel {mode} B in {batches} R {rows or 'min(B, 8)'}",
                                kernel_phase, engine, wkr_mt, modes_rng, dev, mode, batches,
                                rows))
+    edge_rng = np.random.default_rng(args.seed + 4)
+    for mode, batches, M, chain in MULTIROW_EDGE_CASES:
+        worse(err, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
+                               edge_phase, engine, edge_rng, dev, mode, batches, M, chain))
     err["flash"] = timed("kernel flash", flash_phase, engine.cfg, dev, args.seed)
     flagship, demo = timed("mt load", mt_load_phase, dev, args.seed)
     for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),

@@ -41,11 +41,16 @@
 // 75.5 MB of weights a step (~0.26 ms at 3.35 TB/s), multirow_int8 402.7 MB
 // of int8 K/V plus 0.26 MB of scales (~0.14 ms), both bound by bytes.
 //
-// At B >= 8, multirow_int8 runs the tensor-core chain of tc_decode.cuh
-// (multirow_int8_tc_step): bf16 weight tiles read once a step for up to 64
-// rows on the tensor cores, and an attention that stages a head's relative
-// panel once per cluster of 4 rows and reads the int8 K panel 16 slots a
-// load (GroupPanelI8), 7 kernels a layer. At B < 8 it keeps the chain above.
+// multirow_int8 at B >= 8 and multirow at any B run the tensor-core chain of
+// tc_decode.cuh (multirow_int8_tc_step, multirow_tc_step): bf16 weight tiles
+// read once a step for up to 64 rows on the tensor cores, and an attention
+// that stages a head's relative panel once per cluster of 4 rows and reads
+// the K panel 16 int8 slots a load (GroupPanelI8) or 8 bf16 ones
+// (GroupPanelBF16, which reads a bf16 V slot's 16 columns in two loads and
+// applies no scales), 7 kernels a layer. multirow_int8 keeps the chain above
+// at B < 8; multirow's chain took about half its time at B = 1, 2 and 4
+// (flagship, M = 512, H100), so multirow_step serves only the sizes
+// tc_accepts refuses.
 //
 // The same file holds the steps of fused_decode.py::fused_stack_decode
 // (pallas_call built by _make_kernel: B = 1, h as an 8-row block whose row 0
@@ -225,10 +230,14 @@ int run_head_major(DECODE_STEP_ARGS(bf16, bf16)) {
 
 }  // namespace
 
+// multirow's chain serves every B: at B = 1, 2 and 4 its step took about half
+// the old chain's (flagship, M = 512, H100); multirow_int8 keeps kTcMinRows.
+constexpr int kMultirowTcMinRows = 1;
+
 extern "C" {
 
 // Float32 scratch elements a step needs for these sizes; flags bit 1: the
-// tensor-core chain's (multirow_int8_tc_step).
+// tensor-core chain's (multirow_int8_tc_step, multirow_tc_step).
 size_t multirow_decode_scratch_floats(int B, int D, int Dff, int H, int Dh, int M, int flags) {
   if (flags & 2) return tc_scratch_floats(B, D, Dff, H * Dh);
   return step_scratch_floats(B, D, Dff, H * Dh);
@@ -268,11 +277,21 @@ int multirow_int8_step(DECODE_STEP_ARGS(bf16, int8_t)) {
                                rows_per_cell, scale, act, stream);
 }
 
-// multirow_int8 on the tensor-core chain (tc_decode.cuh), for B >= 8: the
-// same arguments; scratch of multirow_decode_scratch_floats(..., flags = 2)
-// floats. Returns cudaErrorInvalidValue for sizes tc_accepts refuses.
+// multirow (any B) and multirow_int8 (B >= 8) on the tensor-core chain
+// (tc_decode.cuh): the same arguments; scratch of
+// multirow_decode_scratch_floats(..., flags = 2) floats. Each returns
+// cudaErrorInvalidValue for sizes tc_accepts refuses.
+int multirow_tc_step(DECODE_STEP_ARGS(bf16, bf16)) {
+  if (!tc_accepts<GroupPanelBF16>(kMultirowTcMinRows, B, D, Dff, Dh, M))
+    return cudaErrorInvalidValue;
+  return tc_decode_step<bf16, GroupPanelBF16, PanelBF16>(
+      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, nullptr, vc, nullptr, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+      rows_per_cell, scale, act, PanelBF16::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+}
+
 int multirow_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
-  if (!tc_accepts<GroupPanelI8>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  if (!tc_accepts<GroupPanelI8>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
   return tc_decode_step<bf16, GroupPanelI8, PanelI8>(
       qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
       kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,

@@ -87,15 +87,19 @@
 // attention block of that row reads in the same step. At B = 64, M = 512
 // the int4 K/V are 201.3 MB a step.
 //
-// At B >= 8, slab4_w8, slab4 and slab_int8 run the tensor-core chain of
-// tc_decode.cuh (slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step): the
-// weight products on the tensor cores, each weight tile read once a step for
-// up to 64 rows, and an attention that reads a head's relative table once
-// per cluster of rows: GroupI4's for the int4 ring (7 kernels a layer), and
-// for slab_int8 the int8-score attention of tc_decode.cuh (its query scale
-// reduced from per-(row, head) maxima over the cell, its P.V scale from the
-// row's per-head maxima; 9 kernels a layer). At B < 8 they keep the chain
-// above (<mode>_step).
+// At B >= 8, slab4_w8, slab4, slab_int8 and slab run the tensor-core chain
+// of tc_decode.cuh (slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step,
+// slab_tc_step): the weight products on the tensor cores, each weight tile
+// read once a step for up to 64 rows, and an attention that reads a head's
+// relative table once per cluster of rows: GroupI4's for the int4 ring and
+// GroupSlotI8's for slab's int8 ring (a slot's head slice a thread in
+// 16-byte loads; 7 kernels a layer), and for slab_int8 the int8-score
+// attention of tc_decode.cuh (its query scale reduced from per-(row, head)
+// maxima over the cell, its P.V scale from the row's per-head maxima; 9
+// kernels a layer). At B < 8 they keep the chain above (<mode>_step). slab is
+// the continuous service's step: a request that joins a busy batch decodes
+// as it does alone at the same B, because no sum of the chain crosses rows
+// or takes its order from B.
 //
 // Order contract of every step: attention reads the OLD slot `ptr` of every
 // row (on a full ring that slot holds the oldest token, at distance exactly
@@ -398,16 +402,22 @@ cudaError_t resident_blocks(void (*kernel)(KArgs...), dim3 grid, int threads, si
   return err;
 }
 
+template <int DH, typename F>
+int group_occupancy(dim3 grouped, int M, int* out) {
+  out[0] = grouped.x * grouped.y;
+  const cudaError_t err = resident_blocks(group_attention<DH, F>, grouped, kAttnThreads,
+                                          group_attention_smem<F>(DH, M), kGroupRows, out + 1);
+  return err != cudaSuccess ? -(int)err : 1;
+}
+
+// kind 0: group_attention<GroupI4>; 1: the int8-score attention's three
+// kernels; 2: group_attention<GroupSlotI8>
 template <int DH>
-int attention_occupancy_dh(int B, int H, int M, int int8_scores, int* out) {
+int attention_occupancy_dh(int B, int H, int M, int kind, int* out) {
   const dim3 grouped(ceil_div(B, kGroupRows) * kGroupRows, H), rows(B, H);
   cudaError_t err;
-  if (!int8_scores) {
-    out[0] = grouped.x * grouped.y;
-    err = resident_blocks(group_attention<DH, GroupI4>, grouped, kAttnThreads,
-                          group_attention_smem<GroupI4>(DH, M), kGroupRows, out + 1);
-    return err != cudaSuccess ? -(int)err : 1;
-  }
+  if (kind == 0) return group_occupancy<DH, GroupI4>(grouped, M, out);
+  if (kind == 2) return group_occupancy<DH, GroupSlotI8>(grouped, M, out);
   out[0] = out[4] = B * H;
   out[2] = grouped.x * grouped.y;
   err = resident_blocks(qkv_sum_i8<DH>, rows, kSumThreads, 0, 1, out + 1);
@@ -442,17 +452,18 @@ int slab_decode_kernels_per_step(int L, int int8_scores, int tc) {
 
 const char* slab_decode_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The tensor-core chain's attention kernels of slab4 / slab4_w8
-// (group_attention<GroupI4>) or, int8_scores, of slab_int8 (qkv_sum_i8,
-// group_scores_i8, pv_i8) at these sizes: out[2 k] = blocks of kernel k's
-// launch, out[2 k + 1] = blocks the card holds at once (the occupancy API,
-// clusters counted whole). Returns the number of kernels, or -(CUDA error).
-int slab_decode_attention_occupancy(int B, int H, int Dh, int M, int int8_scores, int* out) {
+// The tensor-core chain's attention kernels at these sizes, kind 0: of
+// slab4 / slab4_w8 (group_attention<GroupI4>), 1: of slab_int8 (qkv_sum_i8,
+// group_scores_i8, pv_i8), 2: of slab (group_attention<GroupSlotI8>):
+// out[2 k] = blocks of kernel k's launch, out[2 k + 1] = blocks the card
+// holds at once (the occupancy API, clusters counted whole). Returns the
+// number of kernels, or -(CUDA error).
+int slab_decode_attention_occupancy(int B, int H, int Dh, int M, int kind, int* out) {
   switch (Dh) {
-    case 16: return attention_occupancy_dh<16>(B, H, M, int8_scores, out);
-    case 32: return attention_occupancy_dh<32>(B, H, M, int8_scores, out);
-    case 64: return attention_occupancy_dh<64>(B, H, M, int8_scores, out);
-    case 128: return attention_occupancy_dh<128>(B, H, M, int8_scores, out);
+    case 16: return attention_occupancy_dh<16>(B, H, M, kind, out);
+    case 32: return attention_occupancy_dh<32>(B, H, M, kind, out);
+    case 64: return attention_occupancy_dh<64>(B, H, M, kind, out);
+    case 128: return attention_occupancy_dh<128>(B, H, M, kind, out);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -514,13 +525,13 @@ int slab4_w8_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
   return run_slab<SlotI4, int8_t>(false, false, PASS_INT8_WEIGHTS);
 }
 
-// slab4_w8, slab4 and slab_int8 on the tensor-core chain (tc_decode.cuh),
-// for B >= 8: the same arguments; scratch of slab_decode_scratch_floats(...,
-// flags = 2; slab_int8: 3) floats. Each returns cudaErrorInvalidValue for
-// sizes tc_accepts refuses (slab_int8 also where rows_per_cell does not
-// divide B).
+// slab4_w8, slab4, slab_int8 and slab on the tensor-core chain
+// (tc_decode.cuh), for B >= 8: the same arguments; scratch of
+// slab_decode_scratch_floats(..., flags = 2; slab_int8: 3) floats. Each
+// returns cudaErrorInvalidValue for sizes tc_accepts refuses (slab_int8 also
+// where rows_per_cell does not divide B).
 int slab4_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
-  if (!tc_accepts<GroupI4>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  if (!tc_accepts<GroupI4>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
   return tc_decode_step<int8_t, GroupI4, SlotI4>(
       qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
       kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,
@@ -528,15 +539,24 @@ int slab4_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
 }
 
 int slab4_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
-  if (!tc_accepts<GroupI4>(B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  if (!tc_accepts<GroupI4>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
   return tc_decode_step<bf16, GroupI4, SlotI4>(
       qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
       kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
       rows_per_cell, scale, act, SlotI4::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
+int slab_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
+  if (!tc_accepts<GroupSlotI8>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  return tc_decode_step<bf16, GroupSlotI8, SlotI8>(
+      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+      rows_per_cell, scale, act, SlotI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+}
+
 int slab_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
-  if (!tc_accepts<ScoresI8>(B, D, Dff, Dh, M) || rows_per_cell < 1 || B % rows_per_cell)
+  if (!tc_accepts<ScoresI8>(kTcMinRows, B, D, Dff, Dh, M) || rows_per_cell < 1 ||
+      B % rows_per_cell)
     return cudaErrorInvalidValue;
   return tc_decode_step<bf16, ScoresI8, SlotI8>(
       qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,

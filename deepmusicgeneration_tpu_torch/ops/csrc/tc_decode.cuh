@@ -1,7 +1,8 @@
-// The tensor-core decode chain of the slab4_w8, slab4, slab_int8 and
-// multirow_int8 steps at B >= kTcMinRows (slab_decode.cu's slab4_w8_tc_step,
-// slab4_tc_step and slab_int8_tc_step, multirow_decode.cu's
-// multirow_int8_tc_step). It computes the function of decode_step in
+// The tensor-core decode chain of the slab4_w8, slab4, slab_int8, slab and
+// multirow_int8 steps at B >= kTcMinRows and of the multirow step at any B
+// (slab_decode.cu's slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step and
+// slab_tc_step, multirow_decode.cu's multirow_int8_tc_step and
+// multirow_tc_step). It computes the function of decode_step in
 // slab_common.cuh (the same bf16 cast points, int8 panels dequantized by
 // their column scales and rounded to bf16, bf16 panels as they are, float32
 // sums) with a layer in 7 kernels instead of 10:
@@ -74,7 +75,7 @@ namespace {
 
 using tc_bf16 = __nv_bfloat16;
 
-constexpr int kTcMinRows = 8;          // the chain serves B >= this
+constexpr int kTcMinRows = 8;          // the chain serves B >= this (a step may take fewer)
 constexpr int kTcCols = 64;            // weight columns a product block owns
 constexpr int kTcWarps = kTcCols / 16;  // a warp per 16 columns (the m16 of the MMA)
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -504,22 +505,27 @@ tc_layer_norm(const float* __restrict__ resid, const float* __restrict__ partial
   if constexpr (!std::is_same<F, NoSlot>::value) {
     const float* k1 = qkv + (size_t)b * 3 * HD + HD;
     const float* v1 = k1 + HD;
-    float ka = 0.f, va = 0.f;
-    for (int j = threadIdx.x; j < HD; j += blockDim.x) {
-      ka = fmaxf(ka, fabsf(k1[j]));
-      va = fmaxf(va, fabsf(v1[j]));
+    float k_scale = 1.f, v_scale = 1.f;  // a bf16 cache has no scales (ks, vs null)
+    if constexpr (F::kScaled) {
+      float ka = 0.f, va = 0.f;
+      for (int j = threadIdx.x; j < HD; j += blockDim.x) {
+        ka = fmaxf(ka, fabsf(k1[j]));
+        va = fmaxf(va, fabsf(v1[j]));
+      }
+      ka = block_max(ka, red);
+      va = block_max(va, red);
+      k_scale = fmaxf(ka, 1e-6f) * F::inv_qmax();
+      v_scale = fmaxf(va, 1e-6f) * F::inv_qmax();
     }
-    ka = block_max(ka, red);
-    va = block_max(va, red);
-    const float k_scale = fmaxf(ka, 1e-6f) * F::inv_qmax();
-    const float v_scale = fmaxf(va, 1e-6f) * F::inv_qmax();
     for (int j = threadIdx.x; j < HD; j += blockDim.x) {
       F::put_k(kt, b, j, M, HD, ptr, k1[j], k_scale);
       F::put_v(vc, b, j, M, HD, ptr, v1[j], v_scale);
     }
-    if (threadIdx.x == 0) {
-      ks[(size_t)b * M + ptr] = k_scale;
-      vs[(size_t)b * M + ptr] = v_scale;
+    if constexpr (F::kScaled) {
+      if (threadIdx.x == 0) {
+        ks[(size_t)b * M + ptr] = k_scale;
+        vs[(size_t)b * M + ptr] = v_scale;
+      }
     }
   }
 }
@@ -601,6 +607,9 @@ constexpr int kAttnBlocksPerSM = 5;
 // The int4 slot-major ring (SlotI4: packed row m holds slot m high, m + M/2
 // low) with its slot-major (M + 1, HD) relative table.
 struct GroupI4 {
+  using KT = int8_t;
+  using VT = int8_t;
+  static constexpr bool kScaled = true;
   // The cluster's shares of the relative scores: block q forms, for every
   // row of the cluster and every position, the dot over d in [q DH / G,
   // (q + 1) DH / G), reading those DH / G columns of each table row.
@@ -730,6 +739,9 @@ struct GroupI4 {
 // rows [q DH / G, (q + 1) DH / G) and forms their share of every row's
 // relative scores at every position; each row then sums the G shares.
 struct GroupPanelI8 {
+  using KT = int8_t;
+  using VT = int8_t;
+  static constexpr bool kScaled = true;
   static __host__ __device__ size_t part_floats(int M) { return (size_t)kGroupRows * (M + 1); }
   static __host__ __device__ size_t stage_bytes(int Dh, int M) {
     return ((size_t)Dh / kGroupRows * (M + 1) * sizeof(tc_bf16) + 15) / 16 * 16;
@@ -841,13 +853,158 @@ struct GroupPanelI8 {
   }
 };
 
+// bf16 head-major K panels (B, HD, M) and slot-major V (B, M, HD) with no
+// scales (PanelBF16 of multirow_decode.cu): GroupPanelI8's relative-panel
+// staging and shares; the key dots 8 slots a 16-byte load, V two loads a
+// slot's 16 columns.
+struct GroupPanelBF16 : GroupPanelI8 {
+  using KT = tc_bf16;
+  using VT = tc_bf16;
+  static constexpr bool kScaled = false;
+  // put(m, (q + u) . K[:, m]) for every slot of row b: warp w takes d in
+  // [w DH / 8, (w + 1) DH / 8) and a lane 8 slots (one 16-byte load a d, a
+  // warp's load 512 contiguous bytes of a panel row); the eight warps' sums
+  // are added in warp order. M a multiple of 8; kp holds kAttnWarps x M.
+  template <int DH, typename Put>
+  static __device__ void key_dots(const tc_bf16* kt, int b, int h, int M, int HD,
+                                  const float* qu, float* kp, Put put) {
+    constexpr int DW = DH / kAttnWarps;
+    constexpr int U = DW < 8 ? DW : 8;  // loads in flight
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, MC = M / 8;
+    const tc_bf16* k = kt + ((size_t)b * HD + h * DH + warp * DW) * M;
+    for (int c = lane; c < MC; c += 32) {
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int d0 = 0; d0 < DW; d0 += U) {
+        uint4 kv[U];
+#pragma unroll
+        for (int d = 0; d < U; ++d)
+          kv[d] = *reinterpret_cast<const uint4*>(k + (size_t)(d0 + d) * M + 8 * c);
+#pragma unroll
+        for (int d = 0; d < U; ++d) {
+          const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&kv[d]);
+          const float qd = qu[warp * DW + d0 + d];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(p2[j]);
+            acc[2 * j] = fmaf(f.x, qd, acc[2 * j]);
+            acc[2 * j + 1] = fmaf(f.y, qd, acc[2 * j + 1]);
+          }
+        }
+      }
+      float4* dst = reinterpret_cast<float4*>(kp + (size_t)warp * M + 8 * c);
+      dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+    __syncthreads();
+    for (int m = threadIdx.x; m < M; m += blockDim.x) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kAttnWarps; ++w) t += kp[(size_t)w * M + m];
+      put(m, t);
+    }
+  }
+  // 16 columns (chunk c) of row b's P.V over ring positions s, s + S, ...;
+  // ew[m] = bf16(p[m]). A slot's 16 columns are 32 bytes, two loads, so
+  // half as many slots are in flight as for an int8 V (the same bytes).
+  template <int DH, int S>
+  static __device__ void pv(const tc_bf16* vc, int b, int h, int M, int HD, int ptr, int c,
+                            int s, const float* ew, float (&out)[16]) {
+    constexpr int U = kAttnLoads / 2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) out[j] = 0.f;
+    const tc_bf16* col = vc + (size_t)b * M * HD + h * DH + 16 * c;
+    for (int i0 = s; i0 < M; i0 += U * S) {
+      uint4 q[U][2];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint4* p = reinterpret_cast<const uint4*>(
+            col + (size_t)ring_slot(min(i0 + u * S, M - 1), ptr, M) * HD);
+        q[u][0] = p[0];
+        q[u][1] = p[1];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u * S < M) {
+          const float e = ew[ring_slot(i0 + u * S, ptr, M)];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&q[u][half]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 f = __bfloat1622float2(p2[j]);
+              out[8 * half + 2 * j] = fmaf(e, f.x, out[8 * half + 2 * j]);
+              out[8 * half + 2 * j + 1] = fmaf(e, f.y, out[8 * half + 2 * j + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+};
+
+// The int8 slot-major ring (SlotI8 of slab_common.cuh: K and V (B, M, HD)
+// with per-slot scales) and its slot-major (M + 1, HD) relative table:
+// GroupI4's table shares, and GroupPanelI8's P.V (the same V layout).
+struct GroupSlotI8 : GroupI4 {
+  // put(m, (q + u) . K[slot m]) for every slot of row b: a slot a thread (its
+  // head's DH bytes in 16-byte loads, summed over d in order, as
+  // SlotI8::key_dot), two slots in flight
+  template <int DH, typename Put>
+  static __device__ void key_dots(const int8_t* kt, int b, int h, int M, int HD, const float* qu,
+                                  float*, Put put) {
+    const int8_t* base = kt + (size_t)b * M * HD + h * DH;
+    constexpr int U = DH <= 64 ? 2 : 1;  // slots in flight
+    for (int m0 = threadIdx.x; m0 < M; m0 += U * blockDim.x) {
+      int4 k16[U][DH / 16];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int4* kr = reinterpret_cast<const int4*>(
+            base + (size_t)min(m0 + u * (int)blockDim.x, M - 1) * HD);
+#pragma unroll
+        for (int c = 0; c < DH / 16; ++c) k16[u][c] = kr[c];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int m = m0 + u * blockDim.x;
+        if (m >= M) break;
+        float t = 0.f;
+#pragma unroll
+        for (int c = 0; c < DH / 16; ++c) {
+          float f[16];
+          tc_int8x16(k16[u][c], f);
+#pragma unroll
+          for (int j4 = 0; j4 < 4; ++j4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qu + c * 16 + 4 * j4);
+            t = fmaf(f[4 * j4], q4.x, t);
+            t = fmaf(f[4 * j4 + 1], q4.y, t);
+            t = fmaf(f[4 * j4 + 2], q4.z, t);
+            t = fmaf(f[4 * j4 + 3], q4.w, t);
+          }
+        }
+        put(m, t);
+      }
+    }
+  }
+  template <int DH, int S>
+  static __device__ void pv(const int8_t* vc, int b, int h, int M, int HD, int ptr, int c,
+                            int s, const float* ew, float (&out)[16]) {
+    GroupPanelI8::pv<DH, S>(vc, b, h, M, HD, ptr, c, s, ew, out);
+  }
+};
+
 // Row b's slot K scales, V scales and mask (M each, M % 16 == 0) into dst
-// (3 M floats, 16-byte aligned) by cp.async, 16 bytes a copy, committed.
+// (3 M floats, 16-byte aligned) by cp.async, 16 bytes a copy, committed; a
+// cache with no scales (!kScaled) stages the mask alone (at dst + 2 M).
+template <bool kScaled>
 __device__ __forceinline__ void stage_slot_meta(const float* ks, const float* vs,
                                                 const int32_t* blocked, int b, int M,
                                                 float* dst) {
-  for (int i = threadIdx.x; i < 3 * M / 4; i += blockDim.x) {
-    const int a = i / (M / 4), j = 4 * (i % (M / 4));
+  constexpr int a0 = kScaled ? 0 : 2;
+  for (int i = threadIdx.x; i < (3 - a0) * M / 4; i += blockDim.x) {
+    const int a = a0 + i / (M / 4), j = 4 * (i % (M / 4));
     const void* src = a == 0 ? (const void*)(ks + (size_t)b * M + j)
                     : a == 1 ? (const void*)(vs + (size_t)b * M + j)
                              : (const void*)(blocked + (size_t)b * M + j);
@@ -909,7 +1066,8 @@ inline size_t group_attention_smem(int Dh, int M) {
 }
 
 // Attention of one layer for batch row b = blockIdx.x and head h =
-// blockIdx.y over a cache of format F (GroupI4, GroupPanelI8). The
+// blockIdx.y over a cache of policy F (GroupI4, GroupSlotI8, GroupPanelI8,
+// GroupPanelBF16). The
 // kGroupRows blocks of consecutive rows of a head are one cluster: each
 // forms a share of the relative scores (q + v) . wkr of all the cluster's
 // rows, so the head's table leaves L2 once per cluster, and each row
@@ -919,13 +1077,15 @@ inline size_t group_attention_smem(int Dh, int M) {
 // f32, for the slot write, and writes attn_b (B, HD) = bf16(attention). The
 // scores, softmax and P.V are slab_attention's: score = ((q+u).K[m] * ks[m]
 // + roll((q+v).wkr, ptr)[m]) * scale, masked by blocked; the self term from
-// the fresh k1; P.V of bf16(p * vs) . V; the softmax sums in ring order.
+// the fresh k1; P.V of bf16(p * vs) . V; the softmax sums in ring order. A
+// cache with no scales (!F::kScaled: ks, vs null) drops the ks and vs
+// factors.
 template <int DH, typename F>
 __global__ void __launch_bounds__(kAttnThreads, kAttnBlocksPerSM)
 group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
                 const tc_bf16* __restrict__ u, const tc_bf16* __restrict__ vb,
-                const tc_bf16* __restrict__ wkr, const int8_t* __restrict__ kt,
-                const float* __restrict__ ks, const int8_t* __restrict__ vc,
+                const tc_bf16* __restrict__ wkr, const typename F::KT* __restrict__ kt,
+                const float* __restrict__ ks, const typename F::VT* __restrict__ vc,
                 const float* __restrict__ vs, const int32_t* __restrict__ blocked, int ptr,
                 float scale, float* __restrict__ qkv, tc_bf16* __restrict__ attn_b) {
   constexpr int G = kGroupRows;
@@ -938,8 +1098,8 @@ group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
   float* qu = qv + G * DH;         // DH: bf16(bf16(q) + u) of this row
   float* k1 = qu + DH;             // DH: the fresh k1
   float* v1 = k1 + DH;             // DH: the fresh v1
-  float* ksr = v1 + DH;            // M: this row's K scales
-  float* vsr = ksr + M;            // M: its V scales
+  float* ksr = v1 + DH;            // M: this row's K scales (F::kScaled)
+  float* vsr = ksr + M;            // M: its V scales (F::kScaled)
   int* blk = reinterpret_cast<int*>(vsr + M);  // M: its mask
   float* sd = vsr + 2 * M;         // M + 1: distance-space relative scores
   float* sc = sd + M + 1;          // M + 1: scores, then P.V weights (slot M: e_self)
@@ -955,7 +1115,7 @@ group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
   // written by its slot write in the previous step): their copies start
   // before the grid sync
   F::template stage<DH>(wkr, h, M, q, wk);
-  if (live) stage_slot_meta(ks, vs, blocked, b, M, ksr);
+  if (live) stage_slot_meta<F::kScaled>(ks, vs, blocked, b, M, ksr);
   tc_grid_sync();
   // q + v of the cluster's rows; q + u, k1, v1 of this one: the KB partials
   // of every item a thread takes summed in chunk order, four chunks' loads
@@ -1019,7 +1179,10 @@ group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
   if (live) {
     for (int m = tid; m < M; m += kAttnThreads) {
       const int src = (m - ptr < 0) ? m - ptr + M : m - ptr;  // roll by ptr
-      sc[m] = blk[m] ? -1e9f : (sc[m] * ksr[m] + sd[src]) * scale;
+      if constexpr (F::kScaled)
+        sc[m] = blk[m] ? -1e9f : (sc[m] * ksr[m] + sd[src]) * scale;
+      else
+        sc[m] = blk[m] ? -1e9f : (sc[m] + sd[src]) * scale;
     }
     if (tid < 32) self_score<DH>(qu, k1, sd[M], scale, sc + M);
     __syncthreads();
@@ -1033,7 +1196,10 @@ group_attention(const float* __restrict__ qkv_part, int KB, int B, int H, int M,
     for (int i = tid; i <= M; i += kAttnThreads) {
       const int m = i < M ? ring_slot(i, ptr, M) : M;
       const float e = expf(sc[m] - mx);
-      sc[m] = m < M ? bf16_round(e * vsr[m]) : e;
+      if constexpr (F::kScaled)
+        sc[m] = m < M ? bf16_round(e * vsr[m]) : e;
+      else
+        sc[m] = m < M ? bf16_round(e) : e;
       den += e;
     }
     den = block_sum(den, red);  // its barriers also publish sc
@@ -1076,7 +1242,8 @@ cudaError_t group_attention_dh(int B, int H, int M, cudaStream_t st, Args... arg
 template <typename F>
 cudaError_t tc_attention(int Dh, const float* qkv_part, int KB, int B, int H, int M,
                          const tc_bf16* u, const tc_bf16* v, const tc_bf16* wkr,
-                         const int8_t* kt, const float* ks, const int8_t* vc, const float* vs,
+                         const typename F::KT* kt, const float* ks, const typename F::VT* vc,
+                         const float* vs,
                          const int32_t* blocked, int ptr, float scale, float* qkv,
                          tc_bf16* attn_b, cudaStream_t st) {
 #define TC_ATTENTION_ARGS \
@@ -1121,7 +1288,8 @@ cudaError_t tc_attention(int Dh, const float* qkv_part, int KB, int B, int H, in
 // half-point). No reduction crosses cells: a row's result depends on its
 // cell alone.
 
-struct ScoresI8 {};  // tc_decode_step's attention format for slab_int8
+// tc_decode_step's attention format for slab_int8
+struct ScoresI8 {};
 
 constexpr int kSumThreads = 128;  // threads of a qkv_sum_i8 block
 constexpr int kScoreThreads = 256;  // threads of a group_scores_i8 block
@@ -1211,7 +1379,7 @@ group_scores_i8(const float* __restrict__ qkv, const float* __restrict__ hmax, i
   const int b = blockIdx.x, h = blockIdx.y, q = b % G, b0 = b - q;
   const int HD = H * DH, tid = threadIdx.x;
   const bool live = b < B;
-  if (live) stage_slot_meta(ks, vs, blocked, b, M, ksr);  // no output of the previous kernel
+  if (live) stage_slot_meta<true>(ks, vs, blocked, b, M, ksr);  // no output of the previous kernel
   tc_grid_sync();
   for (int i = tid; i < G * DH; i += kScoreThreads) {
     const int r = i / DH, d = i % DH, row = b0 + r;
@@ -1432,14 +1600,15 @@ cudaError_t tc_attention_i8(int Dh, Args... args) {
   }
 }
 
-// Whether the chain takes these widths: B >= kTcMinRows, D and Dff multiples
-// of 16 (whole 16-byte copies of every operand row), M a multiple of 16 (the
-// K panel's 16-slot loads; the int4 ring's M is one of 64), and the
-// attention's shared memory within a block's (F: a grouped format, or
+// Whether the chain takes these widths: B >= min_rows (the step's own rule:
+// kTcMinRows, or fewer where its chain was measured faster there), D and Dff
+// multiples of 16 (whole 16-byte copies of every operand row), M a multiple
+// of 16 (the K panel's 16-slot loads; the int4 ring's M is one of 64), and
+// the attention's shared memory within a block's (F: a grouped policy, or
 // ScoresI8 for the int8-score attention's two kernels).
 template <typename F>
-inline bool tc_accepts(int B, int D, int Dff, int Dh, int M) {
-  if (!(B >= kTcMinRows && D % 16 == 0 && Dff % 16 == 0 && M % 16 == 0 &&
+inline bool tc_accepts(int min_rows, int B, int D, int Dff, int Dh, int M) {
+  if (!(B >= min_rows && D % 16 == 0 && Dff % 16 == 0 && M % 16 == 0 &&
         (Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128)))
     return false;
   if constexpr (std::is_same<F, ScoresI8>::value)
@@ -1477,21 +1646,22 @@ inline size_t tc_scratch_floats(int B, int D, int Dff, int HD) {
 
 // One token step for all B rows through all L layers on the tensor-core
 // chain: decode_step's arguments and the caches (layer l's K / V at kt, vc
-// + l * kv_layer, scales at ks, vs + l * B * M, relative table at wkr + l *
-// (M + 1) * HD), read by the grouped attention of format GF (or, GF =
-// ScoresI8, the int8-score attention at R rows a cell, its scratch after
-// TcScratch's) and written (slot ptr) in the format F. Layer 0 reads h_in as
-// it is (its qkv operand is rounded as the fragments are formed); h_out
-// holds h after every layer. Returns the first CUDA error.
+// + l * kv_layer, of F's element types; scales at ks, vs + l * B * M where
+// F::kScaled, else null; relative table at wkr + l * (M + 1) * HD), read by
+// the grouped attention of policy GF (or, GF = ScoresI8, the int8-score
+// attention at R rows a cell, its scratch after TcScratch's) and written
+// (slot ptr) in the format F. Layer 0 reads h_in as it is (its qkv operand
+// is rounded as the fragments are formed); h_out holds h after every layer.
+// Returns the first CUDA error.
 template <typename WT, typename GF, typename F>
 int tc_decode_step(const WT* qkv_w, const WT* out_w, const WT* ff1_w, const WT* ff2_w,
                    const float* w_scales, const tc_bf16* ff1_b, const tc_bf16* ff2_b,
                    const float* ln1_g, const float* ln1_b, const float* ln2_g,
                    const float* ln2_b, const tc_bf16* wkr, const tc_bf16* u, const tc_bf16* v,
-                   int8_t* kt, float* ks, int8_t* vc, float* vs, const float* h_in,
-                   const int32_t* blocked, float* h_out, float* scratch, int L, int B, int D,
-                   int Dff, int H, int Dh, int M, int smax, int ptr, int R, float scale, int act,
-                   size_t kv_layer, cudaStream_t st) {
+                   typename F::KT* kt, float* ks, typename F::VT* vc, float* vs,
+                   const float* h_in, const int32_t* blocked, float* h_out, float* scratch,
+                   int L, int B, int D, int Dff, int H, int Dh, int M, int smax, int ptr, int R,
+                   float scale, int act, size_t kv_layer, cudaStream_t st) {
   const int HD = H * Dh;
   const TcScratch at(B, D, Dff, HD);
   float* qkv_part = scratch + at.qkv_part;
@@ -1509,10 +1679,10 @@ int tc_decode_step(const WT* qkv_w, const WT* out_w, const WT* ff1_w, const WT* 
     auto sc = [&](int row) -> const float* {
       return w_scales != nullptr ? w_scales + ((size_t)l * 8 + row) * smax : nullptr;
     };
-    int8_t* kl = kt + l * kv_layer;
-    int8_t* vl = vc + l * kv_layer;
-    float* ksl = ks + (size_t)l * B * M;
-    float* vsl = vs + (size_t)l * B * M;
+    typename F::KT* kl = kt + l * kv_layer;
+    typename F::VT* vl = vc + l * kv_layer;
+    float* ksl = F::kScaled ? ks + (size_t)l * B * M : nullptr;
+    float* vsl = F::kScaled ? vs + (size_t)l * B * M : nullptr;
     const tc_bf16* wl = wkr + (size_t)l * (M + 1) * HD;
     const float* resid = l == 0 ? h_in : h_out;
     err = l == 0 ? tc_gemm<WT, float, kTcPartials>(h_in, B, D, 3 * HD, qkv_w, sc(0), qkv_part,

@@ -29,9 +29,10 @@ which no engine mode reaches.
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
 first use, bound with ctypes) or raises; ``slab4_w8``, ``slab4``,
-``slab_int8`` and ``multirow_int8`` take the tensor-core chain of
-``csrc/tc_decode.cuh`` where :func:`tc_path` says so (B >= 8), the chain of
-the other modes below that; on a CPU tensor
+``slab_int8``, ``slab``, ``multirow_int8`` and ``multirow`` take the
+tensor-core chain of ``csrc/tc_decode.cuh`` where :func:`tc_path` says so
+(B >= 8; ``multirow`` any B), the chain of the other modes below that; on a
+CPU tensor
 it runs its plain version (:func:`slab_plain`, :func:`multirow_plain`,
 :func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
 PyTorch. Unlike the JAX functions, whose cache operands are donated and
@@ -418,12 +419,35 @@ INT8_SCORE_MODES = ("slab_int8", "slab_int8_w8")
 # fused_batched_decode
 MULTIROW_MODES = ("multirow", "multirow_int8")
 STACK_MODES = ("fused_stack", "fused_batched")
-# the modes with a tensor-core chain (csrc/tc_decode.cuh) at B >= TC_MIN_ROWS
-TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8")
-
 # csrc/tc_decode.cuh's plan, mirrored (tests/test_torch_tc_plan.py holds the
 # tiling, the partial order, the attention's row groups and the launch count)
 TC_MIN_ROWS = 8            # kTcMinRows
+
+
+class TcPolicy(NamedTuple):
+    """A mode's tensor-core chain (its ``<mode>_tc_step``): the attention's
+    format in csrc/tc_decode.cuh (a grouped attention's cache policy, or
+    ScoresI8, slab_int8's attention in three kernels); the fewest rows the
+    step serves (its ``tc_accepts`` call); whether the format stages its
+    quarter of a head's slice of the head-major (HD, M + 1) relative panel
+    (the others read the slot-major (M + 1, HD) table as it is); and the
+    ``kind`` of ``slab_decode_attention_occupancy`` that counts its attention
+    blocks (None: not a step of csrc/slab_decode.cu)."""
+    attention: str
+    min_rows: int = TC_MIN_ROWS
+    panel: bool = False
+    occupancy: int = None
+
+
+# multirow's chain serves every B: it took about half the old chain's step at
+# B = 1, 2 and 4 (flagship, H100)
+TC_POLICY = {"slab4_w8": TcPolicy("GroupI4", occupancy=0),
+             "multirow_int8": TcPolicy("GroupPanelI8", panel=True),
+             "slab4": TcPolicy("GroupI4", occupancy=0),
+             "slab_int8": TcPolicy("ScoresI8", occupancy=1),
+             "multirow": TcPolicy("GroupPanelBF16", min_rows=1, panel=True),
+             "slab": TcPolicy("GroupSlotI8", occupancy=2)}
+TC_MODES = tuple(TC_POLICY)
 TC_COLS = 64               # kTcCols: weight columns a product block owns
 TC_ROWS = 64               # kTcRows: batch rows a product block applies
 TC_STAGE_K = 64            # kTcStageK: K rows a pipeline stage brings
@@ -473,15 +497,21 @@ def tc_attention_clusters(B: int, H: int):
             for h in range(H) for b0 in range(0, B, GROUP_ROWS)]
 
 
-def tc_attention_smem(Dh: int, M: int, panel: bool) -> int:
-    """Bytes of shared memory of a grouped-attention block
-    (``group_attention_smem``); ``panel``: multirow_int8's, which stages its
-    quarter of the head's relative-table slice (in the region the work
-    buffer takes after it)."""
+def tc_attention_smem(Dh: int, M: int, mode: str) -> int:
+    """Bytes of shared memory of a grouped-attention block of ``mode``'s
+    chain (``group_attention_smem<F>`` of its TC_POLICY format): q + v of the
+    cluster's rows, this row's q + u, k1 and v1, its slot scales and mask
+    (the scales' room is kept where a bf16 cache has none), the relative and
+    the full scores, 32 floats of reductions and the cluster's shares; then
+    the work buffer, whose region a ``panel`` format first fills with its
+    quarter of the head's relative-panel slice."""
+    policy = TC_POLICY[mode]
+    if policy.attention == "ScoresI8":
+        raise ValueError(f"{mode!r} has no grouped attention")
     G = GROUP_ROWS
     floats = -(-(G * Dh + 3 * Dh + 3 * M + 2 * (M + 1) + 32 + G * (M + 1)) // 4) * 4
     work = 4 * max(ATTN_THREADS * 16, (ATTN_THREADS // 32) * M)
-    stage = -(-(Dh // G * (M + 1) * 2) // 16) * 16 if panel else 0
+    stage = -(-(Dh // G * (M + 1) * 2) // 16) * 16 if policy.panel else 0
     return floats * 4 + max(work, stage)
 
 
@@ -502,17 +532,17 @@ def tc_pv_i8_smem(Dh: int, M: int) -> int:
 
 def tc_path(mode: str, cfg, B: int, mem_len: int) -> bool:
     """Whether ``mode``'s step runs the tensor-core chain on the card (the
-    library's ``tc_accepts``, mirrored): one of TC_MODES, B >= TC_MIN_ROWS,
-    d_model, d_inner and mem_len multiples of 16, and the attention blocks'
-    shared memory within MAX_SMEM."""
-    if not (mode in TC_MODES and B >= TC_MIN_ROWS and cfg.d_model % 16 == 0
+    library's ``tc_accepts``, mirrored): one of TC_MODES, B at least its
+    policy's ``min_rows``, d_model, d_inner and mem_len multiples of 16, and
+    the attention blocks' shared memory within MAX_SMEM."""
+    if not (mode in TC_MODES and B >= TC_POLICY[mode].min_rows and cfg.d_model % 16 == 0
             and cfg.d_inner % 16 == 0 and mem_len % 16 == 0
             and cfg.d_head in KERNEL_HEAD_DIMS):
         return False
     Dh, M = cfg.d_head, mem_len
-    if mode in INT8_SCORE_MODES:
+    if TC_POLICY[mode].attention == "ScoresI8":
         return max(tc_scores_i8_smem(Dh, M), tc_pv_i8_smem(Dh, M)) <= MAX_SMEM
-    return tc_attention_smem(Dh, M, mode == "multirow_int8") <= MAX_SMEM
+    return tc_attention_smem(Dh, M, mode) <= MAX_SMEM
 
 
 def planned_kernels_per_step(n_layers: int, mode: str, tc: bool) -> int:

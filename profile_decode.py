@@ -19,17 +19,19 @@ time, the device-busy share of the window, the host operations by their own
 host time, and the card's name and power limit. Imports only the port;
 needs one CUDA card.
 
-``--modes`` profiles explicit decode modes instead (any of
-``chip_smoke.EXPLICIT_MODES``): for each B of ``--batches``, ``--steps``
+``--modes`` profiles decode modes instead (any of
+``chip_smoke.EXPLICIT_MODES`` and of ``fd.TC_MODES``, so also slab, the
+continuous service's step): for each B of ``--batches``, ``--steps``
 steps of the mode's wrapper on a full ring (ptr 100) of the flagship, the
 CUDA kernels by device time a step; then, beside it, the yardstick of its
 weight products: ``torch.matmul`` of the same bf16 operands (the int8
 panels dequantized by their column scales and rounded to bf16, as the
 kernels use them) by the same (B, K) rows, 4 a layer x 8 layers, its
-device time a step (never called by the port). For slab4, slab4_w8 and
-slab_int8 on the tensor-core chain it also prints each attention kernel's
-blocks, the blocks the card holds at once and so its waves (the kernel
-library's ``slab_decode_attention_occupancy``, where the tree has it). It
+device time a step (never called by the port). For slab4, slab4_w8,
+slab_int8 and slab on the tensor-core chain it also prints each attention
+kernel's blocks, the blocks the card holds at once and so its waves (the
+kernel library's ``slab_decode_attention_occupancy``, where the tree has it
+for the mode). It
 uses only functions that every tree of the port has otherwise, so the
 same script profiles a parent checkout (copy it there).
 
@@ -114,19 +116,24 @@ def device_ms(prof) -> dict:
             if e.self_device_time_total > 0}
 
 
+# the modes --modes takes
+PROFILED_MODES = tuple(dict.fromkeys(chip_smoke.EXPLICIT_MODES + fd.TC_MODES))
+
+
 def attention_waves(mode, cfg, B: int, M: int):
     """[(kernel, blocks of its launch, blocks the card holds at once)] of
     the chain's attention kernels of ``mode`` at B, or None where the mode
     does not run the chain's slab attention or the library has no such
     query."""
-    if mode not in ("slab4", "slab4_w8", "slab_int8") or not fd.tc_path(mode, cfg, B, M):
+    kind = fd.TC_POLICY[mode].occupancy if mode in fd.TC_POLICY else None
+    if kind is None or not fd.tc_path(mode, cfg, B, M):
         return None
     fn = getattr(fd._lib("slab_decode"), "slab_decode_attention_occupancy", None)
     if fn is None:
         return None
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.c_void_p]
     out = (ctypes.c_int * 6)()
-    n = fn(B, cfg.n_heads, cfg.d_head, M, int(mode == "slab_int8"), out)
+    n = fn(B, cfg.n_heads, cfg.d_head, M, kind, out)
     if n < 0:
         raise RuntimeError(f"slab_decode_attention_occupancy: CUDA error {-n}")
     names = ("qkv_sum_i8", "group_scores_i8", "pv_i8") if n == 3 else ("group_attention",)
@@ -250,8 +257,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=None,
                     help="decode steps a window (default 20; 64 with --model multitask)")
     ap.add_argument("--batches", type=int, nargs="*", default=[16, 64])
-    ap.add_argument("--modes", nargs="*", default=None,
-                    help="explicit decode modes to profile (chip_smoke.EXPLICIT_MODES)")
+    ap.add_argument("--modes", nargs="*", default=None, choices=PROFILED_MODES,
+                    help="decode modes to profile (chip_smoke.EXPLICIT_MODES, fd.TC_MODES)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)

@@ -321,7 +321,8 @@ def test_batched_path_goes_through_both_kernels():
 def test_continuous_midflight_join_matches_solo(kernel):
     """On the card, requests that join a busy continuous batch (the ring
     pointer and clock away from 0) emit exactly what they emit decoded
-    alone on the same kernel, greedy and sampled; the auto kernel is slab."""
+    alone on the same kernel, greedy and sampled; the auto kernel is slab,
+    which at these 8 slots runs the tensor-core chain."""
     _card()
     import chip_smoke as cs
     learner = MusicLearner.load(DEMO)
@@ -821,15 +822,15 @@ def test_stack_path_follows_the_exact_ring_step():
     assert cs.stack_path_phase(learner, items, 32) == {"fused_stack": 32, "fused_batched": 32}
 
 
-TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8")
+TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [8, 24, 64])
 @pytest.mark.parametrize("mode", TC_MODES)
 def test_tc_modes_against_float64(mode, B):
-    """slab4_w8, multirow_int8, slab4 and slab_int8 (min(B, 8) rows a
-    cell) on their tensor-core chain (B >= 8, csrc/tc_decode.cuh) at the
+    """slab4_w8, multirow_int8, slab4, slab_int8 (min(B, 8) rows a cell),
+    multirow and slab on their tensor-core chain (B >= 8, csrc/tc_decode.cuh) at the
     demo checkpoint's widths: every case of chip_smoke.py's kernel phase
     held to its float64 check (raises on a disagreement), one launch counted
     a case."""
@@ -844,6 +845,28 @@ def test_tc_modes_against_float64(mode, B):
                                 mode, (B,))
     assert cs.launches() == cs.only(**{mode: len(cs.kernel_ptrs(mode, M)) * len(cs.RINGS)})
     print(f"{mode} B={B}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batches,extra,chain", [((3, 5), 0, True), ((1, 5, 16), 8, False)],
+                         ids=["chain_B3_B5", "old_chain_mem_len_plus_8"])
+def test_multirow_edge_cases_against_float64(batches, extra, chain):
+    """multirow's tensor-core chain below 8 rows (B = 3 and 5: clusters of 4
+    with padded rows), and its old chain (multirow_step) at mem_len + 8, a
+    size the chain refuses, at the demo checkpoint's widths: every case of
+    chip_smoke.py's kernel phase held to its float64 check (raises on a
+    disagreement), one launch counted a case."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    M = engine.cfg.mem_len + extra
+    cs.reset_launches()
+    dh, ratio = cs.edge_phase(engine, np.random.default_rng(11), dev, "multirow", batches,
+                              M if extra else None, chain)
+    cases = len(batches) * len(cs.kernel_ptrs("multirow", M)) * len(cs.RINGS)
+    assert cs.launches() == cs.only(multirow=cases)
+    print(f"multirow B in {batches} M={M}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
 
 
 @pytest.mark.cuda
@@ -904,6 +927,7 @@ def test_tc_step_kernels(mode):
     stacked, w_scales = cs.weights(engine, mode)
     wkr = cs.mode_wkr(mode, cs.wkr_table(engine))
     kw = {} if mode in cs.MULTIROW_MODES else dict(weights_int8=w_scales is not None,
-                                                    w_scales=w_scales, **cs.SLAB_ARGS[mode])
+                                                    w_scales=w_scales,
+                                                    **cs.SLAB_ARGS.get(mode, {}))
     step = lambda: cs.CORES[mode](stacked, cfg, h_in, wkr, *kv, blocked, 40, M, **kw)
     assert 0 < cs.chain_kernels(mode, step, per_step, n=4) <= 4 * per_step

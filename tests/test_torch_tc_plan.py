@@ -1,8 +1,9 @@
 """The plan of the tensor-core decode chain (``csrc/tc_decode.cuh``) of the
-slab4_w8, slab4, slab_int8 and multirow_int8 steps at B >= 8, mirrored in
-``ops/fused_decode.py`` and held here on the CPU: the products' tiling and
-partial order, the dequantized weight tile, the attention's row clusters,
-the shared memory rule, the launch count, the scratch layout, and
+slab4_w8, slab4, slab_int8, slab, multirow_int8 and multirow steps at
+B >= 8, mirrored in ``ops/fused_decode.py`` and held here on the CPU: the
+products' tiling and partial order, the dequantized weight tile, the
+attention's row clusters, the shared memory of each attention policy, the
+bf16 K panel's key-dot split, the launch count, the scratch layout, and
 slab_int8's cells and the sources of its two scales. The kernels themselves
 run on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
@@ -152,25 +153,110 @@ def test_attention_clusters_cover_each_row_and_head_once(B):
 
 
 def test_tc_path_rule():
-    """The chain serves slab4_w8, slab4, slab_int8 and multirow_int8 at
-    B >= 8 at the flagship's and small widths, never another mode (nor
-    slab_int8_w8) or B < 8, and not where an attention block's shared
-    memory would pass a block's."""
+    """The chain serves slab4_w8, slab4, slab_int8, slab and multirow_int8
+    at B >= 8 and multirow at every B, at the flagship's and small widths,
+    never another mode (nor slab_int8_w8) or B < 8, and not where an
+    attention block's shared memory would pass a block's: at Dh 64 every
+    grouped policy's limit is M = 3376 (see test_attention_smem_by_policy)."""
+    chain = ("slab4_w8", "slab4", "slab_int8", "slab", "multirow_int8")
     for cfg in (FLAGSHIP, SMALL):
         for mode in fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES:
-            for B in (1, 4, 7, 8, 24, 64):
-                want = mode in ("slab4_w8", "slab4", "slab_int8", "multirow_int8") and B >= 8
+            for B in (1, 2, 4, 7, 8, 24, 64):
+                want = mode == "multirow" or (mode in chain and B >= 8)
                 assert fd.tc_path(mode, cfg, B, cfg.mem_len) == want, (mode, B)
-    assert fd.tc_attention_smem(64, 512, True) <= fd.MAX_SMEM
+    assert {m: p.min_rows for m, p in fd.TC_POLICY.items()} == {
+        "slab4_w8": 8, "multirow_int8": 8, "slab4": 8, "slab_int8": 8, "multirow": 1,
+        "slab": 8}
+    assert fd.tc_attention_smem(64, 512, "multirow_int8") <= fd.MAX_SMEM
     assert not fd.tc_path("multirow_int8", FLAGSHIP, 64, 8192)
     assert not fd.tc_path("slab4_w8", FLAGSHIP, 64, 520)     # mem_len % 16
     assert not fd.tc_path("slab4", FLAGSHIP, 64, 520)
+    assert not fd.tc_path("slab", FLAGSHIP, 64, 520)
+    for mode in ("multirow", "slab", "multirow_int8", "slab4"):
+        assert fd.tc_path(mode, FLAGSHIP, 8, 3376)
+        assert not fd.tc_path(mode, FLAGSHIP, 8, 3392)
+    assert not fd.tc_path("slab", FLAGSHIP, 7, 512)
+    assert fd.tc_path("multirow", FLAGSHIP, 1, 3376)
+    assert not fd.tc_path("multirow", FLAGSHIP, 1, 3392)
+    assert not fd.tc_path("multirow", FLAGSHIP, 1, 520)
     # slab_int8's scores block at Dh 64: 4 (9 M + 438) bytes, so M 6400
     # passes and 6416 not; its P.V block is far smaller
     assert fd.tc_scores_i8_smem(64, 512) == 4 * (4 * 64 + 128 + 1536 + 1026 + 32 + 16 + 2052)
     assert fd.tc_pv_i8_smem(64, 6416) < fd.tc_scores_i8_smem(64, 6416)
     assert fd.tc_path("slab_int8", FLAGSHIP, 64, 6400)
     assert not fd.tc_path("slab_int8", FLAGSHIP, 64, 6416)
+
+
+@pytest.mark.parametrize("cfg", [FLAGSHIP, SMALL], ids=["flagship", "small"])
+def test_attention_smem_by_policy(cfg):
+    """Each grouped mode's policy's shared memory, against figures worked out by
+    hand: floats G Dh + 3 Dh + 3 M + 2 (M + 1) + 32 + G (M + 1), rounded up
+    to 4, then the larger of the work buffer (256 x 16 or 8 M floats) and,
+    for the head-major panels, the quarter of the head's relative slice
+    (Dh / 4 x (M + 1) bf16, rounded up to 16 bytes). Flagship (Dh 64, M
+    512): 5096 floats = 20384 bytes, work 16384, stage 16416; small (Dh 16,
+    M 64): 728 floats = 2912 bytes, work 16384, stage 528. Each mode's
+    attention runs the policy it is mirrored with, and only the head-major
+    panels' policies stage."""
+    grouped = ("slab4_w8", "multirow_int8", "slab4", "multirow", "slab")
+    want = {FLAGSHIP: {"slab4_w8": 36768, "multirow_int8": 36800, "slab4": 36768,
+                       "multirow": 36800, "slab": 36768},
+            SMALL: dict.fromkeys(grouped, 19296)}[cfg]
+    got = {m: fd.tc_attention_smem(cfg.d_head, cfg.mem_len, m) for m in grouped}
+    assert got == want
+    assert {m: (p.attention, p.panel) for m, p in fd.TC_POLICY.items()} == {
+        "slab4_w8": ("GroupI4", False), "multirow_int8": ("GroupPanelI8", True),
+        "slab4": ("GroupI4", False), "slab_int8": ("ScoresI8", False),
+        "multirow": ("GroupPanelBF16", True), "slab": ("GroupSlotI8", False)}
+    # at Dh 64 the largest M that fits: 4 ceil4(9 M + 486) + 32 M (+ 32 for a
+    # panel's stage) bytes is 231520 (231552) at M 3376, 232608 at 3392
+    assert fd.tc_attention_smem(64, 3376, "slab") == 231520
+    assert fd.tc_attention_smem(64, 3376, "multirow") == 231552
+    assert fd.tc_attention_smem(64, 3392, "slab") == 232608 > fd.MAX_SMEM
+    with pytest.raises(ValueError):
+        fd.tc_attention_smem(64, 512, "slab_int8")
+
+
+def panel_bf16_key_dots(k, qu):
+    """GroupPanelBF16::key_dots as the kernel splits the work, float32: the
+    head's bf16 K panel ``k`` (Dh, M) and q + u ``qu`` (Dh,); warp w of the
+    block's 8 takes d in [w Dh / 8, (w + 1) Dh / 8), lane l the 8-slot runs
+    c = l, l + 32, ... (one 16-byte load a d), each slot's sum over the
+    warp's d in order; the eight warps' sums added in warp order. Returns
+    the dots and how often each (d, slot) was read."""
+    Dh, M = k.shape
+    warps = fd.ATTN_THREADS // 32
+    DW = Dh // warps
+    kp = torch.zeros(warps, M)
+    seen = torch.zeros(Dh, M, dtype=torch.int32)
+    for w in range(warps):
+        for lane in range(32):
+            for c in range(lane, M // 8, 32):
+                run = slice(8 * c, 8 * c + 8)
+                acc = torch.zeros(8)
+                for d in range(w * DW, (w + 1) * DW):
+                    acc = acc + k[d, run] * qu[d]
+                    seen[d, run] += 1
+                kp[w, run] = acc
+    t = torch.zeros(M)
+    for w in range(warps):
+        t = t + kp[w]
+    return t, seen
+
+
+@pytest.mark.parametrize("Dh,M", [(64, 512), (16, 64), (128, 256)])
+def test_panel_bf16_key_dot_split(Dh, M):
+    """The split reads every (d, slot) of the head's panel exactly once and
+    gives the plain key dots (q + u) . K[:, m] within float32 rounding."""
+    rng = np.random.default_rng(Dh + M)
+    k = torch.from_numpy(rng.normal(scale=0.5, size=(Dh, M)).astype(np.float32))
+    k = k.bfloat16().float()
+    qu = torch.from_numpy(rng.normal(size=Dh).astype(np.float32)).bfloat16().float()
+    got, seen = panel_bf16_key_dots(k, qu)
+    assert torch.equal(seen, torch.ones_like(seen))
+    plain = (qu.double()[:, None] * k.double()).sum(0)
+    bound = 4 * Dh * 2.0 ** -24 * (qu.double().abs()[:, None] * k.double().abs()).sum(0)
+    assert bool(((got.double() - plain).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("mode", fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES)
@@ -182,6 +268,7 @@ def test_launch_count_mirror(mode):
     L = FLAGSHIP.n_layers
     tc = fd.tc_path(mode, FLAGSHIP, 64, FLAGSHIP.mem_len)
     int8 = mode in fd.INT8_SCORE_MODES
+    assert tc == (mode in fd.TC_MODES)
     want = (9 * L if int8 else 7 * L) if tc else (12 * L if int8 else 10 * L)
     assert fd.planned_kernels_per_step(L, mode, tc) == want
     assert fd.planned_kernels_per_step(L, mode, False) == (12 * L if mode in fd.INT8_SCORE_MODES
