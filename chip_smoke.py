@@ -17,7 +17,8 @@ non-zero without printing a result):
    {0, 31, 32, M - 1} on a partly full, a full and a short ring (RINGS):
    ``fused_slab_core`` in its modes slab_w8 (B in {1, 4}) and slab (bf16
    weights, B in {1, 16}), ``fused_slab_allrows_core`` in its modes
-   slab_ar_w8 and slab_ar (B in {8, 64}, then 16), so every B a main path
+   slab_ar_w8 and slab_ar (B in {8, 64}, then 16; the tensor-core chain of
+   csrc/tc_decode.cuh, as slab's at B >= 8), so every B a main path
    gives a kernel is among them, at the genre flagship's widths. Then the
    explicit modes, drawn from an rng of their own (MODE_CASE_BATCHES): the
    slab step's slab_int8 (B in {1, 24, 64}, B = 64 at 32 rows a cell and
@@ -34,7 +35,11 @@ non-zero without printing a result):
    multirow's edge cases (MULTIROW_EDGE_CASES, an rng of their own): its
    chain at B in {3, 5}, clusters of 4 rows with padded ones, and its old
    chain (multirow_step, the sizes the chain refuses) at M = 520, B in
-   {1, 5, 64}, by the same check. Then
+   {1, 5, 64}, by the same check. Then the all-rows steps' cases
+   (ALLROWS_CHAIN_CASES, ALLROWS_EDGE_CASES, an rng of their own): slab_ar_w8
+   and slab_ar on the chain at B in {24, 72} and slab_ar_w8 at 128 (two row
+   groups of the products), and their old chain at B in {1, 4} and at
+   M = 520, B in {8, 64}, by the same check. Then
    ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
    W = 512, the batched paths' shapes; B = 2, W = 4096; B = 1, W = 128;
    B = 8, W = 96, a tail tile) against the float32 plain version. Then the
@@ -51,7 +56,8 @@ non-zero without printing a result):
 5. timing — CUDA-event medians of each kernel and of its plain version at
    the main paths' shapes, beside the bound from the bytes it must move and
    the operations it must do; slab_w8 and slab_ar_w8 at B in
-   {1, 4, 8, 16, 64}, slab at B in {8, 16, 64}, slab_ar at B in {16, 64},
+   {1, 4, 8, 16, 64} (slab_ar_w8 also at 128), slab at B in {8, 16, 64},
+   slab_ar at B in {8, 16, 64},
    the five explicit modes at B in {1, 64} (slab4 also at 16 and 32 rows a
    cell; slab4_w8, slab4, slab_int8, multirow_int8 and multirow also at 8
    and 16), each step on the tensor-core chain also
@@ -65,9 +71,14 @@ non-zero without printing a result):
    equal the number of token steps; the output MIDI is re-parsed and checked.
 7. batch  — 16 requests through ``GenerationService(max_batch=16)``: one
    batch of 16 rows, W = 512, prefilled through the flash kernel (one launch
-   per layer) and decoded through slab_ar_w8 (one launch per step); then
-   one ``generate_batch`` of 64 prompts. Every result is re-parsed and
-   checked.
+   per layer) and decoded through slab_ar_w8 (one launch per step, on the
+   tensor-core chain); then one ``generate_batch`` of 64 prompts. Every
+   result is re-parsed and checked. A ``generate_batch`` row that fails the
+   checks is replayed on the plain step (``forced=``): each note it drew
+   outside the piano range must be one the plain sampler's filter keeps at
+   that step, and the rest of the row must pass the data gate
+   (``check_drawn_row``); a row that fails that fails the run after the
+   last phase and the ``kernels`` line.
 8. continuous — 32 requests in four waves through
    ``ContinuousGenerationService`` (16 slots, chunks of 32 steps, the auto
    kernel, which must be slab), with mixed budgets and sampling settings;
@@ -252,7 +263,7 @@ from deepmusicgeneration_tpu_torch.train.learner import (MultitaskLearner, Music
                                                          multitask_model_learner)
 from deepmusicgeneration_tpu_torch.train.loop import _batch_to_device, multi_loss
 from deepmusicgeneration_tpu_torch.train.preprocess import load_corpus
-from deepmusicgeneration_tpu_torch.vocab import SAMPLE_FREQ, MusicVocab
+from deepmusicgeneration_tpu_torch.vocab import PIANO_RANGE, SAMPLE_FREQ, VALTSEP, MusicVocab
 
 CKPT = Path(__file__).resolve().parent / "checkpoints" / "synth_genre_model"
 MT_DEMO = Path(__file__).resolve().parent / "checkpoints" / "demo_multitask_model"
@@ -1013,10 +1024,9 @@ def slab_timing(engine, wkr_mt, rng, dev, name, B, flush, rows=None):
         f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP bf16, "
         f"{int8_ops / 1e6:.1f} MOP int8, by {bound_by}); 1 wrapper launch = "
         f"{per_step} CUDA kernels per step" + (" (tensor-core chain)" if tc else ""))
-    if tc:
-        chain_kernels(f"{name} B={B}", kernel, per_step)
+    recorded, chain = chain_kernels(f"{name} B={B}", kernel, per_step, tc)
     return dict(ms=min(ms, ms_again), plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, chain=chain, kernels_a_step=recorded)
 
 
 # the kernels of the tensor-core chain (csrc/tc_decode.cuh) of fd.TC_MODES,
@@ -1025,12 +1035,14 @@ TC_CHAIN_KERNELS = ("tc_product", "group_attention", "tc_layer_norm", "qkv_sum_i
                     "group_scores_i8", "pv_i8")
 
 
-def chain_kernels(label, fn, per_step: int, n: int = 10) -> int:
-    """The CUDA kernels of ``n`` wrapper calls of a tensor-core chain step
-    under ``torch.profiler``: all of them the chain's (TC_CHAIN_KERNELS), at
-    most ``per_step`` (the wrapper's count) a call, by name; says them and
-    returns the number recorded. The profiler can drop records, so the
-    wrapper's count is the count and the profiler shows what ran."""
+def chain_kernels(label, fn, per_step: int, tc: bool, n: int = 10):
+    """The CUDA kernels of ``n`` wrapper calls of a decode step under
+    ``torch.profiler``, by name: at most ``per_step`` (the wrapper's count)
+    a call; on the tensor-core chain all of them the chain's
+    (TC_CHAIN_KERNELS), off it none of them. Says them and returns (the
+    kernels recorded a step, the chain their names show: "tensor-core" or
+    "old"). The profiler can drop records, so the wrapper's count is the
+    count and the profiler shows what ran."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -1046,12 +1058,14 @@ def chain_kernels(label, fn, per_step: int, n: int = 10) -> int:
                          e.key[:60])
             kernels[short] = kernels.get(short, 0) + e.count
     recorded = sum(kernels.values())
-    if recorded > n * per_step or not set(kernels) <= set(TC_CHAIN_KERNELS):
+    chain = "tensor-core" if kernels and set(kernels) <= set(TC_CHAIN_KERNELS) else "old"
+    if (not 0 < recorded <= n * per_step or (chain == "tensor-core") != tc
+            or (not tc and set(kernels) & set(TC_CHAIN_KERNELS))):
         raise AssertionError(f"{label}: {n} wrapper calls ran {kernels}")
     say(f"timing: {label} {per_step} CUDA kernels a step by the wrapper's count; the "
-        f"profiler recorded {recorded} over {n} steps ({recorded / n:g} a step): "
-        + ", ".join(f"{k} {c / n:g}" for k, c in sorted(kernels.items())))
-    return recorded
+        f"profiler recorded {recorded} over {n} steps ({recorded / n:g} a step, the "
+        f"{chain} chain): " + ", ".join(f"{k} {c / n:g}" for k, c in sorted(kernels.items())))
+    return recorded / n, chain
 
 
 def flash_timing(cfg, dev, B, W, seed):
@@ -1093,6 +1107,17 @@ EXPLICIT_MODES = ("slab_int8", "slab4", "slab4_w8", "multirow", "multirow_int8")
 # the sizes tc_accepts refuses, at M = 520 (not a multiple of 16).
 MULTIROW_EDGE_CASES = (("multirow", (3, 5), None, True),
                        ("multirow", (1, 5, 64), 520, False))
+# the all-rows steps' cases beyond KERNEL_CASE_BATCHES, drawn after
+# MULTIROW_EDGE_CASES from an rng of their own, as edge_phase takes them: the
+# tensor-core chain at B = 24 and 72 (a second row group of 8 live rows) and
+# slab_ar_w8 at B = 128 (two whole row groups); then the old all-rows chain
+# (slab_ar_w8_step / slab_ar_step, gemm_partial), which serves the sizes the
+# chain refuses: B = 1 and 4, and B = 8 and 64 at M = 520 (not a multiple of
+# 16)
+ALLROWS_CHAIN_CASES = (("slab_ar_w8", (24, 72), None, True), ("slab_ar", (24, 72), None, True),
+                       ("slab_ar_w8", (128,), None, True))
+ALLROWS_EDGE_CASES = (("slab_ar_w8", (1, 4), None, False), ("slab_ar", (1, 4), None, False),
+                      ("slab_ar_w8", (8, 64), 520, False), ("slab_ar", (8, 64), 520, False))
 # the explicit modes' timed batch sizes: the tensor-core chain's modes
 # (fd.TC_MODES) also at 8 and 16, on both sides of its B >= 8 rule (multirow:
 # the chain at every B)
@@ -1103,9 +1128,10 @@ MODE_TIMING_BATCHES = {mode: (1, 8, 16, 64) if mode in fd.TC_MODES else (1, 64)
 def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     """Kernel timings at the main paths' shapes, the int8-weight slab steps
     at every B of the crossover between their weight products (the
-    row-tiled GEMV of slab_w8, the all-rows GEMM of slab_ar_w8), and the
-    bf16-weight steps at B = 16 and 64 (slab also at 8, where its
-    tensor-core chain starts, drawn last); the explicit modes at B = 1 and
+    row-tiled GEMV of slab_w8; slab_ar_w8's all-rows GEMM at B < 8, its
+    tensor-core chain at B >= 8), and the bf16-weight steps at B = 16 and 64
+    (slab and slab_ar also at 8, where the tensor-core chain starts, and
+    slab_ar_w8 at 128, its two row groups, drawn last); the explicit modes at B = 1 and
     64 (slab4 also at 16 and 32 rows a cell; the modes of fd.TC_MODES also
     at 8 and 16); the launches made here do not
     count as the main paths'. Returns the timings of the JSON line: slab_w8
@@ -1125,6 +1151,9 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     for R in (16, 32):
         slab_timing(engine, wkr_mt, modes_rng, dev, "slab4", 64, flush, rows=R)
     times["slab"][8] = slab_timing(engine, wkr_mt, modes_rng, dev, "slab", 8, flush)
+    times["slab_ar"][8] = slab_timing(engine, wkr_mt, modes_rng, dev, "slab_ar", 8, flush)
+    times["slab_ar_w8"][128] = slab_timing(engine, wkr_mt, modes_rng, dev, "slab_ar_w8", 128,
+                                           flush)
     flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}
     set_launches(before)
     return {"slab_w8": times["slab_w8"][1], "slab_ar_w8": times["slab_ar_w8"][16],
@@ -1224,8 +1253,44 @@ def check_continuation(seed_item, pred, vocab, piano_range: bool = True) -> dict
                   valid_npenc=is_valid_npenc(back.to_npenc(), min_notes=1))
     if not (len(pred) > 0 and back.data[0] == vocab.bos_idx and viol == 0
             and checks["roundtrip"] and (checks["valid_npenc"] or not piano_range)):
-        raise AssertionError(f"generated MIDI failed its checks: {checks}")
+        npenc = back.to_npenc()
+        pitch = npenc[npenc[:, 0] > VALTSEP, 0]
+        outside = pitch[(pitch < PIANO_RANGE[0]) | (pitch >= PIANO_RANGE[1])]
+        raise AssertionError(
+            f"generated MIDI failed its checks: {checks}, pitches outside the piano range "
+            f"{PIANO_RANGE}: {sorted({int(x) for x in outside})}, largest duration "
+            f"{int(npenc[:, 1].max(initial=0))}")
     return checks
+
+
+def check_drawn_row(seed_item, pred, kept, vocab) -> dict:
+    """The data gate of a sampled row that drew notes outside the piano
+    range. ``kept`` (n_words,) is the plain step's replay of ``pred``
+    (``generate_batch(decode_kernel="xla", forced=...)``): whether its filter
+    kept each token at its step. Each note outside the piano range must be
+    kept there, so the plain sampler could have drawn it at that step. The
+    whole row passes ``check_continuation`` without the data gate, and the
+    row without those notes (each with the duration and instrument tokens
+    that follow it) passes it with the gate on. Raises otherwise; returns
+    the checks and the notes held so."""
+    lo, hi = vocab.note_range
+    pitch = pred - lo
+    outside = np.nonzero((pred >= lo) & (pred < hi) & ((pitch < PIANO_RANGE[0])
+                                                       | (pitch >= PIANO_RANGE[1])))[0]
+    not_kept = [f"step {t} n{pitch[t]}" for t in outside if not kept[t]]
+    if not_kept:
+        raise AssertionError("notes outside the piano range that the plain step's "
+                             f"filter does not keep at their step: {not_kept}")
+    checks = check_continuation(seed_item, pred, vocab, piano_range=False)
+    drop = []
+    for t in outside:
+        drop.append(t)
+        for after, follows in ((1, vocab.is_duration), (2, vocab.is_ins)):
+            if t + after >= len(pred) or not follows(pred[t + after]):
+                break
+            drop.append(t + after)
+    check_continuation(seed_item, np.delete(pred, drop), vocab)
+    return dict(checks, outside_kept=[f"step {t} n{pitch[t]}" for t in outside])
 
 
 def main_path_phase(learner, seed: int, n_words: int):
@@ -1272,7 +1337,8 @@ def batch_prompts(vocab, seed: int, n: int):
 
 def batched_phase(learner, items, seed: int, n_words: int):
     """The first 16 of ``items`` as requests to the service, then one
-    generate_batch of all 64."""
+    generate_batch of all 64. Returns the service's launch counts and the
+    generate_batch rows that failed their checks."""
     vocab, engine = learner.vocab, learner.engine
     M = engine.cfg.mem_len
     if (engine.resolve_kernel(16), engine.resolve_kernel(64)) != ("slab_ar_w8",) * 2:
@@ -1315,15 +1381,40 @@ def batched_phase(learner, items, seed: int, n_words: int):
     counts = launches()
     if counts != want:
         raise AssertionError(f"generate_batch B=64 launched {counts}, expected {want}")
-    checks = [check_continuation(it, toks[i][: lengths[i]], vocab)
-              for i, it in enumerate(items)]
+    # No engine masks pitch, so a sampled row may draw a note outside the
+    # piano range. A row that fails check_continuation is replayed through
+    # the plain step (xla, no kernel) and held to check_drawn_row: each such
+    # note must be one the plain sampler could have drawn at its step. A row
+    # that fails that does not stop the phases after this one, which hold
+    # other kernels and paths; main fails the run at its end.
+    checks, drawn, held, failed = [], {}, [], []
+    for i, it in enumerate(items):
+        try:
+            checks.append(check_continuation(it, toks[i][: lengths[i]], vocab))
+        except AssertionError as e:
+            drawn[i] = str(e)
+    if drawn:
+        rows = sorted(drawn)
+        kept, _ = engine.generate_batch([items[i].data for i in rows], n_words=n_words,
+                                        seed=seed, decode_kernel="xla", forced=toks[rows],
+                                        **GEN_KW)
+        for j, i in enumerate(rows):
+            try:
+                checks.append(check_drawn_row(items[i], toks[i][: lengths[i]], kept[j], vocab))
+                held.append(f"row {i}: {checks[-1]['outside_kept']}")
+            except AssertionError as e:
+                failed.append(f"row {i}: {drawn[i]}; replayed on the plain step: {e}")
     emitted = int(lengths.sum())
-    say(f"batch: generate_batch B=64 W={W} n_words={n_words} launches={counts}; all "
-        f"64 re-parse, grammar violations "
-        f"{sum(c['grammar_violations'] for c in checks)}, emitted {emitted} tokens: "
+    say(f"batch: generate_batch B=64 W={W} n_words={n_words} launches={counts}; "
+        + (f"{len(failed)} of 64 rows FAILED their checks: {failed}; " if failed else
+           f"all 64 re-parse, grammar violations "
+           f"{sum(c['grammar_violations'] for c in checks)}, ")
+        + (f"notes outside the piano range, each kept by the plain step's filter at "
+           f"its step (replayed): {held}; " if held else "")
+        + f"emitted {emitted} tokens: "
         f"{emitted / secs:.1f} emitted tok/s, {n_words / secs:.1f} steps/s "
         f"({secs:.3f} s incl. prefill)")
-    return service_counts
+    return service_counts, failed
 
 
 def continuous_requests(items, seed: int):
@@ -2982,6 +3073,10 @@ def main(argv=None) -> int:
     for mode, batches, M, chain in MULTIROW_EDGE_CASES:
         worse(err, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
                                edge_phase, engine, edge_rng, dev, mode, batches, M, chain))
+    allrows_rng = np.random.default_rng(args.seed + 5)
+    for mode, batches, M, chain in ALLROWS_CHAIN_CASES + ALLROWS_EDGE_CASES:
+        worse(err, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
+                               edge_phase, engine, allrows_rng, dev, mode, batches, M, chain))
     err["flash"] = timed("kernel flash", flash_phase, engine.cfg, dev, args.seed)
     flagship, demo = timed("mt load", mt_load_phase, dev, args.seed)
     for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),
@@ -2994,7 +3089,8 @@ def main(argv=None) -> int:
     timing = timed("timing", timing_phase, engine, wkr_mt, rng, dev, args.seed, modes_rng)
     timing.update(timed("mt timing", mt_timing_phase, flagship, rng, dev))
     n_single = timed("main", main_path_phase, learner, args.seed, args.n_words)
-    batched = timed("batch", batched_phase, learner, items, args.seed, args.n_words)
+    batched, batch_failed = timed("batch", batched_phase, learner, items, args.seed,
+                                  args.n_words)
     n_slab = timed("continuous", continuous_phase, learner, items[16:48], args.seed)
     n_slab_ar = timed("slab_ar", slab_ar_phase, learner, items[48:], args.seed)
     n_modes = timed("modes", explicit_modes_phase, learner, items, args.seed, args.n_words)
@@ -3031,7 +3127,10 @@ def main(argv=None) -> int:
         "replaces": src + replaces, "launches": launched, "max_abs_err": err[key][0],
         "max_err_over_bound": err[key][1],
         **{k: timing[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None}
+        "library_ms": None,
+        # the decode steps: the chain and the CUDA kernels a step that the
+        # profiler recorded in their timed step
+        **{k: timing[key][k] for k in ("chain", "kernels_a_step") if k in timing[key]}}
     say(json.dumps({"kernels": [
         entry("fused_slab_core[slab_w8]", "slab_decode.cu", "fused_decode.py:1163",
               n_single, "slab_w8"),
@@ -3075,6 +3174,9 @@ def main(argv=None) -> int:
         # no path runs the int8-score step over int8 panels: its launches are 0
         entry("fused_slab_core[slab_int8_w8]", "slab_decode.cu", "fused_decode.py:1163",
               0, "slab_int8_w8")]}))
+    if batch_failed:
+        say(f"FAILED: generate_batch B=64 rows failed their checks: {batch_failed}")
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -56,7 +56,7 @@ from ..ops.fused_decode import (fused_multirow_core, fused_multirow_q_core,
                                 kernel_accepts, quantize_kv_panels,
                                 quantize_kv_slot_major, quantize_kv_slot_major_int4,
                                 quantize_stacked_weights, stack_txl_layers)
-from ..ops.sampling import FILTER_VALUE, filter_sample_sorted
+from ..ops.sampling import FILTER_VALUE, filter_keeps, filter_sample_sorted
 from ..vocab import SAMPLE_FREQ, MusicVocab
 
 I32 = torch.int32
@@ -267,6 +267,29 @@ def sample_next_token(
     return advance_state(idx, nc, st, last_xxsep, tables, past_80pct, settings, max_pos)
 
 
+def replay_next_token(
+    logits: torch.Tensor,
+    st: SampleState,
+    tables: DecodeTables,
+    temperatures: torch.Tensor,
+    top_k,
+    top_p,
+    min_bars: int,
+    allowed_ins: torch.Tensor,
+    settings: SamplerSettings,
+    past_80pct: bool,
+    forced: torch.Tensor,          # (B,) the token to take instead of a draw
+) -> Tuple[torch.Tensor, SampleState, torch.Tensor]:
+    """:func:`sample_next_token` with its draw replaced by ``forced``.
+    Returns (idx, new state, kept): ``kept`` (B,) says whether the filter
+    kept ``forced``, i.e. whether this step could have drawn it."""
+    logits, last_xxsep = prepare_logits(logits, st, tables, temperatures,
+                                        min_bars, allowed_ins, settings)
+    kept, nc = filter_keeps(logits, top_k, top_p, forced, greedy=settings.greedy)
+    idx, st = advance_state(forced, nc, st, last_xxsep, tables, past_80pct, settings)
+    return idx, st, kept
+
+
 def _past_80pct(i: int, n_words: int) -> bool:
     """``i / n_words > 0.80`` evaluated in float32, as on the device."""
     return bool(np.float32(i) / np.float32(n_words) > np.float32(0.80))
@@ -292,8 +315,13 @@ def generate_compiled(
     stacked_q=None,               # (StackedTXL, w_scales or None) for the fused kernels
     rows_per_cell: Optional[int] = None,
     kv_int8: bool = False,
+    forced: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + fixed-length sampling loop.
+
+    ``forced`` (B, n_words): the tokens to feed instead of the draws (a
+    replay). The loop then returns (kept (B, n_words) bool, lengths):
+    whether the filter kept each forced token at its step.
 
     ``kernel`` is one of :data:`KERNELS`; ``kv_int8`` quantizes the ring to
     int8 on ``xla`` (``txl.decode_step_ring_q``) and on ``multirow`` (which
@@ -325,8 +353,16 @@ def generate_compiled(
     # the filter's per-row parameters, made on the device once
     top_k_rows = torch.full((B,), settings.top_k, dtype=torch.long, device=dev)
     top_p_rows = torch.full((B,), top_p, dtype=torch.float32, device=dev)
+    if forced is not None:
+        kept = torch.empty((settings.n_words, B), dtype=torch.bool, device=dev)
 
     def sample(i, logits, st):
+        if forced is not None:
+            idx, st, kept[i] = replay_next_token(
+                logits, st, tables, temperatures, top_k_rows, top_p_rows, min_bars,
+                allowed_ins, settings, _past_80pct(i, settings.n_words),
+                forced[:, i].long())
+            return idx, st
         return sample_next_token(logits, st, tables, temperatures, top_k_rows,
                                  top_p_rows, min_bars, allowed_ins, generator, settings,
                                  _past_80pct(i, settings.n_words))
@@ -340,7 +376,7 @@ def generate_compiled(
             idx, st = sample(i, logits, st)
             toks[i] = idx
             logits, cache = step_fn(params, cfg, idx, st.last_pos, cache, wkr)
-        return toks.T, st.n_emitted
+        return (toks if forced is None else kept).T, st.n_emitted
 
     rows_per_cell = rows_per_cell or next(r for r in (8, 4, 2, 1) if B % r == 0)
     run_stack = _fused_stack(cfg, kernel, stacked_q, ring, wkr, M, rows_per_cell,
@@ -358,7 +394,7 @@ def generate_compiled(
             logits = logits + head_b
         g[:, ptr] = g_cur
         ptr, g_cur = (ptr + 1) % M, g_cur + 1
-    return toks.T, st.n_emitted
+    return (toks if forced is None else kept).T, st.n_emitted
 
 
 def _fused_stack(cfg, kernel, stacked_q, ring, wkr, M, rows_per_cell, kv_int8):
@@ -489,9 +525,15 @@ class GenerationEngine:
         kv_int8: bool = False,
         decode_kernel: Optional[str] = None,
         rows_per_cell: Optional[int] = None,
+        forced=None,
     ):
         """Generate for a batch of prompts. Returns numpy
         (tokens (B, n_words) int32, lengths (B,) int32).
+
+        ``forced`` (B, n_words) tokens, as this method returns them, turns
+        the run into a replay: the loop feeds them instead of its draws and
+        returns (kept (B, n_words) bool, lengths), whether this engine's
+        filter kept each one at its step (could have drawn it).
 
         ``decode_kernel``: None = auto (:meth:`resolve_kernel`), or one of
         :data:`KERNELS`: 'xla' is the exact bf16/f32 ring step ('xla' with
@@ -551,7 +593,8 @@ class GenerationEngine:
             mem_len=mem_len, kernel=kernel,
             stacked_q=(None if kernel == "xla" else self.stacked_q()
                        if kernel in INT8_WEIGHT_KERNELS else self.stacked()),
-            rows_per_cell=rows_per_cell, kv_int8=kv_int8)
+            rows_per_cell=rows_per_cell, kv_int8=kv_int8,
+            forced=None if forced is None else torch.as_tensor(np.asarray(forced)).to(dev))
         return out.cpu().numpy(), lengths.cpu().numpy()
 
 

@@ -87,19 +87,22 @@
 // attention block of that row reads in the same step. At B = 64, M = 512
 // the int4 K/V are 201.3 MB a step.
 //
-// At B >= 8, slab4_w8, slab4, slab_int8 and slab run the tensor-core chain
-// of tc_decode.cuh (slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step,
-// slab_tc_step): the weight products on the tensor cores, each weight tile
-// read once a step for up to 64 rows, and an attention that reads a head's
-// relative table once per cluster of rows: GroupI4's for the int4 ring and
-// GroupSlotI8's for slab's int8 ring (a slot's head slice a thread in
+// At B >= 8, slab4_w8, slab4, slab_int8, slab, slab_ar and slab_ar_w8 run
+// the tensor-core chain of tc_decode.cuh (slab4_w8_tc_step, slab4_tc_step,
+// slab_int8_tc_step, slab_tc_step, slab_ar_tc_step, slab_ar_w8_tc_step): the
+// weight products on the tensor cores, each weight tile read once a step for
+// up to 64 rows, and an attention that reads a head's relative table once
+// per cluster of rows: GroupI4's for the int4 ring and GroupSlotI8's for the
+// int8 ring of slab and the all-rows steps (a slot's head slice a thread in
 // 16-byte loads; 7 kernels a layer), and for slab_int8 the int8-score
 // attention of tc_decode.cuh (its query scale reduced from per-(row, head)
 // maxima over the cell, its P.V scale from the row's per-head maxima; 9
-// kernels a layer). At B < 8 they keep the chain above (<mode>_step). slab is
-// the continuous service's step: a request that joins a busy batch decodes
-// as it does alone at the same B, because no sum of the chain crosses rows
-// or takes its order from B.
+// kernels a layer). Since the chain reads each weight tile once for all rows
+// in every mode, the all-rows steps are the chain of slab (bf16 panels) and
+// of slab over int8 panels. At B < 8, and at sizes tc_accepts refuses, they
+// keep the chain above (<mode>_step). slab is the continuous service's step:
+// a request that joins a busy batch decodes as it does alone at the same B,
+// because no sum of the chain crosses rows or takes its order from B.
 //
 // Order contract of every step: attention reads the OLD slot `ptr` of every
 // row (on a full ring that slot holds the oldest token, at distance exactly
@@ -411,7 +414,7 @@ int group_occupancy(dim3 grouped, int M, int* out) {
 }
 
 // kind 0: group_attention<GroupI4>; 1: the int8-score attention's three
-// kernels; 2: group_attention<GroupSlotI8>
+// kernels; 2: group_attention<GroupSlotI8> (slab, slab_ar, slab_ar_w8)
 template <int DH>
 int attention_occupancy_dh(int B, int H, int M, int kind, int* out) {
   const dim3 grouped(ceil_div(B, kGroupRows) * kGroupRows, H), rows(B, H);
@@ -427,6 +430,19 @@ int attention_occupancy_dh(int B, int H, int M, int kind, int* out) {
   if (err == cudaSuccess)
     err = resident_blocks(pv_i8<DH>, rows, kPvThreads, pv_i8_smem(DH, M), 1, out + 5);
   return err != cudaSuccess ? -(int)err : 3;
+}
+
+// The chain over the slot-major int8 ring (GroupSlotI8, slot write SlotI8)
+// with weight panels of WT, at B >= kTcMinRows: slab_tc_step, slab_ar_tc_step
+// and slab_ar_w8_tc_step. rows_per_cell does not enter its attention (bf16
+// scores), as it does not change the plain version's all-rows result.
+template <typename WT>
+int slot_i8_tc_step(DECODE_STEP_ARGS(WT, int8_t)) {
+  if (!tc_accepts<GroupSlotI8>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+  return tc_decode_step<WT, GroupSlotI8, SlotI8>(
+      qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,
+      rows_per_cell, scale, act, SlotI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -454,7 +470,8 @@ const char* slab_decode_error_string(int err) { return cudaGetErrorString((cudaE
 
 // The tensor-core chain's attention kernels at these sizes, kind 0: of
 // slab4 / slab4_w8 (group_attention<GroupI4>), 1: of slab_int8 (qkv_sum_i8,
-// group_scores_i8, pv_i8), 2: of slab (group_attention<GroupSlotI8>):
+// group_scores_i8, pv_i8), 2: of slab, slab_ar and slab_ar_w8
+// (group_attention<GroupSlotI8>):
 // out[2 k] = blocks of kernel k's launch, out[2 k + 1] = blocks the card
 // holds at once (the occupancy API, clusters counted whole). Returns the
 // number of kernels, or -(CUDA error).
@@ -525,8 +542,8 @@ int slab4_w8_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
   return run_slab<SlotI4, int8_t>(false, false, PASS_INT8_WEIGHTS);
 }
 
-// slab4_w8, slab4, slab_int8 and slab on the tensor-core chain
-// (tc_decode.cuh), for B >= 8: the same arguments; scratch of
+// slab4_w8, slab4, slab_int8, slab, slab_ar and slab_ar_w8 on the
+// tensor-core chain (tc_decode.cuh), for B >= 8: the same arguments; scratch of
 // slab_decode_scratch_floats(..., flags = 2; slab_int8: 3) floats. Each
 // returns cudaErrorInvalidValue for sizes tc_accepts refuses (slab_int8 also
 // where rows_per_cell does not divide B).
@@ -547,11 +564,20 @@ int slab4_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
 }
 
 int slab_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
-  if (!tc_accepts<GroupSlotI8>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
-  return tc_decode_step<bf16, GroupSlotI8, SlotI8>(
-      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
-      kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
-      rows_per_cell, scale, act, SlotI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+  return slot_i8_tc_step<bf16>(PASS_BF16_WEIGHTS);
+}
+
+// The all-rows steps on the chain: each weight tile is read once for up to
+// 64 rows in every mode of the chain, so slab_ar_tc_step is slab_tc_step's
+// instantiation and slab_ar_w8_tc_step the same over int8 panels.
+// slab_ar_tc_step is an entry of its own because the wrapper binds
+// <mode>_tc_step for every mode of the chain by name.
+int slab_ar_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
+  return slot_i8_tc_step<bf16>(PASS_BF16_WEIGHTS);
+}
+
+int slab_ar_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
+  return slot_i8_tc_step<int8_t>(PASS_INT8_WEIGHTS);
 }
 
 int slab_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {

@@ -29,10 +29,10 @@ which no engine mode reaches.
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
 first use, bound with ctypes) or raises; ``slab4_w8``, ``slab4``,
-``slab_int8``, ``slab``, ``multirow_int8`` and ``multirow`` take the
-tensor-core chain of ``csrc/tc_decode.cuh`` where :func:`tc_path` says so
-(B >= 8; ``multirow`` any B), the chain of the other modes below that; on a
-CPU tensor
+``slab_int8``, ``slab``, ``slab_ar_w8``, ``slab_ar``, ``multirow_int8`` and
+``multirow`` take the tensor-core chain of ``csrc/tc_decode.cuh`` where
+:func:`tc_path` says so (B >= 8; ``multirow`` any B), the chain of the
+other modes below that and at the sizes the chain refuses; on a CPU tensor
 it runs its plain version (:func:`slab_plain`, :func:`multirow_plain`,
 :func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
 PyTorch. Unlike the JAX functions, whose cache operands are donated and
@@ -440,13 +440,16 @@ class TcPolicy(NamedTuple):
 
 
 # multirow's chain serves every B: it took about half the old chain's step at
-# B = 1, 2 and 4 (flagship, H100)
+# B = 1, 2 and 4 (flagship, H100). The all-rows steps are slab's chain (bf16
+# or int8 panels); their B < 8 is not measured on it, so each states 8.
 TC_POLICY = {"slab4_w8": TcPolicy("GroupI4", occupancy=0),
              "multirow_int8": TcPolicy("GroupPanelI8", panel=True),
              "slab4": TcPolicy("GroupI4", occupancy=0),
              "slab_int8": TcPolicy("ScoresI8", occupancy=1),
              "multirow": TcPolicy("GroupPanelBF16", min_rows=1, panel=True),
-             "slab": TcPolicy("GroupSlotI8", occupancy=2)}
+             "slab": TcPolicy("GroupSlotI8", occupancy=2),
+             "slab_ar_w8": TcPolicy("GroupSlotI8", min_rows=TC_MIN_ROWS, occupancy=2),
+             "slab_ar": TcPolicy("GroupSlotI8", min_rows=TC_MIN_ROWS, occupancy=2)}
 TC_MODES = tuple(TC_POLICY)
 TC_COLS = 64               # kTcCols: weight columns a product block owns
 TC_ROWS = 64               # kTcRows: batch rows a product block applies
@@ -818,7 +821,8 @@ def fused_slab_allrows_core(
     The same contract and cache layout as :func:`fused_slab_core`'s bf16-score
     int8 modes; on the card each layer's weights are read once for all B
     rows. Both weight modes are ported: ``slab_ar_w8`` (``weights_int8=True``)
-    and ``slab_ar`` (bf16 panels; any ``w_scales`` is ignored).
+    and ``slab_ar`` (bf16 panels; any ``w_scales`` is ignored); at B >= 8
+    both run the tensor-core chain (:func:`tc_path`), which is ``slab``'s.
     ``rows_per_cell`` is the TPU kernel's KV streaming group
     (``min(rows_per_cell, B)`` rows); it is checked to divide the batch, as
     there, and does not change the result (the scores are bf16 products)."""

@@ -105,6 +105,17 @@ def filter_sample_sorted(generator: Optional[torch.Generator],
     return idx, keep.sum(dim=-1)
 
 
+def filter_keeps(logits: torch.Tensor, top_k, top_p, idx: torch.Tensor,
+                 greedy: bool = False):
+    """Whether :func:`filter_sample_sorted` could draw token ``idx`` (B,) of
+    each row: kept by its filter (``greedy``: the filtered argmax). Returns
+    ``(kept (B,) bool, n_kept (B,) int64)``."""
+    _, order, keep = _filter_sorted(logits, top_k, top_p)
+    if greedy:
+        return order[..., 0] == idx, keep.sum(dim=-1)
+    return ((order == idx[..., None]) & keep).any(dim=-1), keep.sum(dim=-1)
+
+
 _M32 = 0xFFFFFFFF
 
 

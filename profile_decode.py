@@ -5,6 +5,8 @@ continuous; or the multitask model's harmonize and next-word steps.
     python3 profile_decode.py [--steps 20] [--batches 16 64]
     python3 profile_decode.py --modes slab4 slab_int8 --batches 64 8 [--steps 20]
     python3 profile_decode.py --model multitask [--steps 64]
+    python3 profile_decode.py --timing slab_ar_w8 slab_ar --batches 4 8 16 64 [--e2e]
+    python3 profile_decode.py --data-gate auto xla --seeds 0 1 2
 
 Loads the 41M flagship checkpoint with the port and, each under
 ``torch.profiler``: runs ``--steps`` slab_w8 decode steps (``fused_slab_core``
@@ -21,19 +23,38 @@ needs one CUDA card.
 
 ``--modes`` profiles decode modes instead (any of
 ``chip_smoke.EXPLICIT_MODES`` and of ``fd.TC_MODES``, so also slab, the
-continuous service's step): for each B of ``--batches``, ``--steps``
+continuous service's step, and the all-rows steps slab_ar_w8 and slab_ar,
+which run the chain at B >= 8): for each B of ``--batches``, ``--steps``
 steps of the mode's wrapper on a full ring (ptr 100) of the flagship, the
 CUDA kernels by device time a step; then, beside it, the yardstick of its
 weight products: ``torch.matmul`` of the same bf16 operands (the int8
 panels dequantized by their column scales and rounded to bf16, as the
 kernels use them) by the same (B, K) rows, 4 a layer x 8 layers, its
 device time a step (never called by the port). For slab4, slab4_w8,
-slab_int8 and slab on the tensor-core chain it also prints each attention
+slab_int8, slab, slab_ar and slab_ar_w8 on the tensor-core chain it also prints each attention
 kernel's blocks, the blocks the card holds at once and so its waves (the
 kernel library's ``slab_decode_attention_occupancy``, where the tree has it
 for the mode). It
 uses only functions that every tree of the port has otherwise, so the
 same script profiles a parent checkout (copy it there).
+
+``--timing`` runs ``chip_smoke.slab_timing`` for each given decode mode at
+each B of ``--batches`` (inputs from one rng of seed 0): the CUDA-event
+medians of the step and of its plain version beside the bound, its CUDA
+kernels a step by the wrapper's count, and on the tensor-core chain the
+kernels ``torch.profiler`` records. With ``--e2e`` it then runs
+``chip_smoke.batched_phase`` once: 16 requests through
+``GenerationService`` and a ``generate_batch`` of 64 prompts, 256 steps
+each, with their checks and rates. Both use functions a parent tree's
+``chip_smoke.py`` has too, so the script times the two trees in turns.
+
+``--data-gate`` runs the batch phase's ``generate_batch`` (the 64 prompts of
+``chip_smoke.batch_prompts`` for each seed of ``--seeds``, 256 steps, the
+sampling settings of ``chip_smoke.GEN_KW``, that seed for the sampler) with
+each given decode kernel (``auto``: the engine's rule), and prints the
+rows that fail the batch phase's checks (``chip_smoke.check_continuation``:
+re-parse, grammar, and the codec's data gate, a pitch outside the piano
+range or a duration past the cap), with its message.
 
 ``--model multitask`` takes the 85M multitask flagship's shapes
 (``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
@@ -209,6 +230,43 @@ def profile_modes(engine, modes, batches, steps: int, dev) -> None:
                   f"({chip_smoke.time_ms(products, 20):.4f} ms CUDA-event median)", flush=True)
 
 
+def time_modes(learner, modes, batches, e2e: bool, dev) -> None:
+    """chip_smoke.slab_timing of each of ``modes`` at each B of ``batches``,
+    then, with ``e2e``, chip_smoke.batched_phase once."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
+    engine = learner.engine
+    wkr_mt = chip_smoke.wkr_table(engine)
+    rng = np.random.default_rng(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    for mode in modes:
+        for B in batches:
+            chip_smoke.slab_timing(engine, wkr_mt, rng, dev, mode, B, flush)
+    if e2e:
+        items = chip_smoke.batch_prompts(learner.vocab, 0, 64)
+        chip_smoke.batched_phase(learner, items, 0, 256)
+
+
+def data_gate(learner, kernels, seeds) -> None:
+    """The batch phase's generate_batch rows that fail chip_smoke's
+    check_continuation, for each kernel and seed."""
+    engine, vocab = learner.engine, learner.vocab
+    for kernel in kernels:
+        for seed in seeds:
+            items = chip_smoke.batch_prompts(vocab, seed, 64)
+            toks, lengths = engine.generate_batch(
+                [it.data for it in items], n_words=256, seed=seed,
+                decode_kernel=None if kernel == "auto" else kernel, **chip_smoke.GEN_KW)
+            bad = []
+            for i, it in enumerate(items):
+                try:
+                    chip_smoke.check_continuation(it, toks[i][: lengths[i]], vocab)
+                except AssertionError as e:
+                    bad.append(f"row {i}: {e}")
+            print(f"data gate: generate_batch B=64 kernel {kernel} "
+                  f"({engine.resolve_kernel(64) if kernel == 'auto' else kernel}) seed {seed}: "
+                  f"{len(bad)} of 64 rows fail: {bad}", flush=True)
+
+
 def profile_multitask(steps: int, dev) -> None:
     """The multitask timing phases, then a harmonize and a next-word decode
     step's host-clock and device time with the auto and the fused kernel."""
@@ -259,6 +317,14 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, nargs="*", default=[16, 64])
     ap.add_argument("--modes", nargs="*", default=None, choices=PROFILED_MODES,
                     help="decode modes to profile (chip_smoke.EXPLICIT_MODES, fd.TC_MODES)")
+    ap.add_argument("--timing", nargs="*", default=None, choices=fd.SLAB_MODES,
+                    help="slab modes to time with chip_smoke.slab_timing at each B")
+    ap.add_argument("--e2e", action="store_true",
+                    help="with --timing: then chip_smoke.batched_phase once")
+    ap.add_argument("--data-gate", nargs="*", default=None,
+                    help="decode kernels (or auto) whose generate_batch rows to hold "
+                         "to the codec's data gate")
+    ap.add_argument("--seeds", type=int, nargs="*", default=[0])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -276,6 +342,12 @@ def main(argv=None) -> int:
     if args.modes:
         torch.backends.cuda.matmul.allow_tf32 = False
         profile_modes(engine, args.modes, args.batches, args.steps, dev)
+        return 0
+    if args.timing is not None:
+        time_modes(learner, args.timing, args.batches, args.e2e, dev)
+        return 0
+    if args.data_gate is not None:
+        data_gate(learner, args.data_gate, args.seeds)
         return 0
     cfg, M = engine.cfg, engine.cfg.mem_len
     stacked, w_scales = engine.stacked_q()

@@ -822,7 +822,8 @@ def test_stack_path_follows_the_exact_ring_step():
     assert cs.stack_path_phase(learner, items, 32) == {"fused_stack": 32, "fused_batched": 32}
 
 
-TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab")
+TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab",
+            "slab_ar_w8", "slab_ar")
 
 
 @pytest.mark.cuda
@@ -830,10 +831,10 @@ TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab
 @pytest.mark.parametrize("mode", TC_MODES)
 def test_tc_modes_against_float64(mode, B):
     """slab4_w8, multirow_int8, slab4, slab_int8 (min(B, 8) rows a cell),
-    multirow and slab on their tensor-core chain (B >= 8, csrc/tc_decode.cuh) at the
-    demo checkpoint's widths: every case of chip_smoke.py's kernel phase
-    held to its float64 check (raises on a disagreement), one launch counted
-    a case."""
+    multirow, slab, slab_ar_w8 and slab_ar on their tensor-core chain (B >=
+    8, csrc/tc_decode.cuh) at the demo checkpoint's widths: every case of
+    chip_smoke.py's kernel phase held to its float64 check (raises on a
+    disagreement), one launch counted a case."""
     dev = _card()
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -867,6 +868,55 @@ def test_multirow_edge_cases_against_float64(batches, extra, chain):
     cases = len(batches) * len(cs.kernel_ptrs("multirow", M)) * len(cs.RINGS)
     assert cs.launches() == cs.only(multirow=cases)
     print(f"multirow B in {batches} M={M}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,batches,extra,chain", [
+    ("slab_ar_w8", (1, 4), 0, False), ("slab_ar", (1, 4), 0, False),
+    ("slab_ar_w8", (8, 16), 8, False), ("slab_ar", (8, 16), 8, False),
+    ("slab_ar_w8", (72, 128), 0, True), ("slab_ar", (72,), 0, True)],
+    ids=["w8_old_chain_B1_B4", "bf16_old_chain_B1_B4", "w8_old_chain_mem_len_plus_8",
+         "bf16_old_chain_mem_len_plus_8", "w8_chain_B72_B128", "bf16_chain_B72"])
+def test_allrows_edge_cases_against_float64(mode, batches, extra, chain):
+    """The all-rows steps' old chain (slab_ar_w8_step / slab_ar_step, the
+    route for the sizes tc_accepts refuses) at B = 1 and 4 and at mem_len + 8
+    (not a multiple of 16) at B = 8 and 16, and their tensor-core chain at
+    B = 72 (a second row group of 8 live rows) and 128 (two whole ones), at
+    the demo checkpoint's widths: every case of chip_smoke.py's kernel phase
+    held to its float64 check (raises on a disagreement), one launch counted
+    a case."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    M = engine.cfg.mem_len + extra
+    cs.reset_launches()
+    dh, ratio = cs.edge_phase(engine, np.random.default_rng(14), dev, mode, batches,
+                              M if extra else None, chain)
+    cases = len(batches) * len(cs.kernel_ptrs(mode, M)) * len(cs.RINGS)
+    assert cs.launches() == cs.only(**{mode: cases})
+    print(f"{mode} B in {batches} M={M}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+def test_slab_ar_chain_equals_slab_chain():
+    """At B = 16 the slab_ar step and the slab step run one instantiation of
+    the tensor-core chain (bf16 panels, GroupSlotI8 over the int8 ring): on
+    the same inputs their h_out and caches are equal bit for bit."""
+    dev = _card()
+    import chip_smoke as cs
+    engine = MusicLearner.load(DEMO).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    wkr_mt = cs.wkr_table(engine)
+    rng = np.random.default_rng(15)
+    for ptr, kind in ((31, "part"), (M - 1, "full"), (5, "short")):
+        kv, blocked = cs.ring_inputs(cfg, 16, M, ptr, kind, rng, dev, "slab")
+        h_in = engine.params["embed"].float()[torch.from_numpy(rng.integers(12, 140, 16)).to(dev)]
+        assert fd.tc_path("slab", cfg, 16, M) and fd.tc_path("slab_ar", cfg, 16, M)
+        a = cs.run_step("slab_ar", engine, wkr_mt, kv, blocked, h_in, ptr)
+        b = cs.run_step("slab", engine, wkr_mt, kv, blocked, h_in, ptr)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), (kind, ptr)
 
 
 @pytest.mark.cuda
@@ -905,7 +955,8 @@ def test_tc_step_kernels(mode):
     (9 for slab_int8) and 10 (12) on the old one, as planned_kernels_per_step
     mirrors it, and asks for the scratch that fd.tc_scratch_layout mirrors;
     under torch.profiler a chain step at B = 16 runs only the chain's
-    kernels, at most that many (chip_smoke.chain_kernels raises otherwise)."""
+    kernels, at most that many (chip_smoke.chain_kernels raises otherwise),
+    and their names show the chain."""
     dev = _card()
     import chip_smoke as cs
     engine = MusicLearner.load(DEMO).engine
@@ -930,4 +981,5 @@ def test_tc_step_kernels(mode):
                                                     w_scales=w_scales,
                                                     **cs.SLAB_ARGS.get(mode, {}))
     step = lambda: cs.CORES[mode](stacked, cfg, h_in, wkr, *kv, blocked, 40, M, **kw)
-    assert 0 < cs.chain_kernels(mode, step, per_step, n=4) <= 4 * per_step
+    recorded, chain = cs.chain_kernels(mode, step, per_step, True, n=4)
+    assert 0 < recorded <= per_step and chain == "tensor-core"

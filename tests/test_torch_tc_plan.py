@@ -1,6 +1,6 @@
 """The plan of the tensor-core decode chain (``csrc/tc_decode.cuh``) of the
-slab4_w8, slab4, slab_int8, slab, multirow_int8 and multirow steps at
-B >= 8, mirrored in ``ops/fused_decode.py`` and held here on the CPU: the
+slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar, multirow_int8 and
+multirow steps at B >= 8, mirrored in ``ops/fused_decode.py`` and held here on the CPU: the
 products' tiling and partial order, the dequantized weight tile, the
 attention's row clusters, the shared memory of each attention policy, the
 bf16 K panel's key-dot split, the launch count, the scratch layout, and
@@ -59,11 +59,12 @@ def tc_product_model(x, w, cluster=False):
 
 
 @pytest.mark.parametrize("cfg", [FLAGSHIP, SMALL], ids=["flagship", "small"])
-@pytest.mark.parametrize("B", [8, 24, 64])
+@pytest.mark.parametrize("B", [8, 24, 64, 72, 128])
 def test_product_tiling_equals_the_plain_product(cfg, B):
     """On integer-valued inputs (every sum exact in float32) the tiled
     product equals x @ w for every product of a layer, and the plan covers
-    K and N with whole stages and no chunk past K."""
+    K and N with whole stages and no chunk past K; B = 72 and 128 (the
+    all-rows steps of generate_batch) take two row groups of TC_ROWS."""
     rng = np.random.default_rng(B)
     for K, N, cluster in _products(cfg):
         plan = fd.tc_product_plan(B, K, N, cluster)
@@ -73,6 +74,7 @@ def test_product_tiling_equals_the_plain_product(cfg, B):
         assert 8 * plan["n8_tiles"] >= min(B, fd.TC_ROWS)
         if cluster:
             assert plan["k_blocks"] <= fd.TC_MAX_CLUSTER
+        assert plan["row_groups"] == -(-B // fd.TC_ROWS)
         x = torch.from_numpy(rng.integers(-3, 4, (B, K)).astype(np.float32))
         w = torch.from_numpy(rng.integers(-3, 4, (K, N)).astype(np.float32))
         assert torch.equal(tc_product_model(x, w, cluster), x @ w)
@@ -153,12 +155,15 @@ def test_attention_clusters_cover_each_row_and_head_once(B):
 
 
 def test_tc_path_rule():
-    """The chain serves slab4_w8, slab4, slab_int8, slab and multirow_int8
-    at B >= 8 and multirow at every B, at the flagship's and small widths,
-    never another mode (nor slab_int8_w8) or B < 8, and not where an
-    attention block's shared memory would pass a block's: at Dh 64 every
-    grouped policy's limit is M = 3376 (see test_attention_smem_by_policy)."""
-    chain = ("slab4_w8", "slab4", "slab_int8", "slab", "multirow_int8")
+    """The chain serves slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar
+    and multirow_int8 at B >= 8 and multirow at every B, at the flagship's
+    and small widths, never another mode (nor slab_w8 or slab_int8_w8) or
+    B < 8, and not where an attention block's shared memory would pass a
+    block's: at Dh 64 every grouped policy's limit is M = 3376 (see
+    test_attention_smem_by_policy); nor at M = 520 (not a multiple of 16),
+    where chip_smoke.py holds the old all-rows chain."""
+    chain = ("slab4_w8", "slab4", "slab_int8", "slab", "slab_ar_w8", "slab_ar",
+             "multirow_int8")
     for cfg in (FLAGSHIP, SMALL):
         for mode in fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES:
             for B in (1, 2, 4, 7, 8, 24, 64):
@@ -166,13 +171,18 @@ def test_tc_path_rule():
                 assert fd.tc_path(mode, cfg, B, cfg.mem_len) == want, (mode, B)
     assert {m: p.min_rows for m, p in fd.TC_POLICY.items()} == {
         "slab4_w8": 8, "multirow_int8": 8, "slab4": 8, "slab_int8": 8, "multirow": 1,
-        "slab": 8}
+        "slab": 8, "slab_ar_w8": 8, "slab_ar": 8}
     assert fd.tc_attention_smem(64, 512, "multirow_int8") <= fd.MAX_SMEM
     assert not fd.tc_path("multirow_int8", FLAGSHIP, 64, 8192)
     assert not fd.tc_path("slab4_w8", FLAGSHIP, 64, 520)     # mem_len % 16
     assert not fd.tc_path("slab4", FLAGSHIP, 64, 520)
     assert not fd.tc_path("slab", FLAGSHIP, 64, 520)
-    for mode in ("multirow", "slab", "multirow_int8", "slab4"):
+    for mode in ("slab_ar_w8", "slab_ar"):
+        for B in (8, 64):
+            assert not fd.tc_path(mode, FLAGSHIP, B, 520)
+        assert fd.tc_path(mode, FLAGSHIP, 8, 512) and fd.tc_path(mode, FLAGSHIP, 128, 512)
+        assert not fd.tc_path(mode, FLAGSHIP, 7, 512)
+    for mode in ("multirow", "slab", "multirow_int8", "slab4", "slab_ar_w8", "slab_ar"):
         assert fd.tc_path(mode, FLAGSHIP, 8, 3376)
         assert not fd.tc_path(mode, FLAGSHIP, 8, 3392)
     assert not fd.tc_path("slab", FLAGSHIP, 7, 512)
@@ -198,16 +208,19 @@ def test_attention_smem_by_policy(cfg):
     M 64): 728 floats = 2912 bytes, work 16384, stage 528. Each mode's
     attention runs the policy it is mirrored with, and only the head-major
     panels' policies stage."""
-    grouped = ("slab4_w8", "multirow_int8", "slab4", "multirow", "slab")
+    grouped = ("slab4_w8", "multirow_int8", "slab4", "multirow", "slab", "slab_ar_w8",
+               "slab_ar")
     want = {FLAGSHIP: {"slab4_w8": 36768, "multirow_int8": 36800, "slab4": 36768,
-                       "multirow": 36800, "slab": 36768},
+                       "multirow": 36800, "slab": 36768, "slab_ar_w8": 36768,
+                       "slab_ar": 36768},
             SMALL: dict.fromkeys(grouped, 19296)}[cfg]
     got = {m: fd.tc_attention_smem(cfg.d_head, cfg.mem_len, m) for m in grouped}
     assert got == want
     assert {m: (p.attention, p.panel) for m, p in fd.TC_POLICY.items()} == {
         "slab4_w8": ("GroupI4", False), "multirow_int8": ("GroupPanelI8", True),
         "slab4": ("GroupI4", False), "slab_int8": ("ScoresI8", False),
-        "multirow": ("GroupPanelBF16", True), "slab": ("GroupSlotI8", False)}
+        "multirow": ("GroupPanelBF16", True), "slab": ("GroupSlotI8", False),
+        "slab_ar_w8": ("GroupSlotI8", False), "slab_ar": ("GroupSlotI8", False)}
     # at Dh 64 the largest M that fits: 4 ceil4(9 M + 486) + 32 M (+ 32 for a
     # panel's stage) bytes is 231520 (231552) at M 3376, 232608 at 3392
     assert fd.tc_attention_smem(64, 3376, "slab") == 231520
@@ -264,11 +277,14 @@ def test_launch_count_mirror(mode):
     """Kernels a wrapper launch makes, as the kernel library counts them
     (``*_kernels_per_step``; compared on the card): 7 a layer on the
     tensor-core chain (9 for slab_int8: its attention is three kernels),
-    else the chain's 8 and the attention's 2 (4 in the int8-score modes)."""
+    else the chain's 8 and the attention's 2 (4 in the int8-score modes);
+    at B = 7 only multirow takes the chain, so the others count the old
+    chain's (80 a step for the all-rows steps at the flagship)."""
     L = FLAGSHIP.n_layers
     tc = fd.tc_path(mode, FLAGSHIP, 64, FLAGSHIP.mem_len)
     int8 = mode in fd.INT8_SCORE_MODES
     assert tc == (mode in fd.TC_MODES)
+    assert fd.tc_path(mode, FLAGSHIP, 7, FLAGSHIP.mem_len) == (mode == "multirow")
     want = (9 * L if int8 else 7 * L) if tc else (12 * L if int8 else 10 * L)
     assert fd.planned_kernels_per_step(L, mode, tc) == want
     assert fd.planned_kernels_per_step(L, mode, False) == (12 * L if mode in fd.INT8_SCORE_MODES
