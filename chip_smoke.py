@@ -15,7 +15,8 @@ non-zero without printing a result):
    plain version within a fixed bound plus PLAIN_K times the float32 plain
    version's; see PLAIN_K), at ptr in
    {0, 31, 32, M - 1} on a partly full, a full and a short ring (RINGS):
-   ``fused_slab_core`` in its modes slab_w8 (B in {1, 4}) and slab (bf16
+   ``fused_slab_core`` in its modes slab_w8 (B in {1, 4}; the tensor-core
+   chain at every B) and slab (bf16
    weights, B in {1, 16}), ``fused_slab_allrows_core`` in its modes
    slab_ar_w8 and slab_ar (B in {8, 64}, then 16; the tensor-core chain of
    csrc/tc_decode.cuh, as slab's at B >= 8), so every B a main path
@@ -39,7 +40,11 @@ non-zero without printing a result):
    (ALLROWS_CHAIN_CASES, ALLROWS_EDGE_CASES, an rng of their own): slab_ar_w8
    and slab_ar on the chain at B in {24, 72} and slab_ar_w8 at 128 (two row
    groups of the products), and their old chain at B in {1, 4} and at
-   M = 520, B in {8, 64}, by the same check. Then
+   M = 520, B in {8, 64}, by the same check. Then slab_w8's cases
+   (SLAB_W8_EDGE_CASES, an rng of their own): its tensor-core chain (at
+   every B; B = 1 and 4 are among the slab_w8 cases above) at B in
+   {2, 8}, the rest of the B its chain was timed at, and its old chain
+   (slab_w8_step) at M = 520, B in {1, 4}, by the same check. Then
    ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
    W = 512, the batched paths' shapes; B = 2, W = 4096; B = 1, W = 128;
    B = 8, W = 96, a tail tile) against the float32 plain version. Then the
@@ -60,13 +65,14 @@ non-zero without printing a result):
    slab_ar at B in {8, 16, 64},
    the five explicit modes at B in {1, 64} (slab4 also at 16 and 32 rows a
    cell; slab4_w8, slab4, slab_int8, multirow_int8 and multirow also at 8
-   and 16), each step on the tensor-core chain also
-   under ``torch.profiler``: its kernels a step by the wrapper's count and
-   by the profiler, every one a chain kernel); the four
+   and 16), each step also under ``torch.profiler``: its kernels a step by
+   the wrapper's count and by the profiler, on the tensor-core chain every
+   one a chain kernel, off it none); the four
    s2s / nw variants at B = 1, M = 512, Le = 512, each also under
    ``torch.profiler`` over 20 wrapper calls: one CUDA kernel a call (the
    persistent step, on its co-resident grid) and its device time a launch.
-6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel on a seeded
+6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel (slab_w8, on
+   the tensor-core chain) on a seeded
    prompt MIDI built with the port's codec; the slab_w8 launch count must
    equal the number of token steps; the output MIDI is re-parsed and checked.
 7. batch  — 16 requests through ``GenerationService(max_batch=16)``: one
@@ -1042,21 +1048,25 @@ def chain_kernels(label, fn, per_step: int, tc: bool, n: int = 10):
     (TC_CHAIN_KERNELS), off it none of them. Says them and returns (the
     kernels recorded a step, the chain their names show: "tensor-core" or
     "old"). The profiler can drop records, so the wrapper's count is the
-    count and the profiler shows what ran."""
+    count and the profiler shows what ran; a window in which it recorded no
+    kernel at all is taken again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset")):
-            short = next((k for k in TC_CHAIN_KERNELS if re.search(rf"\b{k}\b", e.key)),
-                         e.key[:60])
-            kernels[short] = kernels.get(short, 0) + e.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset")):
+                short = next((k for k in TC_CHAIN_KERNELS if re.search(rf"\b{k}\b", e.key)),
+                             e.key[:60])
+                kernels[short] = kernels.get(short, 0) + e.count
+        if kernels:
+            break
     recorded = sum(kernels.values())
     chain = "tensor-core" if kernels and set(kernels) <= set(TC_CHAIN_KERNELS) else "old"
     if (not 0 < recorded <= n * per_step or (chain == "tensor-core") != tc
@@ -1118,6 +1128,13 @@ ALLROWS_CHAIN_CASES = (("slab_ar_w8", (24, 72), None, True), ("slab_ar", (24, 72
                        ("slab_ar_w8", (128,), None, True))
 ALLROWS_EDGE_CASES = (("slab_ar_w8", (1, 4), None, False), ("slab_ar", (1, 4), None, False),
                       ("slab_ar_w8", (8, 64), 520, False), ("slab_ar", (8, 64), 520, False))
+# slab_w8's cases beyond KERNEL_CASE_BATCHES (its chain at B = 1 and 4 there),
+# drawn after ALLROWS_EDGE_CASES from an rng of their own: its tensor-core
+# chain, which serves every B (fd.TC_POLICY), at B = 2 and 8, so that every
+# B it was timed at against the old chain is checked; and the old chain
+# (slab_w8_step), which serves the sizes the chain refuses, at M = 520 (not a
+# multiple of 16)
+SLAB_W8_EDGE_CASES = (("slab_w8", (2, 8), None, True), ("slab_w8", (1, 4), 520, False))
 # the explicit modes' timed batch sizes: the tensor-core chain's modes
 # (fd.TC_MODES) also at 8 and 16, on both sides of its B >= 8 rule (multirow:
 # the chain at every B)
@@ -3077,6 +3094,10 @@ def main(argv=None) -> int:
     for mode, batches, M, chain in ALLROWS_CHAIN_CASES + ALLROWS_EDGE_CASES:
         worse(err, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
                                edge_phase, engine, allrows_rng, dev, mode, batches, M, chain))
+    slab_w8_rng = np.random.default_rng(args.seed + 6)
+    for mode, batches, M, chain in SLAB_W8_EDGE_CASES:
+        worse(err, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
+                               edge_phase, engine, slab_w8_rng, dev, mode, batches, M, chain))
     err["flash"] = timed("kernel flash", flash_phase, engine.cfg, dev, args.seed)
     flagship, demo = timed("mt load", mt_load_phase, dev, args.seed)
     for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),

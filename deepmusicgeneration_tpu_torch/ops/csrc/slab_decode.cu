@@ -89,7 +89,8 @@
 //
 // At B >= 8, slab4_w8, slab4, slab_int8, slab, slab_ar and slab_ar_w8 run
 // the tensor-core chain of tc_decode.cuh (slab4_w8_tc_step, slab4_tc_step,
-// slab_int8_tc_step, slab_tc_step, slab_ar_tc_step, slab_ar_w8_tc_step): the
+// slab_int8_tc_step, slab_tc_step for slab and slab_ar, slab_w8_tc_step for
+// slab_ar_w8), and slab_w8 from kSlabW8TcMinRows rows: the
 // weight products on the tensor cores, each weight tile read once a step for
 // up to 64 rows, and an attention that reads a head's relative table once
 // per cluster of rows: GroupI4's for the int4 ring and GroupSlotI8's for the
@@ -99,8 +100,9 @@
 // maxima over the cell, its P.V scale from the row's per-head maxima; 9
 // kernels a layer). Since the chain reads each weight tile once for all rows
 // in every mode, the all-rows steps are the chain of slab (bf16 panels) and
-// of slab over int8 panels. At B < 8, and at sizes tc_accepts refuses, they
-// keep the chain above (<mode>_step). slab is the continuous service's step:
+// of slab over int8 panels, and that chain over int8 panels is slab_w8's too.
+// Below a step's minimum B, and at sizes tc_accepts refuses, the steps keep
+// the chain above (<mode>_step). slab is the continuous service's step:
 // a request that joins a busy batch decodes as it does alone at the same B,
 // because no sum of the chain crosses rows or takes its order from B.
 //
@@ -414,7 +416,8 @@ int group_occupancy(dim3 grouped, int M, int* out) {
 }
 
 // kind 0: group_attention<GroupI4>; 1: the int8-score attention's three
-// kernels; 2: group_attention<GroupSlotI8> (slab, slab_ar, slab_ar_w8)
+// kernels; 2: group_attention<GroupSlotI8> (slab, slab_ar, slab_ar_w8,
+// slab_w8)
 template <int DH>
 int attention_occupancy_dh(int B, int H, int M, int kind, int* out) {
   const dim3 grouped(ceil_div(B, kGroupRows) * kGroupRows, H), rows(B, H);
@@ -433,17 +436,23 @@ int attention_occupancy_dh(int B, int H, int M, int kind, int* out) {
 }
 
 // The chain over the slot-major int8 ring (GroupSlotI8, slot write SlotI8)
-// with weight panels of WT, at B >= kTcMinRows: slab_tc_step, slab_ar_tc_step
-// and slab_ar_w8_tc_step. rows_per_cell does not enter its attention (bf16
-// scores), as it does not change the plain version's all-rows result.
+// with weight panels of WT, at B >= min_rows: slab_tc_step and
+// slab_w8_tc_step. rows_per_cell does not enter its attention (bf16 scores),
+// as it does not change the plain version's all-rows result.
 template <typename WT>
-int slot_i8_tc_step(DECODE_STEP_ARGS(WT, int8_t)) {
-  if (!tc_accepts<GroupSlotI8>(kTcMinRows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
+int slot_i8_tc_step(int min_rows, DECODE_STEP_ARGS(WT, int8_t)) {
+  if (!tc_accepts<GroupSlotI8>(min_rows, B, D, Dff, Dh, M)) return cudaErrorInvalidValue;
   return tc_decode_step<WT, GroupSlotI8, SlotI8>(
       qkv_w, out_w, ff1_w, ff2_w, w_scales, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
       kt, ks, vc, vs, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, smax, ptr,
       rows_per_cell, scale, act, SlotI8::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
+
+// slab_w8's chain serves every B: at B = 1, 2 and 4 it took 0.54-0.78x the
+// old chain's step in turns (flagship, M = 512, H100 80GB HBM3 at 700 W).
+// slab_ar_w8, which binds the same entry, keeps kTcMinRows by its own rule
+// (ops/fused_decode.py::TC_POLICY).
+constexpr int kSlabW8TcMinRows = 1;
 
 }  // namespace
 
@@ -470,7 +479,7 @@ const char* slab_decode_error_string(int err) { return cudaGetErrorString((cudaE
 
 // The tensor-core chain's attention kernels at these sizes, kind 0: of
 // slab4 / slab4_w8 (group_attention<GroupI4>), 1: of slab_int8 (qkv_sum_i8,
-// group_scores_i8, pv_i8), 2: of slab, slab_ar and slab_ar_w8
+// group_scores_i8, pv_i8), 2: of slab, slab_ar, slab_ar_w8 and slab_w8
 // (group_attention<GroupSlotI8>):
 // out[2 k] = blocks of kernel k's launch, out[2 k + 1] = blocks the card
 // holds at once (the occupancy API, clusters counted whole). Returns the
@@ -542,8 +551,11 @@ int slab4_w8_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
   return run_slab<SlotI4, int8_t>(false, false, PASS_INT8_WEIGHTS);
 }
 
-// slab4_w8, slab4, slab_int8, slab, slab_ar and slab_ar_w8 on the
-// tensor-core chain (tc_decode.cuh), for B >= 8: the same arguments; scratch of
+// The tensor-core chain (tc_decode.cuh), one entry an instantiation, each
+// bound by the modes that ops/fused_decode.py::TC_POLICY names with it:
+// slab4_w8, slab4 and slab_int8 for B >= 8; slab and slab_ar (slab_tc_step)
+// for B >= 8; slab_w8 and slab_ar_w8 (slab_w8_tc_step) for B >=
+// kSlabW8TcMinRows. The same arguments; scratch of
 // slab_decode_scratch_floats(..., flags = 2; slab_int8: 3) floats. Each
 // returns cudaErrorInvalidValue for sizes tc_accepts refuses (slab_int8 also
 // where rows_per_cell does not divide B).
@@ -563,21 +575,15 @@ int slab4_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
       rows_per_cell, scale, act, SlotI4::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
 }
 
+// The chain reads each weight tile once for up to 64 rows in every mode, so
+// the all-rows steps take the slot-major steps' entries: slab_ar slab's,
+// slab_ar_w8 slab_w8's (int8 panels).
 int slab_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
-  return slot_i8_tc_step<bf16>(PASS_BF16_WEIGHTS);
+  return slot_i8_tc_step<bf16>(kTcMinRows, PASS_BF16_WEIGHTS);
 }
 
-// The all-rows steps on the chain: each weight tile is read once for up to
-// 64 rows in every mode of the chain, so slab_ar_tc_step is slab_tc_step's
-// instantiation and slab_ar_w8_tc_step the same over int8 panels.
-// slab_ar_tc_step is an entry of its own because the wrapper binds
-// <mode>_tc_step for every mode of the chain by name.
-int slab_ar_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
-  return slot_i8_tc_step<bf16>(PASS_BF16_WEIGHTS);
-}
-
-int slab_ar_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
-  return slot_i8_tc_step<int8_t>(PASS_INT8_WEIGHTS);
+int slab_w8_tc_step(DECODE_STEP_ARGS(int8_t, int8_t)) {
+  return slot_i8_tc_step<int8_t>(kSlabW8TcMinRows, PASS_INT8_WEIGHTS);
 }
 
 int slab_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {

@@ -1,8 +1,8 @@
 // The tensor-core decode chain of the slab4_w8, slab4, slab_int8, slab and
-// multirow_int8 steps at B >= kTcMinRows and of the multirow step at any B
-// (slab_decode.cu's slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step and
-// slab_tc_step, multirow_decode.cu's multirow_int8_tc_step and
-// multirow_tc_step). It computes the function of decode_step in
+// multirow_int8 steps at B >= kTcMinRows and of the multirow and slab_w8
+// steps at any B (slab_decode.cu's slab4_w8_tc_step, slab4_tc_step,
+// slab_int8_tc_step, slab_tc_step and slab_w8_tc_step, multirow_decode.cu's
+// multirow_int8_tc_step and multirow_tc_step). It computes the function of decode_step in
 // slab_common.cuh (the same bf16 cast points, int8 panels dequantized by
 // their column scales and rounded to bf16, bf16 panels as they are, float32
 // sums) with a layer in 7 kernels instead of 10:
@@ -75,7 +75,7 @@ namespace {
 
 using tc_bf16 = __nv_bfloat16;
 
-constexpr int kTcMinRows = 8;          // the chain serves B >= this (a step may take fewer)
+constexpr int kTcMinRows = 8;          // the chain serves B >= this (an entry may take fewer)
 constexpr int kTcCols = 64;            // weight columns a product block owns
 constexpr int kTcWarps = kTcCols / 16;  // a warp per 16 columns (the m16 of the MMA)
 constexpr int kTcThreads = 32 * kTcWarps;

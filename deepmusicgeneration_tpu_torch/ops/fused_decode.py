@@ -28,11 +28,11 @@ which no engine mode reaches.
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
-first use, bound with ctypes) or raises; ``slab4_w8``, ``slab4``,
-``slab_int8``, ``slab``, ``slab_ar_w8``, ``slab_ar``, ``multirow_int8`` and
-``multirow`` take the tensor-core chain of ``csrc/tc_decode.cuh`` where
-:func:`tc_path` says so (B >= 8; ``multirow`` any B), the chain of the
-other modes below that and at the sizes the chain refuses; on a CPU tensor
+first use, bound with ctypes) or raises; every mode but ``slab_int8_w8``
+and row 10's two steps takes the tensor-core chain of
+``csrc/tc_decode.cuh`` where :func:`tc_path` says so (from its
+:data:`TC_POLICY` minimum B: 8, or 1 for ``multirow`` and ``slab_w8``), the
+old chain below that and at the sizes the chain refuses; on a CPU tensor
 it runs its plain version (:func:`slab_plain`, :func:`multirow_plain`,
 :func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
 PyTorch. Unlike the JAX functions, whose cache operands are donated and
@@ -425,31 +425,37 @@ TC_MIN_ROWS = 8            # kTcMinRows
 
 
 class TcPolicy(NamedTuple):
-    """A mode's tensor-core chain (its ``<mode>_tc_step``): the attention's
-    format in csrc/tc_decode.cuh (a grouped attention's cache policy, or
-    ScoresI8, slab_int8's attention in three kernels); the fewest rows the
-    step serves (its ``tc_accepts`` call); whether the format stages its
-    quarter of a head's slice of the head-major (HD, M + 1) relative panel
-    (the others read the slot-major (M + 1, HD) table as it is); and the
-    ``kind`` of ``slab_decode_attention_occupancy`` that counts its attention
-    blocks (None: not a step of csrc/slab_decode.cu)."""
+    """A mode's tensor-core chain: the attention's format in
+    csrc/tc_decode.cuh (a grouped attention's cache policy, or ScoresI8,
+    slab_int8's attention in three kernels); the library entry that runs it
+    (one a template instantiation, bound by every mode that names it); the
+    fewest rows the mode sends there, at least the entry's own ``tc_accepts``
+    minimum; whether the format stages its quarter of a head's slice of the
+    head-major (HD, M + 1) relative panel (the others read the slot-major
+    (M + 1, HD) table as it is); and the ``kind`` of
+    ``slab_decode_attention_occupancy`` that counts its attention blocks
+    (None: not a step of csrc/slab_decode.cu)."""
     attention: str
+    entry: str
     min_rows: int = TC_MIN_ROWS
     panel: bool = False
     occupancy: int = None
 
 
 # multirow's chain serves every B: it took about half the old chain's step at
-# B = 1, 2 and 4 (flagship, H100). The all-rows steps are slab's chain (bf16
-# or int8 panels); their B < 8 is not measured on it, so each states 8.
-TC_POLICY = {"slab4_w8": TcPolicy("GroupI4", occupancy=0),
-             "multirow_int8": TcPolicy("GroupPanelI8", panel=True),
-             "slab4": TcPolicy("GroupI4", occupancy=0),
-             "slab_int8": TcPolicy("ScoresI8", occupancy=1),
-             "multirow": TcPolicy("GroupPanelBF16", min_rows=1, panel=True),
-             "slab": TcPolicy("GroupSlotI8", occupancy=2),
-             "slab_ar_w8": TcPolicy("GroupSlotI8", min_rows=TC_MIN_ROWS, occupancy=2),
-             "slab_ar": TcPolicy("GroupSlotI8", min_rows=TC_MIN_ROWS, occupancy=2)}
+# B = 1, 2 and 4 (flagship, H100); so does slab_w8's (PERF.md, Findings).
+# The all-rows steps bind slab's and slab_w8's entries (bf16 or
+# int8 panels); their B < 8 is not measured on the chain, so each states 8.
+TC_POLICY = {"slab4_w8": TcPolicy("GroupI4", "slab4_w8_tc_step", occupancy=0),
+             "multirow_int8": TcPolicy("GroupPanelI8", "multirow_int8_tc_step", panel=True),
+             "slab4": TcPolicy("GroupI4", "slab4_tc_step", occupancy=0),
+             "slab_int8": TcPolicy("ScoresI8", "slab_int8_tc_step", occupancy=1),
+             "multirow": TcPolicy("GroupPanelBF16", "multirow_tc_step", min_rows=1,
+                                  panel=True),
+             "slab": TcPolicy("GroupSlotI8", "slab_tc_step", occupancy=2),
+             "slab_ar_w8": TcPolicy("GroupSlotI8", "slab_w8_tc_step", occupancy=2),
+             "slab_ar": TcPolicy("GroupSlotI8", "slab_tc_step", occupancy=2),
+             "slab_w8": TcPolicy("GroupSlotI8", "slab_w8_tc_step", min_rows=1, occupancy=2)}
 TC_MODES = tuple(TC_POLICY)
 TC_COLS = 64               # kTcCols: weight columns a product block owns
 TC_ROWS = 64               # kTcRows: batch rows a product block applies
@@ -604,13 +610,14 @@ def tc_scale_sources(B: int, H: int, R: int):
 def _lib(source: str) -> ctypes.CDLL:
     """Build and load ``csrc/<source>.cu``'s library (slab_decode or
     multirow_decode) and declare its functions: one ``<mode>_step`` per
-    mode (multirow_decode: of MULTIROW_MODES and STACK_MODES), a
-    ``<mode>_tc_step`` for each of its modes of TC_MODES, and
+    mode (multirow_decode: of MULTIROW_MODES and STACK_MODES), the chain
+    entries that TC_POLICY names for its modes, and
     ``<source>_scratch_floats``, ``<source>_kernels_per_step``,
     ``<source>_error_string``."""
     lib = _build.load(source)
     modes = SLAB_MODES if source == "slab_decode" else MULTIROW_MODES + STACK_MODES
-    for name in [f"{m}_step" for m in modes] + [f"{m}_tc_step" for m in TC_MODES if m in modes]:
+    entries = dict.fromkeys(TC_POLICY[m].entry for m in TC_MODES if m in modes)
+    for name in [f"{m}_step" for m in modes] + list(entries):
         step = getattr(lib, name)
         step.restype = ctypes.c_int
         step.argtypes = _STEP_ARGTYPES
@@ -639,10 +646,10 @@ def kernels_per_step(n_layers: int, mode: str = "slab_w8", tc: bool = False) -> 
 def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
             blocked, ptr: int, rows_per_cell: int):
     """Run ``<mode>_step`` of ``csrc/slab_decode.cu`` or
-    ``csrc/multirow_decode.cu`` on the card, or ``<mode>_tc_step`` where
-    :func:`tc_path` says so (the library refuses, and this raises on, a size
-    its own rule ``tc_accepts`` does not take); ``w_scales`` is None for bf16
-    weight panels,
+    ``csrc/multirow_decode.cu`` on the card, or the chain entry of the
+    mode's TC_POLICY where :func:`tc_path` says so (the library refuses, and
+    this raises on, a size its own rule ``tc_accepts`` does not take);
+    ``w_scales`` is None for bf16 weight panels,
     ``ks`` / ``vs`` None for bf16 caches. The step runs the first B =
     blocked.shape[0] rows of ``h_in``. Returns h_out (B, D)."""
     source = _source(mode)
@@ -664,7 +671,7 @@ def _launch(mode: str, stacked, w_scales, cfg, h_in, wkr, kt, ks, vc, vs,
     smax = 0 if w_scales is None else w_scales.shape[2]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{mode}_tc_step" if tc else f"{mode}_step")(
+        err = getattr(lib, TC_POLICY[mode].entry if tc else f"{mode}_step")(
             *[None if t is None else t.data_ptr() for t in ptrs],
             L, B, D, Dff, H, Dh, M, smax, ptr, rows_per_cell,
             scale, _ACT_CODES[cfg.act], stream)

@@ -6,7 +6,10 @@ continuous; or the multitask model's harmonize and next-word steps.
     python3 profile_decode.py --modes slab4 slab_int8 --batches 64 8 [--steps 20]
     python3 profile_decode.py --model multitask [--steps 64]
     python3 profile_decode.py --timing slab_ar_w8 slab_ar --batches 4 8 16 64 [--e2e]
+    python3 profile_decode.py --timing slab_w8 fused_batched fused_stack --batches 1 2 4 16
     python3 profile_decode.py --data-gate auto xla --seeds 0 1 2
+    python3 profile_decode.py --stack --seeds 0 1 2 [--steps 256] [--repeats 2]
+    python3 profile_decode.py --edge fused_batched:3,5 fused_batched:1,5,64:520 --seeds 7
 
 Loads the 41M flagship checkpoint with the port and, each under
 ``torch.profiler``: runs ``--steps`` slab_w8 decode steps (``fused_slab_core``
@@ -38,7 +41,8 @@ for the mode). It
 uses only functions that every tree of the port has otherwise, so the
 same script profiles a parent checkout (copy it there).
 
-``--timing`` runs ``chip_smoke.slab_timing`` for each given decode mode at
+``--timing`` runs ``chip_smoke.slab_timing`` for each given decode mode (a
+slab mode, or row 10's fused_stack, at B = 1 only, and fused_batched) at
 each B of ``--batches`` (inputs from one rng of seed 0): the CUDA-event
 medians of the step and of its plain version beside the bound, its CUDA
 kernels a step by the wrapper's count, and on the tensor-core chain the
@@ -55,6 +59,27 @@ each given decode kernel (``auto``: the engine's rule), and prints the
 rows that fail the batch phase's checks (``chip_smoke.check_continuation``:
 re-parse, grammar, and the codec's data gate, a pitch outside the piano
 range or a duration past the cap), with its message.
+
+``--stack`` runs the row-10 path of the smoke's stack phase
+(``chip_smoke.stack_path``: ``--steps`` greedy steps, 256 by default) on
+the prompts of ``chip_smoke.batch_prompts`` for each seed of ``--seeds``,
+one prompt at B = 1 and 16 at B = 16, ``--repeats`` times, driven by the
+float64 plain step (``fd.stack_plain``, the TPU kernel's function with
+float64 between its bf16 cast points): its logits choose the tokens and its
+slot writes make the caches. At every step the wrapper (fused_stack_decode
+at B = 1, fused_batched_decode otherwise) and the float32 plain step run on
+copies of the same caches, so the three are held on equal inputs; it
+prints, for each, the largest logit distance from the exact ring step over
+the smoke's bound (atol 0.08, rtol 0.02) and from the float64 step. It too
+uses only functions that every tree of the port has.
+
+``--edge`` runs ``chip_smoke.edge_phase`` (the kernel phase's float64 check
+at every ptr and kind of ring) for each case ``mode:B,B,...[:M]`` in turn
+(M: the slots, the checkpoint's mem_len if left out), all drawn from one
+rng of each seed of ``--seeds``, on the chain ``fd.tc_path`` gives; a case
+that fails is reported and the next one runs. The smoke's edge phases draw
+their cases from an rng of seed 0 plus an offset, so the same cases in the
+same order redraw its inputs, in this tree or a parent's.
 
 ``--model multitask`` takes the 85M multitask flagship's shapes
 (``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
@@ -231,15 +256,16 @@ def profile_modes(engine, modes, batches, steps: int, dev) -> None:
 
 
 def time_modes(learner, modes, batches, e2e: bool, dev) -> None:
-    """chip_smoke.slab_timing of each of ``modes`` at each B of ``batches``,
-    then, with ``e2e``, chip_smoke.batched_phase once."""
+    """chip_smoke.slab_timing of each of ``modes`` at each B of ``batches``
+    (fused_stack at B = 1 alone, its only size), then, with ``e2e``,
+    chip_smoke.batched_phase once."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
     engine = learner.engine
     wkr_mt = chip_smoke.wkr_table(engine)
     rng = np.random.default_rng(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     for mode in modes:
-        for B in batches:
+        for B in (1,) if mode == "fused_stack" else batches:
             chip_smoke.slab_timing(engine, wkr_mt, rng, dev, mode, B, flush)
     if e2e:
         items = chip_smoke.batch_prompts(learner.vocab, 0, 64)
@@ -265,6 +291,123 @@ def data_gate(learner, kernels, seeds) -> None:
             print(f"data gate: generate_batch B=64 kernel {kernel} "
                   f"({engine.resolve_kernel(64) if kernel == 'auto' else kernel}) seed {seed}: "
                   f"{len(bad)} of 64 rows fail: {bad}", flush=True)
+
+
+def stack_fixed_path(learner, items, n_words: int) -> dict:
+    """chip_smoke.stack_path's row-10 path for the prompts ``items``, driven
+    by the float64 plain step; the wrapper and the float32 plain step run on
+    copies of its caches at every step. Returns {step: (its logits' largest
+    |d| from the exact ring step over the smoke's bound, their largest |d|
+    from the float64 step's)} for "kernel", "plain32" and "plain64"."""
+    cs = chip_smoke
+    engine, vocab = learner.engine, learner.vocab
+    params, cfg, dev = engine.params, engine.cfg, engine.device
+    M, D, B = cfg.mem_len, cfg.d_model, len(items)
+    W = min(cs._bucket(max(len(it.data) for it in items)), max(cfg.ctx_len, M))
+    toks = np.full((B, W), vocab.pad_idx, dtype=np.int64)
+    pad = np.ones((B, W), dtype=bool)
+    pos = np.zeros((B, W), dtype=np.int32)
+    for i, it in enumerate(items):
+        s = np.asarray(it.data)[-W:]
+        toks[i, W - len(s):], pad[i, W - len(s):] = s, False
+        pos[i, W - len(s):] = cs.position_enc(s, vocab)[:len(s)]
+    last_pos = torch.from_numpy(pos[:, -1].copy()).to(dev).int()
+    window = torch.from_numpy(toks).to(dev)
+    logits, cache0 = cs.txl.prefill(params, cfg, window, torch.from_numpy(pad).to(dev),
+                                    pos=torch.from_numpy(pos).to(dev), mem_len=M)
+    ring = cs.txl.ring_from_prefill(cache0, cfg)
+    exact = ring._replace(k=ring.k.clone(), v=ring.v.clone(), g=ring.g.clone())
+    wkr = cs.txl.precompute_wkr(params, cfg, M)
+    stacked, _ = engine.stacked()
+    kt = ring.k.transpose(3, 4).contiguous()                     # (L, B, H, Dh, M)
+    vc = ring.v.contiguous()                                     # (L, B, H, M, Dh)
+    wkr_t = wkr.transpose(2, 3).to(torch.bfloat16).contiguous()  # (L, H, Dh, M+1)
+    settings = cs.SamplerSettings(n_words=n_words, top_k=cs.GEN_KW["top_k"], greedy=True)
+    temps = torch.tensor(cs.GEN_KW["temperatures"], dtype=torch.float32, device=dev)
+    allowed = torch.from_numpy(cs.grammar.allowed_ins_mask(vocab, None)).to(dev)
+    top_k = torch.full((B,), settings.top_k, dtype=torch.long, device=dev)
+    top_p = torch.full((B,), cs.GEN_KW["top_p"], dtype=torch.float32, device=dev)
+    zeros = lambda dt: torch.zeros((B,), dtype=dt, device=dev)
+    st = cs.SampleState(prev_tok=window[:, -1].int(), last_pos=last_pos, start_pos=last_pos,
+                        last_xxsep=zeros(torch.bool), repeat_count=zeros(torch.int32),
+                        done=zeros(torch.bool), n_emitted=zeros(torch.int32))
+    embed32 = params["embed"].float()
+    head_b = 0.0 if params.get("head_b") is None else params["head_b"].float()
+    head_b64 = head_b.double() if torch.is_tensor(head_b) else head_b
+    h_block = torch.zeros((8, D), device=dev)
+    g, ptr, g_cur = ring.g, ring.ptr, ring.g_cur
+    worst = {k: [0.0, 0.0] for k in ("kernel", "plain32", "plain64")}
+    for i in range(n_words):
+        idx, st = cs.sample_next_token(logits, st, engine.tables, temps, top_k, top_p,
+                                       cs.GEN_KW["min_bars"], allowed, None, settings,
+                                       cs._past_80pct(i, n_words))
+        blocked = ((g_cur - g < 1) | (g_cur - g > M)).int()
+        h_in = embed32[idx.long()]
+        plain = lambda acc, k, v: fd.stack_plain(stacked, cfg, h_in, wkr_t, k, v, blocked,
+                                                 int(ptr), acc=acc)[0]
+        if B == 1:
+            h_block[0] = h_in[0]
+            h_kernel = fd.fused_stack_decode(stacked, cfg, h_block, wkr_t, kt.clone(),
+                                             vc.clone(), blocked, ptr, M)[0][:1]
+        else:
+            h_kernel = fd.fused_batched_decode(stacked, cfg, h_in, wkr_t, kt.clone(),
+                                               vc.clone(), blocked, ptr, M)[0]
+        h32 = plain(torch.float32, kt.clone(), vc.clone())
+        l64 = plain(torch.float64, kt, vc) @ embed32.double().T + head_b64  # writes the slot
+        ref, exact = cs.txl.decode_step_ring(params, cfg, idx, st.last_pos, exact, wkr)
+        ref64 = ref.double()
+        for kind, lg in (("kernel", (h_kernel @ embed32.T + head_b).double()),
+                         ("plain32", (h32 @ embed32.T + head_b).double()), ("plain64", l64)):
+            bound = cs.STACK_LOGITS_ATOL + cs.STACK_LOGITS_RTOL * ref64.abs()
+            worst[kind][0] = max(worst[kind][0], ((lg - ref64).abs() / bound).max().item())
+            worst[kind][1] = max(worst[kind][1], (lg - l64).abs().max().item())
+        logits = l64.float()
+        g[:, ptr] = g_cur
+        ptr, g_cur = (ptr + 1) % M, g_cur + 1
+    return {k: tuple(v) for k, v in worst.items()}
+
+
+def stack_paths(learner, seeds, steps: int, repeats: int) -> None:
+    """stack_fixed_path at B = 1 and 16 on each seed's prompts, ``repeats``
+    times each."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
+    cfg = learner.engine.cfg
+    for seed in seeds:
+        items = chip_smoke.batch_prompts(learner.vocab, seed, 16)
+        for batch in (items[:1], items[:16]):
+            B = len(batch)
+            mode = "fused_stack" if B == 1 else "fused_batched"
+            chain = ("tensor-core" if mode in fd.TC_MODES and fd.tc_path(mode, cfg, B, cfg.mem_len)
+                     else "old")
+            for r in range(repeats):
+                got = stack_fixed_path(learner, batch, steps)
+                print(f"stack path: seed {seed} B={B} repeat {r}, {steps} steps driven by the "
+                      f"float64 plain step; of the exact step's bound / max |dlogit| from the "
+                      f"float64 step: " + "; ".join(
+                          f"{k}{f' ({mode}, the {chain} chain)' if k == 'kernel' else ''} "
+                          f"{a:.4f} / {d:.4e}" for k, (a, d) in got.items()), flush=True)
+
+
+def edge_cases(engine, cases, seeds) -> None:
+    """chip_smoke.edge_phase for each of ``cases`` ("mode:B,B,...[:M]") in
+    turn, drawn from one rng of each seed; a case that fails is reported
+    and the next one runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        for case in cases:
+            mode, batches, *mem_len = case.split(":")
+            batches = tuple(int(b) for b in batches.split(","))
+            M = int(mem_len[0]) if mem_len else None
+            chain = mode in fd.TC_MODES and fd.tc_path(mode, engine.cfg, batches[0],
+                                                       M or engine.cfg.mem_len)
+            try:
+                dh, ratio = chip_smoke.edge_phase(engine, rng, engine.device, mode, batches, M,
+                                                  chain)
+                print(f"edge: seed {seed} {case}: max |dh_out| {dh:.3e}, {ratio:.3f} of its "
+                      f"bound", flush=True)
+            except AssertionError as e:
+                print(f"edge: seed {seed} {case}: FAILED: {e}", flush=True)
 
 
 def profile_multitask(steps: int, dev) -> None:
@@ -317,13 +460,19 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, nargs="*", default=[16, 64])
     ap.add_argument("--modes", nargs="*", default=None, choices=PROFILED_MODES,
                     help="decode modes to profile (chip_smoke.EXPLICIT_MODES, fd.TC_MODES)")
-    ap.add_argument("--timing", nargs="*", default=None, choices=fd.SLAB_MODES,
-                    help="slab modes to time with chip_smoke.slab_timing at each B")
+    ap.add_argument("--timing", nargs="*", default=None, choices=fd.SLAB_MODES + fd.STACK_MODES,
+                    help="slab or row-10 modes to time with chip_smoke.slab_timing at each B")
     ap.add_argument("--e2e", action="store_true",
                     help="with --timing: then chip_smoke.batched_phase once")
     ap.add_argument("--data-gate", nargs="*", default=None,
                     help="decode kernels (or auto) whose generate_batch rows to hold "
                          "to the codec's data gate")
+    ap.add_argument("--stack", action="store_true",
+                    help="the row-10 path driven by the float64 plain step, the kernel and "
+                         "the float32 plain step on its inputs")
+    ap.add_argument("--repeats", type=int, default=1, help="with --stack: runs of each path")
+    ap.add_argument("--edge", nargs="*", default=None,
+                    help="cases mode:B,B,...[:M] for chip_smoke.edge_phase, one rng a seed")
     ap.add_argument("--seeds", type=int, nargs="*", default=[0])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -336,9 +485,16 @@ def main(argv=None) -> int:
     if args.model == "multitask":
         profile_multitask(args.steps or 64, dev)
         return 0
+    if args.stack:
+        stack_paths(MusicLearner.load(str(chip_smoke.CKPT)), args.seeds, args.steps or 256,
+                    args.repeats)
+        return 0
     args.steps = args.steps or 20
     learner = MusicLearner.load(str(chip_smoke.CKPT))
     engine = learner.engine
+    if args.edge is not None:
+        edge_cases(engine, args.edge, args.seeds)
+        return 0
     if args.modes:
         torch.backends.cuda.matmul.allow_tf32 = False
         profile_modes(engine, args.modes, args.batches, args.steps, dev)

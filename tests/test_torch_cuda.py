@@ -823,7 +823,7 @@ def test_stack_path_follows_the_exact_ring_step():
 
 
 TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab",
-            "slab_ar_w8", "slab_ar")
+            "slab_ar_w8", "slab_ar", "slab_w8")
 
 
 @pytest.mark.cuda
@@ -831,10 +831,10 @@ TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab
 @pytest.mark.parametrize("mode", TC_MODES)
 def test_tc_modes_against_float64(mode, B):
     """slab4_w8, multirow_int8, slab4, slab_int8 (min(B, 8) rows a cell),
-    multirow, slab, slab_ar_w8 and slab_ar on their tensor-core chain (B >=
-    8, csrc/tc_decode.cuh) at the demo checkpoint's widths: every case of
-    chip_smoke.py's kernel phase held to its float64 check (raises on a
-    disagreement), one launch counted a case."""
+    multirow, slab, slab_ar_w8, slab_ar and slab_w8 on their tensor-core
+    chain (csrc/tc_decode.cuh) at B >= 8 at the demo checkpoint's widths:
+    every case of chip_smoke.py's kernel phase held to its float64 check
+    (raises on a disagreement), one launch counted a case."""
     dev = _card()
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -868,6 +868,30 @@ def test_multirow_edge_cases_against_float64(batches, extra, chain):
     cases = len(batches) * len(cs.kernel_ptrs("multirow", M)) * len(cs.RINGS)
     assert cs.launches() == cs.only(multirow=cases)
     print(f"multirow B in {batches} M={M}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batches,extra,chain", [((1, 2, 4), 0, True), ((1, 4), 8, False)],
+                         ids=["chain_B1_B2_B4", "old_chain_mem_len_plus_8"])
+def test_slab_w8_edge_cases_against_float64(batches, extra, chain):
+    """slab_w8, whose tensor-core chain serves every B: the chain below 8
+    rows (B = 1, 2 and 4, one cluster of 4 with padded rows), and the old
+    chain (slab_w8_step, the route for the sizes tc_accepts refuses) at
+    mem_len + 8, at the demo checkpoint's widths: every case of
+    chip_smoke.py's kernel phase held to its float64 check (raises on a
+    disagreement), one launch counted a case."""
+    mode = "slab_w8"
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    M = engine.cfg.mem_len + extra
+    cs.reset_launches()
+    dh, ratio = cs.edge_phase(engine, np.random.default_rng(17), dev, mode, batches,
+                              M if extra else None, chain)
+    cases = len(batches) * len(cs.kernel_ptrs(mode, M)) * len(cs.RINGS)
+    assert cs.launches() == cs.only(**{mode: cases})
+    print(f"{mode} B in {batches} M={M}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
 
 
 @pytest.mark.cuda
@@ -946,6 +970,32 @@ def test_tc_step_bits_repeat_and_do_not_depend_on_the_batch(mode):
         assert all(torch.equal(x, y) for x, y in zip(a, b)), (kind, ptr)
         assert torch.equal(a[0][8:16], r8[0]), (kind, ptr)
         assert all(torch.equal(x[:, 8:16], y) for x, y in zip(a[1:], r8[1:])), (kind, ptr)
+
+
+@pytest.mark.cuda
+def test_slab_w8_row0_equals_slab_ar_w8():
+    """slab_w8 and slab_ar_w8 bind one chain entry (slab_w8_tc_step, int8
+    panels over the int8 ring), so slab_w8 at B = 1 gives row 0 of
+    slab_ar_w8's B = 8 step on the same inputs: h_out and the written
+    caches, bit for bit, since the K chunks come from the widths alone."""
+    dev = _card()
+    import chip_smoke as cs
+    one_mode, one_b, twin, twin_b = "slab_w8", 1, "slab_ar_w8", 8
+    engine = MusicLearner.load(DEMO).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    wkr_mt = cs.wkr_table(engine)
+    rng = np.random.default_rng(16)
+    for ptr, kind in ((31, "part"), (M - 1, "full"), (5, "short")):
+        kv, blocked = cs.ring_inputs(cfg, twin_b, M, ptr, kind, rng, dev, twin)
+        h_in = engine.params["embed"].float()[
+            torch.from_numpy(rng.integers(12, 140, twin_b)).to(dev)]
+        assert fd.tc_path(one_mode, cfg, one_b, M) and fd.tc_path(twin, cfg, twin_b, M)
+        a = cs.run_step(twin, engine, wkr_mt, kv, blocked, h_in, ptr)
+        b = cs.run_step(one_mode, engine, wkr_mt, [t[:, :1].contiguous() for t in kv],
+                        blocked[:1].contiguous(), h_in[:1].contiguous(), ptr)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0][:1], b[0][:1]), (kind, ptr)
+        assert all(torch.equal(x[:, :1], y) for x, y in zip(a[1:], b[1:])), (kind, ptr)
 
 
 @pytest.mark.cuda

@@ -1,11 +1,16 @@
 """The plan of the tensor-core decode chain (``csrc/tc_decode.cuh``) of the
-slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar, multirow_int8 and
-multirow steps at B >= 8, mirrored in ``ops/fused_decode.py`` and held here on the CPU: the
-products' tiling and partial order, the dequantized weight tile, the
-attention's row clusters, the shared memory of each attention policy, the
-bf16 K panel's key-dot split, the launch count, the scratch layout, and
-slab_int8's cells and the sources of its two scales. The kernels themselves
-run on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar and multirow_int8
+steps at B >= 8 and of the multirow and slab_w8 steps at every B, mirrored
+in ``ops/fused_decode.py`` and held here on the CPU: the products' tiling
+and partial order, the dequantized weight tile, the attention's row
+clusters, the shared memory of each attention policy, each mode's library
+entry and minimum B against the sources, the bf16 K panel's key-dot split,
+the launch count, the scratch layout, and slab_int8's cells and the sources of its two scales.
+The kernels themselves run on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -59,12 +64,14 @@ def tc_product_model(x, w, cluster=False):
 
 
 @pytest.mark.parametrize("cfg", [FLAGSHIP, SMALL], ids=["flagship", "small"])
-@pytest.mark.parametrize("B", [8, 24, 64, 72, 128])
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 24, 64, 72, 128])
 def test_product_tiling_equals_the_plain_product(cfg, B):
     """On integer-valued inputs (every sum exact in float32) the tiled
     product equals x @ w for every product of a layer, and the plan covers
-    K and N with whole stages and no chunk past K; B = 72 and 128 (the
-    all-rows steps of generate_batch) take two row groups of TC_ROWS."""
+    K and N with whole stages and no chunk past K; B = 1, 2 and 4 (slab_w8's
+    and multirow's chain below 8 rows) take one n8 tile with padded rows,
+    B = 72 and 128 (the all-rows steps of generate_batch) two row groups of
+    TC_ROWS."""
     rng = np.random.default_rng(B)
     for K, N, cluster in _products(cfg):
         plan = fd.tc_product_plan(B, K, N, cluster)
@@ -138,11 +145,12 @@ def test_dequantized_tile_is_the_bf16_upcast():
                 assert not tile[:, part.shape[1]:].float().any()
 
 
-@pytest.mark.parametrize("B", [8, 10, 24, 64])
+@pytest.mark.parametrize("B", [1, 3, 8, 10, 24, 64])
 def test_attention_clusters_cover_each_row_and_head_once(B):
     """The grouped attention's clusters (GROUP_ROWS consecutive rows of one
     head, a block a row) hold every (row, head) with row < B exactly once;
-    rows past B occur only in a head's last cluster."""
+    rows past B occur only in a head's last cluster (at B = 1, slab_w8's
+    single stream, three padded rows of one cluster a head)."""
     H = 12
     clusters = fd.tc_attention_clusters(B, H)
     assert len(clusters) == -(-B // fd.GROUP_ROWS) * H
@@ -154,24 +162,33 @@ def test_attention_clusters_cover_each_row_and_head_once(B):
     assert len(padded) == H * (-(-B // fd.GROUP_ROWS) * fd.GROUP_ROWS - B)
 
 
+# the modes whose chain serves every B (their timing against the old chain
+# set the minimum at 1), and those it serves from B = 8
+EVERY_B = ("multirow", "slab_w8")
+FROM_8 = ("slab4_w8", "slab4", "slab_int8", "slab", "slab_ar_w8", "slab_ar", "multirow_int8")
+
+
 def test_tc_path_rule():
     """The chain serves slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar
-    and multirow_int8 at B >= 8 and multirow at every B, at the flagship's
-    and small widths, never another mode (nor slab_w8 or slab_int8_w8) or
-    B < 8, and not where an attention block's shared memory would pass a
-    block's: at Dh 64 every grouped policy's limit is M = 3376 (see
-    test_attention_smem_by_policy); nor at M = 520 (not a multiple of 16),
-    where chip_smoke.py holds the old all-rows chain."""
-    chain = ("slab4_w8", "slab4", "slab_int8", "slab", "slab_ar_w8", "slab_ar",
-             "multirow_int8")
+    and multirow_int8 at B >= 8, and multirow and slab_w8 at every B, at
+    the flagship's and small widths; never slab_int8_w8 or row 10's
+    fused_stack / fused_batched, nor B < 8 in the first set, nor where an
+    attention block's shared memory would pass a block's: at Dh 64 every
+    grouped policy's limit is M = 3376 (see test_attention_smem_by_policy);
+    nor at M = 520 (not a multiple of 16), where chip_smoke.py holds the old
+    all-rows and slab_w8 chains."""
     for cfg in (FLAGSHIP, SMALL):
         for mode in fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES:
             for B in (1, 2, 4, 7, 8, 24, 64):
-                want = mode == "multirow" or (mode in chain and B >= 8)
+                want = mode in EVERY_B or (mode in FROM_8 and B >= 8)
                 assert fd.tc_path(mode, cfg, B, cfg.mem_len) == want, (mode, B)
     assert {m: p.min_rows for m, p in fd.TC_POLICY.items()} == {
         "slab4_w8": 8, "multirow_int8": 8, "slab4": 8, "slab_int8": 8, "multirow": 1,
-        "slab": 8, "slab_ar_w8": 8, "slab_ar": 8}
+        "slab": 8, "slab_ar_w8": 8, "slab_ar": 8, "slab_w8": 1}
+    assert fd.tc_path("slab_w8", FLAGSHIP, 1, 3376)
+    assert not fd.tc_path("slab_w8", FLAGSHIP, 1, 3392)
+    assert not fd.tc_path("slab_w8", FLAGSHIP, 1, 520)
+    assert not fd.tc_path("slab_w8", FLAGSHIP, 64, 520)
     assert fd.tc_attention_smem(64, 512, "multirow_int8") <= fd.MAX_SMEM
     assert not fd.tc_path("multirow_int8", FLAGSHIP, 64, 8192)
     assert not fd.tc_path("slab4_w8", FLAGSHIP, 64, 520)     # mem_len % 16
@@ -182,7 +199,8 @@ def test_tc_path_rule():
             assert not fd.tc_path(mode, FLAGSHIP, B, 520)
         assert fd.tc_path(mode, FLAGSHIP, 8, 512) and fd.tc_path(mode, FLAGSHIP, 128, 512)
         assert not fd.tc_path(mode, FLAGSHIP, 7, 512)
-    for mode in ("multirow", "slab", "multirow_int8", "slab4", "slab_ar_w8", "slab_ar"):
+    for mode in ("multirow", "slab", "multirow_int8", "slab4", "slab_ar_w8", "slab_ar",
+                 "slab_w8"):
         assert fd.tc_path(mode, FLAGSHIP, 8, 3376)
         assert not fd.tc_path(mode, FLAGSHIP, 8, 3392)
     assert not fd.tc_path("slab", FLAGSHIP, 7, 512)
@@ -209,10 +227,10 @@ def test_attention_smem_by_policy(cfg):
     attention runs the policy it is mirrored with, and only the head-major
     panels' policies stage."""
     grouped = ("slab4_w8", "multirow_int8", "slab4", "multirow", "slab", "slab_ar_w8",
-               "slab_ar")
+               "slab_ar", "slab_w8")
     want = {FLAGSHIP: {"slab4_w8": 36768, "multirow_int8": 36800, "slab4": 36768,
                        "multirow": 36800, "slab": 36768, "slab_ar_w8": 36768,
-                       "slab_ar": 36768},
+                       "slab_ar": 36768, "slab_w8": 36768},
             SMALL: dict.fromkeys(grouped, 19296)}[cfg]
     got = {m: fd.tc_attention_smem(cfg.d_head, cfg.mem_len, m) for m in grouped}
     assert got == want
@@ -220,7 +238,8 @@ def test_attention_smem_by_policy(cfg):
         "slab4_w8": ("GroupI4", False), "multirow_int8": ("GroupPanelI8", True),
         "slab4": ("GroupI4", False), "slab_int8": ("ScoresI8", False),
         "multirow": ("GroupPanelBF16", True), "slab": ("GroupSlotI8", False),
-        "slab_ar_w8": ("GroupSlotI8", False), "slab_ar": ("GroupSlotI8", False)}
+        "slab_ar_w8": ("GroupSlotI8", False), "slab_ar": ("GroupSlotI8", False),
+        "slab_w8": ("GroupSlotI8", False)}
     # at Dh 64 the largest M that fits: 4 ceil4(9 M + 486) + 32 M (+ 32 for a
     # panel's stage) bytes is 231520 (231552) at M 3376, 232608 at 3392
     assert fd.tc_attention_smem(64, 3376, "slab") == 231520
@@ -228,6 +247,50 @@ def test_attention_smem_by_policy(cfg):
     assert fd.tc_attention_smem(64, 3392, "slab") == 232608 > fd.MAX_SMEM
     with pytest.raises(ValueError):
         fd.tc_attention_smem(64, 512, "slab_int8")
+
+
+CSRC = Path(fd.__file__).with_name("csrc")
+
+
+def _chain_entries(source: str) -> dict:
+    """The extern "C" chain entries of ``csrc/<source>.cu`` (``int
+    <name>_tc_step(DECODE_STEP_ARGS(...))``) and the minimum B each one's
+    ``tc_accepts`` (or ``slot_i8_tc_step``) call states, its named
+    constant resolved in the sources and headers."""
+    consts = {}
+    for path in sorted(CSRC.glob("*.cu*")):
+        consts.update((k, int(v)) for k, v in
+                      re.findall(r"constexpr int (k\w+) = (\d+);", path.read_text()))
+    text = (CSRC / f"{source}.cu").read_text()
+    entries = {}
+    for name, body in re.findall(r"^int (\w+_tc_step)\(DECODE_STEP_ARGS\([^)]*\)\) \{(.*?)^\}",
+                                 text, re.S | re.M):
+        (arg,) = re.findall(r"(?:tc_accepts<\w+>|slot_i8_tc_step<\w+>)\((\w+),", body)
+        entries[name] = int(arg) if arg.isdigit() else consts[arg]
+    return entries
+
+
+@pytest.mark.parametrize("source", ["slab_decode", "multirow_decode"])
+def test_chain_entries_and_minimums_match_the_sources(source):
+    """Each mode's TC_POLICY names a chain entry that its source defines,
+    every chain entry of the source is named by some mode (no entry for one
+    function under a second name), and the minimum B the entry's tc_accepts
+    call states is the smallest ``min_rows`` of the modes that bind it: so
+    the library takes every B the wrapper sends it, and a mode's own
+    minimum (slab_ar_w8's 8 on slab_w8's entry) is the wrapper's rule."""
+    entries = _chain_entries(source)
+    modes = [m for m in fd.TC_MODES if fd._source(m) == source]
+    assert set(entries) == {fd.TC_POLICY[m].entry for m in modes}
+    for entry, min_rows in entries.items():
+        bound = [fd.TC_POLICY[m].min_rows for m in modes if fd.TC_POLICY[m].entry == entry]
+        assert min_rows == min(bound), (entry, min_rows, bound)
+    assert {m: fd.TC_POLICY[m].entry for m in modes} == {
+        "slab_decode": {"slab4_w8": "slab4_w8_tc_step", "slab4": "slab4_tc_step",
+                        "slab_int8": "slab_int8_tc_step", "slab": "slab_tc_step",
+                        "slab_ar_w8": "slab_w8_tc_step", "slab_ar": "slab_tc_step",
+                        "slab_w8": "slab_w8_tc_step"},
+        "multirow_decode": {"multirow_int8": "multirow_int8_tc_step",
+                            "multirow": "multirow_tc_step"}}[source]
 
 
 def panel_bf16_key_dots(k, qu):
@@ -278,13 +341,15 @@ def test_launch_count_mirror(mode):
     (``*_kernels_per_step``; compared on the card): 7 a layer on the
     tensor-core chain (9 for slab_int8: its attention is three kernels),
     else the chain's 8 and the attention's 2 (4 in the int8-score modes);
-    at B = 7 only multirow takes the chain, so the others count the old
-    chain's (80 a step for the all-rows steps at the flagship)."""
+    at B = 7 only multirow and slab_w8 take the chain (56 kernels a step at
+    the flagship), so the others count the old chain's (80 a step for the
+    all-rows steps)."""
     L = FLAGSHIP.n_layers
     tc = fd.tc_path(mode, FLAGSHIP, 64, FLAGSHIP.mem_len)
     int8 = mode in fd.INT8_SCORE_MODES
     assert tc == (mode in fd.TC_MODES)
-    assert fd.tc_path(mode, FLAGSHIP, 7, FLAGSHIP.mem_len) == (mode == "multirow")
+    assert fd.tc_path(mode, FLAGSHIP, 7, FLAGSHIP.mem_len) == (mode in EVERY_B)
+    assert fd.tc_path(mode, FLAGSHIP, 1, FLAGSHIP.mem_len) == (mode in EVERY_B)
     want = (9 * L if int8 else 7 * L) if tc else (12 * L if int8 else 10 * L)
     assert fd.planned_kernels_per_step(L, mode, tc) == want
     assert fd.planned_kernels_per_step(L, mode, False) == (12 * L if mode in fd.INT8_SCORE_MODES
