@@ -188,23 +188,43 @@ non-zero without printing a result):
 23. row 10 kernel — from an rng of their own (ROW10_CASE_BATCHES):
    ``fused_stack_decode`` (B = 1, the token in row 0 of an 8-row h block,
    rows 1-7 of h_out bit for bit those of h_in), ``fused_batched_decode``
-   (B in {1, 16, 64}) at ptr in {0, 31, M/2, M - 1}, and the int8-score
-   slab step over int8 panels (``slab_int8_w8``, B in {1, 64}, slab_int8's
-   two-step cap), each on every kind of RINGS against a float64 run of its
-   plain version by the float64 check.
+   (B in {1, 16, 64}) at ptr in {0, 31, M/2, M - 1}, both on the
+   tensor-core chain (head_major_tc_step), and the int8-score slab step over
+   int8 panels (``slab_int8_w8``, B in {1, 64}, slab_int8's two-step cap),
+   each on every kind of RINGS against a float64 run of its plain version
+   by the float64 check; then from a second rng (ROW10_EDGE_CASES)
+   ``fused_batched_decode``'s chain at B in {3, 5} and its old chain at
+   M = 520, B in {1, 5, 64}. Every case runs; the phase fails at its end,
+   naming each case that failed.
 24. row 10 timing — CUDA-event medians of both row-10 steps at B = 1, 16
    and 64 and of ``slab_int8_w8`` at B = 1 and 64, and of their plain
-   versions, beside the bound.
+   versions, beside the bound; the row-10 steps' kernels a step under
+   ``torch.profiler``.
 25. stack — the path of the JAX package's row-10 tests at full width, one
    prompt at B = 1 (materialized prefill) and the batch cell's 16 at B = 16
    (flash prefill): ``txl.prefill``, ``ring_from_prefill``,
    ``precompute_wkr``, ``stack_txl_layers``, the transposed caches, then
-   256 greedy steps (``sample_next_token``, the grammar mask) of one launch
-   each, every step's logits within STACK_LOGITS_ATOL / RTOL of the exact
-   ``txl.decode_step_ring`` fed the same tokens, the argmax equal where the
-   exact top two are STACK_ARGMAX_GAP apart; every continuation re-parses.
-   No engine mode reaches row 10, and no path runs ``slab_int8_w8`` (its
-   launches are 0 in the JSON line).
+   256 free-running greedy steps (``sample_next_token``, the grammar mask)
+   of one launch each, every continuation re-parsed; its steps/s from that
+   run alone. Then the gate (``stack_fixed_path``): the path driven by the
+   float64 plain step (the TPU kernel's function, tanh GELU and its bf16
+   cast points, float64 between them), the wrapper and the float32 plain
+   step on copies of its caches at every step; the wrapper's largest
+   |dlogit| from float64 within STACK_F64_ATOL + PLAIN_K x the float32 plain
+   step's, its argmax equal to float64's where float64's top two are more
+   than twice that bound apart, the slot it wrote within SLOT_MAX_STEP +
+   PLAIN_K x the float32 plain step's steps of float64's and every other
+   slot byte-identical, rows 1-7 of its h block bit for bit. This gate
+   replaced one that held the wrapper's logits within the JAX test's
+   one-step bound (STACK_LOGITS_ATOL / RTOL) of the exact
+   ``txl.decode_step_ring`` over the free-running path: the float64 run of
+   the TPU kernel's own function left that bound on 3 of 6 256-step paths
+   (erf against tanh GELU and other bf16 cast points), so it passed or
+   failed a faithful step by its rounding draw. The exact step still runs on
+   its own ring, fed the same tokens; its largest share of that bound
+   against the float64 step, the wrapper and the float32 plain step is
+   printed and gates nothing. No engine mode reaches row 10, and no path
+   runs ``slab_int8_w8`` (its launches are 0 in the JSON line).
 
 A ``time:`` line after each phase says how long it took. Then one JSON line
 with every kernel, and the last line
@@ -411,10 +431,10 @@ def say(line: str) -> None:
     print(line, flush=True)
 
 
-def timed(name: str, fn, *args):
-    """``fn(*args)``, with a line that says how long the phase took."""
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with a line that says how long the phase took."""
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     say(f"time: {name} phase {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -759,18 +779,26 @@ def worse(worst, key, result):
     worst[key] = (max(old[0], result[0]), max(old[1], result[1]))
 
 
-def kernel_phase(engine, wkr_mt, rng, dev, mode, batches, rows=None):
+def kernel_phase(engine, wkr_mt, rng, dev, mode, batches, rows=None, failed=None):
     """``mode``'s kernel on the card against a float64 run of its plain
     version in every case of ``kernel_cases`` (at ``rows`` rows a cell,
     default min(B, 8)); returns the largest |dh_out| and the largest
-    |dh_out| over its bound."""
-    worst = {}
+    |dh_out| over its bound of the cases that passed. A failing case raises,
+    or, given a list ``failed``, is said and appended to it, and the next
+    case runs."""
+    worst = {mode: (0.0, 0.0)}
     for B, ptr, kind, kv, blocked, h_in in kernel_cases(engine, rng, dev, batches, mode):
         args = (mode, engine, wkr_mt, kv, blocked, h_in, ptr)
         tag = f"B={B} R={rows or min(B, 8)} ptr={ptr:3d} ring={kind}"
-        worse(worst, mode, check_case(
-            mode, mode, kv, ptr, lambda: run_step(*args, rows=rows),
-            lambda acc: plain_step(*args, acc=acc, rows=rows), tag))
+        try:
+            worse(worst, mode, check_case(
+                mode, mode, kv, ptr, lambda: run_step(*args, rows=rows),
+                lambda acc: plain_step(*args, acc=acc, rows=rows), tag))
+        except AssertionError as e:
+            if failed is None:
+                raise
+            say(f"kernel: FAILED {mode} M={engine.cfg.mem_len} {tag}: {e}")
+            failed.append(f"{mode} M={engine.cfg.mem_len} {tag}")
     return worst[mode]
 
 
@@ -784,10 +812,10 @@ def at_mem_len(engine, M):
                            stacked_q=engine.stacked_q)
 
 
-def edge_phase(engine, rng, dev, mode, batches, mem_len, chain):
+def edge_phase(engine, rng, dev, mode, batches, mem_len, chain, failed=None):
     """kernel_phase of ``mode`` at ``mem_len`` slots (None: the engine's),
     after checking that every B of ``batches`` takes the chain ``chain``
-    says (the tensor-core chain, else the old one)."""
+    says (the tensor-core chain, else the old one); ``failed`` as there."""
     eng = at_mem_len(engine, mem_len)
     M = eng.cfg.mem_len
     for B in batches:
@@ -795,7 +823,7 @@ def edge_phase(engine, rng, dev, mode, batches, mem_len, chain):
             raise AssertionError(f"{mode} at B={B} M={M} does not take the chain asked for")
     say(f"kernel: {mode} at M={M}, B in {batches}: the "
         f"{'tensor-core chain' if chain else 'old chain'}")
-    return kernel_phase(eng, wkr_table(eng), rng, dev, mode, batches)
+    return kernel_phase(eng, wkr_table(eng), rng, dev, mode, batches, failed=failed)
 
 
 def flash_inputs(B, W, pads, H, Dh, dev, seed, right=False):
@@ -1603,24 +1631,54 @@ def explicit_modes_phase(learner, items, seed: int, n_words: int) -> dict:
 # their rng; slab_int8_w8 with its own two-step cap (TWO_STEP_SHARE_CAP_BY_MODE)
 ROW10_CASE_BATCHES = (("fused_stack", (1,)), ("fused_batched", (1, 16, 64)),
                       ("slab_int8_w8", (1, 64)))
-# the exact ring step's logits against the head-major steps' at every step of
-# the path: the bounds of tests/test_fused_decode.py (the tanh GELU and the
-# kernels' bf16 cast points against the exact step's erf GELU and bf16
-# activations), elementwise |d| <= atol + rtol |exact|; the greedy choice
-# must agree wherever the exact step's top two are further apart than
-# 2 x atol
+# row 10's edge cases, drawn after ROW10_CASE_BATCHES from an rng of their own,
+# as edge_phase takes them: the tensor-core chain (which serves every B,
+# fd.TC_POLICY) at B = 3 and 5, clusters of 4 rows with padded ones; and the
+# old chain (fused_batched_step), which serves the sizes the chain refuses, at
+# M = 520 (not a multiple of 16), B in {1, 5, 64}
+ROW10_EDGE_CASES = (("fused_batched", (3, 5), None, True),
+                    ("fused_batched", (1, 5, 64), 520, False))
+# The stack phase's gate. Row 10's path is driven by the float64 plain step,
+# ``fd.stack_plain(acc=float64)``: the TPU kernel's own function (tanh GELU,
+# its bf16 cast points) with float64 between the cast points. It chooses the
+# tokens and its slot writes make the caches; at every step the wrapper and
+# the float32 plain step run on copies of those caches, and the wrapper is
+# held in the float64 check's form (``bounds``): its largest |dlogit| from the
+# float64 step at most STACK_F64_ATOL + PLAIN_K x the float32 plain step's on
+# the same step. STACK_F64_ATOL is H_ATOL's logit image at the flagship's
+# widths: h_out drifting by H_ATOL in each of its d_model = 512 entries with
+# independent signs moves a logit h . E[v] by about H_ATOL ||E[v]||_2, and
+# ||E[v]||_2 ~ sqrt(512) x 0.0452 (the rms of the 41M checkpoint's embedding)
+# = 1.02: 5e-2 x 1.02 = 0.051, taken as 0.05, below the 0.08 of the JAX
+# test's bound.
+STACK_F64_ATOL = 0.05
+# The exact ring step (``txl.decode_step_ring``: erf GELU, bf16 activations,
+# another function) is reported, not gated: its logits against the float64
+# step's, the wrapper's and the float32 plain step's, as a share of the JAX
+# test's one-step bound (tests/test_fused_decode.py), elementwise
+# |d| <= atol + rtol |exact|. The float64 run of the TPU kernel's own
+# function leaves that bound on 3 of 6 256-step paths (PERF.md), so as a gate
+# it passed or failed a faithful step by its rounding draw.
 STACK_LOGITS_ATOL, STACK_LOGITS_RTOL = 0.08, 0.02
-STACK_ARGMAX_GAP = 2 * STACK_LOGITS_ATOL
 
 
-def row10_kernel_phase(engine, wkr_mt, rng, dev) -> dict:
+def row10_kernel_phase(engine, wkr_mt, rng, dev, seed) -> dict:
     """ROW10_CASE_BATCHES through kernel_phase (the float64 check at ptr in
-    kernel_ptrs on each kind of RINGS); returns each mode's largest
-    |dh_out| and |dh_out| over its bound."""
-    worst = {}
+    kernel_ptrs on each kind of RINGS), then ROW10_EDGE_CASES through
+    edge_phase from an rng of ``seed``. Every case runs: a failing one is
+    said and recorded, and the phase raises at its end, naming them all.
+    Returns each mode's largest |dh_out| and |dh_out| over its bound."""
+    worst, failed = {}, []
     for mode, batches in ROW10_CASE_BATCHES:
         worse(worst, mode, timed(f"kernel {mode} B in {batches}", kernel_phase, engine,
-                                 wkr_mt, rng, dev, mode, batches))
+                                 wkr_mt, rng, dev, mode, batches, failed=failed))
+    edge_rng = np.random.default_rng(seed)
+    for mode, batches, M, chain in ROW10_EDGE_CASES:
+        worse(worst, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
+                                 edge_phase, engine, edge_rng, dev, mode, batches, M, chain,
+                                 failed=failed))
+    if failed:
+        raise AssertionError(f"row 10: {len(failed)} case(s) failed: {failed}")
     say("kernel: fused_stack returned rows 1-7 of its h block bit for bit in every case")
     return worst
 
@@ -1643,24 +1701,22 @@ def row10_timing_phase(engine, wkr_mt, rng, dev) -> dict:
             "slab_int8_w8": times["slab_int8_w8", 64]}
 
 
-def stack_path(learner, items, n_words: int):
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def stack_start(learner, items, n_words: int) -> SimpleNamespace:
     """The path of the JAX package's tests of row 10 (tests/test_fused_decode.py)
-    for the prompts ``items``: ``txl.prefill`` (its auto rule: the flash
-    kernel at B >= 8), ``ring_from_prefill``, ``precompute_wkr``,
-    ``stack_txl_layers`` and the transposed caches, then ``n_words`` steps of
-    one launch each (fused_stack_decode at B = 1, fused_batched_decode
-    otherwise). Each token is chosen from h_out @ embed.T + head_b by
-    ``sample_next_token`` with greedy settings (the grammar mask applies) and
-    fed to the exact ``txl.decode_step_ring`` too, which keeps its own ring;
-    its logits must lie within STACK_LOGITS_ATOL / RTOL of the kernel's and
-    agree on the argmax where its top two are STACK_ARGMAX_GAP apart.
-    Returns (tokens (n_words, B), emitted (B,), the largest |dlogit|, the
-    largest |dlogit| over its bound, the smallest top-two gap at which the
-    argmaxes differed or None, seconds)."""
+    up to its first of ``n_words`` steps, for the prompts ``items``: ``txl.prefill`` (its auto
+    rule: the flash kernel at B >= 8 on the card), ``ring_from_prefill``,
+    ``precompute_wkr``, ``stack_txl_layers`` and the transposed bf16 caches,
+    and the greedy sampler's state (``sample_next_token`` with the grammar
+    mask). Rows 1-7 of the single-stream step's 8-row h block are N(0, 1)
+    draws, so that a step that changes them shows."""
     engine, vocab = learner.engine, learner.vocab
     params, cfg, dev = engine.params, engine.cfg, engine.device
-    L, H, M, D = cfg.n_layers, cfg.n_heads, cfg.mem_len, cfg.d_model
-    B = len(items)
+    M, B = cfg.mem_len, len(items)
     W = min(_bucket(max(len(it.data) for it in items)), max(cfg.ctx_len, M))
     toks = np.full((B, W), vocab.pad_idx, dtype=np.int64)
     pad = np.ones((B, W), dtype=bool)
@@ -1669,99 +1725,220 @@ def stack_path(learner, items, n_words: int):
         s = np.asarray(it.data)[-W:]
         toks[i, W - len(s):], pad[i, W - len(s):] = s, False
         pos[i, W - len(s):] = position_enc(s, vocab)[:len(s)]
-    last_pos = torch.from_numpy(pos[:, -1].copy()).to(dev)
+    last_pos = torch.from_numpy(pos[:, -1].copy()).to(dev).int()
     window = torch.from_numpy(toks).to(dev)
-    t0 = time.perf_counter()
     logits, cache0 = txl.prefill(params, cfg, window, torch.from_numpy(pad).to(dev),
                                  pos=torch.from_numpy(pos).to(dev), mem_len=M)
     ring = txl.ring_from_prefill(cache0, cfg)
-    exact = ring._replace(k=ring.k.clone(), v=ring.v.clone(), g=ring.g.clone())
     wkr = txl.precompute_wkr(params, cfg, M)
-    stacked, _ = engine.stacked()                                # stack_txl_layers
-    kt = ring.k.transpose(3, 4).contiguous()                     # (L, B, H, Dh, M)
-    vc = ring.v.contiguous()                                     # (L, B, H, M, Dh)
-    wkr_t = wkr.transpose(2, 3).to(torch.bfloat16).contiguous()  # (L, H, Dh, M+1)
-    settings = SamplerSettings(n_words=n_words, top_k=GEN_KW["top_k"], greedy=True)
-    temps = torch.tensor(GEN_KW["temperatures"], dtype=torch.float32, device=dev)
-    allowed = torch.from_numpy(grammar.allowed_ins_mask(vocab, None)).to(dev)
-    top_k = torch.full((B,), settings.top_k, dtype=torch.long, device=dev)
-    top_p = torch.full((B,), GEN_KW["top_p"], dtype=torch.float32, device=dev)
     zeros = lambda dt: torch.zeros((B,), dtype=dt, device=dev)
-    st = SampleState(prev_tok=window[:, -1].int(), last_pos=last_pos.int(),
-                     start_pos=last_pos.int(), last_xxsep=zeros(torch.bool),
-                     repeat_count=zeros(torch.int32), done=zeros(torch.bool),
-                     n_emitted=zeros(torch.int32))
-    embed32 = params["embed"].float()
-    head_b = 0.0 if params.get("head_b") is None else params["head_b"].float()
-    out = torch.empty((n_words, B), dtype=torch.int32, device=dev)
-    h_block = torch.zeros((8, D), device=dev)
-    g, ptr, g_cur = ring.g, ring.ptr, ring.g_cur
-    worst_d = worst_ratio = 0.0
-    flip_gap = None
+    head_b = params.get("head_b")
+    return SimpleNamespace(
+        engine=engine, cfg=cfg, dev=dev, B=B, M=M, logits=logits, g=ring.g, ptr=ring.ptr,
+        g_cur=ring.g_cur, exact=ring._replace(k=ring.k.clone(), v=ring.v.clone(),
+                                              g=ring.g.clone()),
+        wkr=wkr, stacked=engine.stacked()[0],                    # stack_txl_layers
+        kt=ring.k.transpose(3, 4).to(torch.bfloat16).contiguous(),  # (L, B, H, Dh, M)
+        vc=ring.v.to(torch.bfloat16).contiguous(),                  # (L, B, H, M, Dh)
+        wkr_t=wkr.transpose(2, 3).to(torch.bfloat16).contiguous(),  # (L, H, Dh, M+1)
+        n_words=n_words,
+        settings=SamplerSettings(n_words=n_words, top_k=GEN_KW["top_k"], greedy=True),
+        temps=torch.tensor(GEN_KW["temperatures"], dtype=torch.float32, device=dev),
+        allowed=torch.from_numpy(grammar.allowed_ins_mask(vocab, None)).to(dev),
+        top_k=torch.full((B,), GEN_KW["top_k"], dtype=torch.long, device=dev),
+        top_p=torch.full((B,), GEN_KW["top_p"], dtype=torch.float32, device=dev),
+        st=SampleState(prev_tok=window[:, -1].int(), last_pos=last_pos, start_pos=last_pos,
+                       last_xxsep=zeros(torch.bool), repeat_count=zeros(torch.int32),
+                       done=zeros(torch.bool), n_emitted=zeros(torch.int32)),
+        embed32=params["embed"].float(),
+        head_b=0.0 if head_b is None else head_b.float(),
+        rows17=normal((7, cfg.d_model), 1.0, np.random.default_rng(0), dev))
+
+
+def stack_next(s, logits, i: int):
+    """Step ``i`` on the path ``s``: the greedy token from ``logits`` (the
+    sampler's state advances), the blocked mask of the ring and the step's
+    h_in (at B = 1 the 8-row block, the token in row 0)."""
+    idx, s.st = sample_next_token(logits, s.st, s.engine.tables, s.temps, s.top_k, s.top_p,
+                                  GEN_KW["min_bars"], s.allowed, None, s.settings,
+                                  _past_80pct(i, s.n_words))
+    blocked = ((s.g_cur - s.g < 1) | (s.g_cur - s.g > s.M)).int()
+    h_in = s.embed32[idx.long()]
+    return idx, blocked, torch.cat([h_in, s.rows17]) if s.B == 1 else h_in
+
+
+def stack_advance(s) -> None:
+    """The ring's pointer after a step: slot ptr now holds position g_cur."""
+    s.g[:, s.ptr] = s.g_cur
+    s.ptr, s.g_cur = (s.ptr + 1) % s.M, s.g_cur + 1
+
+
+def stack_mode(B: int) -> str:
+    return "fused_stack" if B == 1 else "fused_batched"
+
+
+def stack_path(learner, items, n_words: int):
+    """Row 10's path as a user would run it, for the prompts ``items``:
+    stack_start, then ``n_words`` free-running greedy steps of one launch
+    each (fused_stack_decode at B = 1, fused_batched_decode otherwise), each
+    token chosen from h_out @ embed.T + head_b. No reference step runs.
+    Returns (tokens (n_words, B), emitted (B,), seconds of the step loop,
+    seconds with the prefill)."""
+    t0 = time.perf_counter()
+    s = stack_start(learner, items, n_words)
+    core = CORES[stack_mode(s.B)]
+    out = torch.empty((n_words, s.B), dtype=torch.int32, device=s.dev)
+    logits = s.logits
+    sync(s.dev)
+    t1 = time.perf_counter()
     for i in range(n_words):
-        idx, st = sample_next_token(logits, st, engine.tables, temps, top_k, top_p,
-                                    GEN_KW["min_bars"], allowed, None, settings,
-                                    _past_80pct(i, n_words))
+        idx, blocked, h_in = stack_next(s, logits, i)
         out[i] = idx
-        dist = g_cur - g
-        blocked = ((dist < 1) | (dist > M)).int()
-        h_in = embed32[idx.long()]
-        if B == 1:
-            h_block[0] = h_in[0]
-            h_out = fd.fused_stack_decode(stacked, cfg, h_block, wkr_t, kt, vc, blocked, ptr,
-                                          M)[0][:1]
-        else:
-            h_out = fd.fused_batched_decode(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr,
-                                            M)[0]
-        logits = h_out @ embed32.T + head_b
-        ref, exact = txl.decode_step_ring(params, cfg, idx, st.last_pos, exact, wkr)
-        d = (logits - ref).abs()
-        worst_d = max(worst_d, d.max().item())
-        worst_ratio = max(worst_ratio, (d / (STACK_LOGITS_ATOL + STACK_LOGITS_RTOL
-                                             * ref.abs())).max().item())
-        top2 = ref.topk(2, dim=-1).values
+        h_out = core(s.stacked, s.cfg, h_in, s.wkr_t, s.kt, s.vc, blocked, s.ptr, s.M)[0]
+        logits = h_out[:s.B] @ s.embed32.T + s.head_b
+        stack_advance(s)
+    sync(s.dev)
+    t2 = time.perf_counter()
+    return out.cpu().numpy(), s.st.n_emitted.cpu().numpy(), t2 - t1, t2 - t0
+
+
+def stack_fixed_path(learner, items, n_words: int, step=None) -> dict:
+    """Row 10's path for the prompts ``items`` driven by the float64 plain
+    step, the stack phase's gate at every step (see STACK_F64_ATOL):
+    ``step`` (default the wrapper, fused_stack_decode at B = 1 and
+    fused_batched_decode otherwise; any function of their arguments) and the
+    float32 plain step each run once on copies of the float64 step's caches.
+    The step is held to the float64 step:
+    - logits: its largest |dlogit| at most STACK_F64_ATOL + PLAIN_K x the
+      float32 plain step's;
+    - argmax: equal to float64's on every row whose float64 top two are more
+      than twice that logit bound apart;
+    - slot writes: step_diff's largest step of the slot it wrote, every
+      layer, within SLOT_MAX_STEP + PLAIN_K x the float32 plain step's, and
+      every other slot byte-identical (its copies are thrown away after the
+      step, so its logits cannot show a wrong write);
+    - at B = 1, rows 1-7 of its h block returned bit for bit.
+    The exact ring step keeps its own ring, fed the same tokens: its logits
+    against each step's are reported as a share of STACK_LOGITS_ATOL / RTOL
+    and gate nothing. Returns the worst figures of each kind over the path
+    and ``failures``, one line a failing step."""
+    s = stack_start(learner, items, n_words)
+    B, M, mode = s.B, s.M, stack_mode(s.B)
+    step = step or CORES[mode]
+    E64 = s.embed32.double()
+    hb64 = s.head_b.double() if torch.is_tensor(s.head_b) else s.head_b
+    plain = lambda h_in, blocked, acc: fd.stack_plain(
+        s.stacked, s.cfg, h_in, s.wkr_t, s.kt.clone(), s.vc.clone(), blocked, s.ptr, acc=acc)
+    res = dict(logit_ratio=0.0, kernel_d=0.0, plain32_d=0.0, slot_ratio=0.0, slot_step=0.0,
+               two_steps=0.0, flip_gap=None, flips=0, failures=[],
+               exact={k: 0.0 for k in ("plain64", "kernel", "plain32")})
+    out = torch.empty((n_words, B), dtype=torch.int32, device=s.dev)
+    logits = s.logits
+    for i in range(n_words):
+        idx, blocked, h_in = stack_next(s, logits, i)
+        out[i] = idx
+        kv = [s.kt, s.vc]
+        got = step(s.stacked, s.cfg, h_in, s.wkr_t, s.kt.clone(), s.vc.clone(), blocked,
+                   s.ptr, M)
+        f32, ref = plain(h_in, blocked, torch.float32), plain(h_in, blocked, torch.float64)
+        sync(s.dev)
+        lg = {"plain64": ref[0][:B].double() @ E64.T + hb64,
+              "kernel": (got[0][:B] @ s.embed32.T + s.head_b).double(),
+              "plain32": (f32[0][:B] @ s.embed32.T + s.head_b).double()}
+        l64 = lg["plain64"]
+        dk = (lg["kernel"] - l64).abs().max().item()
+        d32 = (lg["plain32"] - l64).abs().max().item()
+        limit = STACK_F64_ATOL + PLAIN_K * d32
+        res["kernel_d"], res["plain32_d"] = max(res["kernel_d"], dk), max(res["plain32_d"], d32)
+        res["logit_ratio"] = max(res["logit_ratio"], dk / limit)
+        fails = [f"|dlogit| {dk:.4e} > {limit:.4e}"] if dk > limit else []
+        top2 = l64.topk(2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
-        differ = logits.argmax(-1) != ref.argmax(-1)
+        differ = lg["kernel"].argmax(-1) != l64.argmax(-1)
         if differ.any():
             g_min = gap[differ].min().item()
-            flip_gap = g_min if flip_gap is None else min(flip_gap, g_min)
-        g[:, ptr] = g_cur
-        ptr, g_cur = (ptr + 1) % M, g_cur + 1
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    return out.cpu().numpy(), st.n_emitted.cpu().numpy(), worst_d, worst_ratio, flip_gap, secs
+            res["flips"] += int(differ.sum())
+            res["flip_gap"] = g_min if res["flip_gap"] is None else min(res["flip_gap"], g_min)
+            g_max = gap[differ].max().item()        # every differing row is held
+            if g_max > 2 * limit:
+                fails.append(f"argmax differs at top-two gap {g_max:.4e} > {2 * limit:.4e}")
+        diff, pdiff = step_diff(got, ref, kv, s.ptr, mode), step_diff(f32, ref, kv, s.ptr, mode)
+        slot_limit = SLOT_MAX_STEP[mode] + PLAIN_K * pdiff[1]
+        res["slot_step"] = max(res["slot_step"], diff[1])
+        res["slot_ratio"] = max(res["slot_ratio"], diff[1] / slot_limit)
+        res["two_steps"] = max(res["two_steps"], diff[3])
+        if diff[1] > slot_limit:
+            fails.append(f"written slot {diff[1]:.3g} steps off > {slot_limit:g}")
+        if not diff[5]:
+            fails.append("another slot's bytes changed")
+        if B == 1 and not torch.equal(got[0][1:], h_in[1:]):
+            fails.append("rows 1-7 of the h block changed")
+        if fails:
+            res["failures"].append(f"step {i} ptr {s.ptr}: " + "; ".join(fails))
+        e, s.exact = txl.decode_step_ring(s.engine.params, s.cfg, idx, s.st.last_pos, s.exact,
+                                          s.wkr)
+        e = e.double()
+        for k, lgk in lg.items():
+            share = ((lgk - e).abs() / (STACK_LOGITS_ATOL + STACK_LOGITS_RTOL * e.abs())).max()
+            res["exact"][k] = max(res["exact"][k], share.item())
+        s.kt, s.vc = ref[1], ref[2]
+        logits = l64.float()
+        stack_advance(s)
+    sync(s.dev)
+    res["tokens"] = out.cpu().numpy()
+    return res
 
 
 def stack_path_phase(learner, items, n_words: int) -> dict:
-    """stack_path for one prompt at B = 1 (materialized prefill) and for the
-    batch cell's 16 prompts at B = 16 (flash prefill, one launch a layer):
-    one launch of the step's kernel a token, the logits and argmax bounds at
-    every step, every continuation re-parsed with no grammar violation.
-    Returns the launch counts {"fused_stack": ..., "fused_batched": ...}."""
+    """Row 10's path for one prompt at B = 1 (materialized prefill) and for
+    the batch cell's 16 prompts at B = 16 (flash prefill, one launch a
+    layer): ``stack_path``, the main path, ``n_words`` steps of one launch
+    each, every continuation re-parsed with no grammar violation, its
+    steps/s from that run alone; then ``stack_fixed_path``'s gate at every
+    step, the exact ring step's shares beside it. Returns the main path's
+    launch counts {"fused_stack": ..., "fused_batched": ...}."""
     L = learner.cfg.n_layers
     counts = {}
     for mode, batch in (("fused_stack", items[:1]), ("fused_batched", items[:16])):
         stack_path(learner, batch, 8)                             # warm-up
-        torch.cuda.synchronize()
-        reset_launches()
-        toks, emitted, d, ratio, flip_gap, secs = stack_path(learner, batch, n_words)
-        got = launches()
+        sync(learner.engine.device)
         want = only(**{mode: n_words}, **({} if len(batch) == 1 else {"flash_prefill": L}))
+        reset_launches()
+        toks, emitted, loop_secs, secs = stack_path(learner, batch, n_words)
+        got = launches()
         if got != want:
             raise AssertionError(f"{mode} path launched {got}, expected {want}")
         checks = [check_continuation(it, toks[: emitted[b], b], learner.vocab)
                   for b, it in enumerate(batch)]
         say(f"stack: {mode} B={len(batch)} n_words={n_words} launches={got[mode]} "
-            f"(+ {got['flash_prefill']} flash_prefill); vs txl.decode_step_ring every step: "
-            f"max |dlogit| {d:.4e}, {ratio:.3f} of its bound (atol {STACK_LOGITS_ATOL}, "
-            f"rtol {STACK_LOGITS_RTOL}); argmax differs at top-two gap "
-            f"{'never' if flip_gap is None else f'{flip_gap:.4f}'} (bound: agree above "
-            f"{STACK_ARGMAX_GAP}); all {len(batch)} re-parse, grammar violations "
-            f"{sum(c['grammar_violations'] for c in checks)}, emitted {int(emitted.sum())} "
-            f"tokens; {n_words / secs:.1f} steps/s ({secs:.3f} s incl. prefill and the "
-            f"exact step)")
-        if ratio > 1.0 or (flip_gap is not None and flip_gap > STACK_ARGMAX_GAP):
-            raise AssertionError(f"{mode} path left the exact ring step's bounds")
+            f"(+ {got['flash_prefill']} flash_prefill); all {len(batch)} re-parse, grammar "
+            f"violations {sum(c['grammar_violations'] for c in checks)}, emitted "
+            f"{int(emitted.sum())} tokens; {n_words / loop_secs:.1f} steps/s (the kernel "
+            f"alone, {loop_secs:.3f} s; {secs:.3f} s with the prefill)")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = stack_fixed_path(learner, batch, n_words)
+        gate_secs = time.perf_counter() - t0
+        if launches() != want:
+            raise AssertionError(f"{mode} gate launched {launches()}, expected {want}")
+        flip = "never" if res["flip_gap"] is None else \
+            f"{res['flips']} row-steps, smallest top-two gap {res['flip_gap']:.4f}"
+        say(f"stack: {mode} B={len(batch)} gate vs the float64 plain step, {n_words} steps "
+            f"driven by it ({gate_secs:.3f} s with the float64 and float32 plain steps and "
+            f"the exact step): max |dlogit| {res['kernel_d']:.4e} (plain_f32 "
+            f"{res['plain32_d']:.4e}), {res['logit_ratio']:.3f} of its bound (atol "
+            f"{STACK_F64_ATOL} + {PLAIN_K:g} x plain_f32's, each step); argmax differs: "
+            f"{flip} (bound: agree above twice the step's logit bound); written slot "
+            f"{res['slot_step']:.3g} steps off, {res['slot_ratio']:.3f} of its bound, "
+            f"two-step share {res['two_steps']:.2e}; failing steps {len(res['failures'])}")
+        ex = res["exact"]
+        say(f"stack: {mode} B={len(batch)} the exact ring step's distance (reported, gates "
+            f"nothing): largest share of (atol {STACK_LOGITS_ATOL}, rtol {STACK_LOGITS_RTOL}) "
+            f"against the float64 step {ex['plain64']:.3f}, the kernel {ex['kernel']:.3f}, "
+            f"plain_f32 {ex['plain32']:.3f}")
+        if res["failures"]:
+            raise AssertionError(f"{mode} path failed its gate at {len(res['failures'])} "
+                                 f"step(s): {res['failures'][:8]}")
         counts[mode] = got[mode]
     return counts
 
@@ -3137,7 +3314,7 @@ def main(argv=None) -> int:
     timing.update(timed("mt fused timing", mt_fused_timing_phase, flagship, fused_rng, dev))
     n_fused = timed("mt fused tasks", mt_fused_phase, flagship, demo, args.seed)
     row10_rng = np.random.default_rng(args.seed + 3)
-    err.update(row10_kernel_phase(engine, wkr_mt, row10_rng, dev))
+    err.update(row10_kernel_phase(engine, wkr_mt, row10_rng, dev, args.seed + 7))
     timing.update(timed("row10 timing", row10_timing_phase, engine, wkr_mt, row10_rng, dev))
     n_stack = timed("stack", stack_path_phase, learner, items, args.n_words)
     say(f"total: {time.perf_counter() - t_start:.1f} s")

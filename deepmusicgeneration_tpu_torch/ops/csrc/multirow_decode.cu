@@ -58,12 +58,16 @@
 // (layer, row), each weight block read once a layer for the whole batch).
 // Both compute multirow's function over other cache layouts: K (B, H, Dh, M)
 // is PanelBF16's panel in memory, wkr (H, Dh, M + 1) its (HD, M + 1) panel;
-// only V is head-major, (B, H, M, Dh) (HeadMajorBF16 below). The chain is
-// multirow's, with the row-tiled GEMV for the weight products, so the two
-// TPU kernels' one difference from multirow (how often weights leave
-// memory) is not reproduced here. Bound at M = 512 on the flagship: 75.5 MB
-// of bf16 weights, 6.3 MB of wkr and 12.6 MB of K/V a row (~26 us at B = 1,
-// ~263 us at B = 64, 3.35 TB/s), bound by bytes.
+// only V is head-major, (B, H, M, Dh) (HeadMajorBF16 below). At every B
+// they run multirow's tensor-core chain with V read head-major
+// (head_major_tc_step: tc_decode_step<bf16, GroupHeadMajorBF16,
+// HeadMajorBF16<Dh>>, the slot write in LN1 through HeadMajorBF16's index,
+// 7 kernels a layer), which reads each weight tile once a step for up to 64
+// rows, as the TPU kernels read each weight block once a layer; the sizes
+// tc_accepts refuses keep multirow's old chain (fused_stack_step /
+// fused_batched_step, the row-tiled GEMV). Bound at M = 512 on the
+// flagship: 75.5 MB of bf16 weights, 6.3 MB of wkr and 12.6 MB of K/V a
+// row (~26 us at B = 1, ~263 us at B = 64, 3.35 TB/s), bound by bytes.
 
 #include "slab_common.cuh"
 #include "tc_decode.cuh"
@@ -228,11 +232,24 @@ int run_head_major(DECODE_STEP_ARGS(bf16, bf16)) {
   }
 }
 
+// row 10's steps on the tensor-core chain, the slot write's format built for
+// the head width
+template <int DH>
+int head_major_tc(DECODE_STEP_ARGS(bf16, bf16)) {
+  return tc_decode_step<bf16, GroupHeadMajorBF16, HeadMajorBF16<DH>>(
+      qkv_w, out_w, ff1_w, ff2_w, nullptr, ff1_b, ff2_b, ln1_g, ln1_b, ln2_g, ln2_b, wkr, u, v,
+      kt, nullptr, vc, nullptr, h_in, blocked, h_out, scratch, L, B, D, Dff, H, Dh, M, 0, ptr,
+      rows_per_cell, scale, act, PanelBF16::layer_elems(B, M, H * Dh), (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // multirow's chain serves every B: at B = 1, 2 and 4 its step took about half
 // the old chain's (flagship, M = 512, H100); multirow_int8 keeps kTcMinRows.
 constexpr int kMultirowTcMinRows = 1;
+// row 10's chain serves every B: it took 0.46-0.73 of the old chain's step at
+// B = 1, 2, 4, 16 and 64 (flagship, M = 512, H100).
+constexpr int kHeadMajorTcMinRows = 1;
 
 extern "C" {
 
@@ -280,7 +297,8 @@ int multirow_int8_step(DECODE_STEP_ARGS(bf16, int8_t)) {
 // multirow (any B) and multirow_int8 (B >= 8) on the tensor-core chain
 // (tc_decode.cuh): the same arguments; scratch of
 // multirow_decode_scratch_floats(..., flags = 2) floats. Each returns
-// cudaErrorInvalidValue for sizes tc_accepts refuses.
+// cudaErrorInvalidValue for sizes tc_accepts refuses (head_major_tc_step
+// below too).
 int multirow_tc_step(DECODE_STEP_ARGS(bf16, bf16)) {
   if (!tc_accepts<GroupPanelBF16>(kMultirowTcMinRows, B, D, Dff, Dh, M))
     return cudaErrorInvalidValue;
@@ -299,11 +317,26 @@ int multirow_int8_tc_step(DECODE_STEP_ARGS(bf16, int8_t)) {
 }
 
 // The steps of fused_stack_decode (B = 1: the wrapper passes row 0 of its
-// 8-row h block) and fused_batched_decode: the same arguments, with kt
+// 8-row h block) and fused_batched_decode, on the tensor-core chain
+// (head_major_tc_step) or the old one: the same arguments, with kt
 // (L,B,H,Dh,M) and vc (L,B,H,M,Dh) bf16 (ks, vs null), updated in slot ptr
 // only, and wkr (L,H,Dh,M+1) bf16, the (L,HD,M+1) panel in memory.
+// fused_stack_step and fused_batched_step are the old chain, for the sizes
+// head_major_tc_step refuses.
 int fused_stack_step(DECODE_STEP_ARGS(bf16, bf16)) { return run_head_major(PASS_STEP_ARGS); }
 
 int fused_batched_step(DECODE_STEP_ARGS(bf16, bf16)) { return run_head_major(PASS_STEP_ARGS); }
+
+int head_major_tc_step(DECODE_STEP_ARGS(bf16, bf16)) {
+  if (!tc_accepts<GroupHeadMajorBF16>(kHeadMajorTcMinRows, B, D, Dff, Dh, M))
+    return cudaErrorInvalidValue;
+  switch (Dh) {
+    case 16: return head_major_tc<16>(PASS_STEP_ARGS);
+    case 32: return head_major_tc<32>(PASS_STEP_ARGS);
+    case 64: return head_major_tc<64>(PASS_STEP_ARGS);
+    case 128: return head_major_tc<128>(PASS_STEP_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // extern "C"

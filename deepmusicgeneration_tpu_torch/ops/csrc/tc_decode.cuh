@@ -1,8 +1,9 @@
 // The tensor-core decode chain of the slab4_w8, slab4, slab_int8, slab and
 // multirow_int8 steps at B >= kTcMinRows and of the multirow and slab_w8
-// steps at any B (slab_decode.cu's slab4_w8_tc_step, slab4_tc_step,
-// slab_int8_tc_step, slab_tc_step and slab_w8_tc_step, multirow_decode.cu's
-// multirow_int8_tc_step and multirow_tc_step). It computes the function of decode_step in
+// steps and row 10's fused_stack / fused_batched steps at any B
+// (slab_decode.cu's slab4_w8_tc_step, slab4_tc_step, slab_int8_tc_step,
+// slab_tc_step and slab_w8_tc_step, multirow_decode.cu's
+// multirow_int8_tc_step, multirow_tc_step and head_major_tc_step). It computes the function of decode_step in
 // slab_common.cuh (the same bf16 cast points, int8 panels dequantized by
 // their column scales and rounded to bf16, bf16 panels as they are, float32
 // sums) with a layer in 7 kernels instead of 10:
@@ -912,16 +913,21 @@ struct GroupPanelBF16 : GroupPanelI8 {
   template <int DH, int S>
   static __device__ void pv(const tc_bf16* vc, int b, int h, int M, int HD, int ptr, int c,
                             int s, const float* ew, float (&out)[16]) {
+    pv_cols<S>(vc + (size_t)b * M * HD + h * DH + 16 * c, HD, M, ptr, s, ew, out);
+  }
+  // pv over the 16 columns at col of slot 0, a slot's at col + m * stride
+  template <int S>
+  static __device__ __forceinline__ void pv_cols(const tc_bf16* col, int stride, int M, int ptr,
+                                                 int s, const float* ew, float (&out)[16]) {
     constexpr int U = kAttnLoads / 2;
 #pragma unroll
     for (int j = 0; j < 16; ++j) out[j] = 0.f;
-    const tc_bf16* col = vc + (size_t)b * M * HD + h * DH + 16 * c;
     for (int i0 = s; i0 < M; i0 += U * S) {
       uint4 q[U][2];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const uint4* p = reinterpret_cast<const uint4*>(
-            col + (size_t)ring_slot(min(i0 + u * S, M - 1), ptr, M) * HD);
+            col + (size_t)ring_slot(min(i0 + u * S, M - 1), ptr, M) * stride);
         q[u][0] = p[0];
         q[u][1] = p[1];
       }
@@ -942,6 +948,21 @@ struct GroupPanelBF16 : GroupPanelI8 {
         }
       }
     }
+  }
+};
+
+// bf16 K (B, H, Dh, M), GroupPanelBF16's (B, HD, M) panel in memory, and
+// head-major V (B, H, M, Dh) of fused_stack_decode / fused_batched_decode
+// (HeadMajorBF16 of multirow_decode.cu), with the (H, Dh, M + 1) relative
+// table, the (HD, M + 1) panel in memory: GroupPanelBF16 with V read
+// head-major. A head's slot row is DH contiguous values, so a slot's
+// 16-column chunk c is still two 16-byte loads, at ((b HD + h DH) M +
+// m DH + 16 c).
+struct GroupHeadMajorBF16 : GroupPanelBF16 {
+  template <int DH, int S>
+  static __device__ void pv(const tc_bf16* vc, int b, int h, int M, int HD, int ptr, int c,
+                            int s, const float* ew, float (&out)[16]) {
+    pv_cols<S>(vc + ((size_t)b * HD + h * DH) * M + 16 * c, DH, M, ptr, s, ew, out);
   }
 };
 
@@ -1067,7 +1088,7 @@ inline size_t group_attention_smem(int Dh, int M) {
 
 // Attention of one layer for batch row b = blockIdx.x and head h =
 // blockIdx.y over a cache of policy F (GroupI4, GroupSlotI8, GroupPanelI8,
-// GroupPanelBF16). The
+// GroupPanelBF16, GroupHeadMajorBF16). The
 // kGroupRows blocks of consecutive rows of a head are one cluster: each
 // forms a share of the relative scores (q + v) . wkr of all the cluster's
 // rows, so the head's table leaves L2 once per cluster, and each row

@@ -29,10 +29,10 @@ which no engine mode reaches.
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/slab_decode.cu`` or ``csrc/multirow_decode.cu`` (built with nvcc on
 first use, bound with ctypes) or raises; every mode but ``slab_int8_w8``
-and row 10's two steps takes the tensor-core chain of
-``csrc/tc_decode.cuh`` where :func:`tc_path` says so (from its
-:data:`TC_POLICY` minimum B: 8, or 1 for ``multirow`` and ``slab_w8``), the
-old chain below that and at the sizes the chain refuses; on a CPU tensor
+takes the tensor-core chain of ``csrc/tc_decode.cuh`` where :func:`tc_path`
+says so (from its :data:`TC_POLICY` minimum B: 8, or 1 for ``multirow``,
+``slab_w8`` and row 10's ``fused_stack`` / ``fused_batched``), the old
+chain below that and at the sizes the chain refuses; on a CPU tensor
 it runs its plain version (:func:`slab_plain`, :func:`multirow_plain`,
 :func:`multirow_q_plain`, :func:`stack_plain`), the same arithmetic in plain
 PyTorch. Unlike the JAX functions, whose cache operands are donated and
@@ -443,9 +443,10 @@ class TcPolicy(NamedTuple):
 
 
 # multirow's chain serves every B: it took about half the old chain's step at
-# B = 1, 2 and 4 (flagship, H100); so does slab_w8's (PERF.md, Findings).
-# The all-rows steps bind slab's and slab_w8's entries (bf16 or
+# B = 1, 2 and 4 (flagship, H100); so do slab_w8's and row 10's (PERF.md,
+# Findings). The all-rows steps bind slab's and slab_w8's entries (bf16 or
 # int8 panels); their B < 8 is not measured on the chain, so each states 8.
+# Row 10's two steps bind one entry, GroupPanelBF16 with V read head-major.
 TC_POLICY = {"slab4_w8": TcPolicy("GroupI4", "slab4_w8_tc_step", occupancy=0),
              "multirow_int8": TcPolicy("GroupPanelI8", "multirow_int8_tc_step", panel=True),
              "slab4": TcPolicy("GroupI4", "slab4_tc_step", occupancy=0),
@@ -455,7 +456,11 @@ TC_POLICY = {"slab4_w8": TcPolicy("GroupI4", "slab4_w8_tc_step", occupancy=0),
              "slab": TcPolicy("GroupSlotI8", "slab_tc_step", occupancy=2),
              "slab_ar_w8": TcPolicy("GroupSlotI8", "slab_w8_tc_step", occupancy=2),
              "slab_ar": TcPolicy("GroupSlotI8", "slab_tc_step", occupancy=2),
-             "slab_w8": TcPolicy("GroupSlotI8", "slab_w8_tc_step", min_rows=1, occupancy=2)}
+             "slab_w8": TcPolicy("GroupSlotI8", "slab_w8_tc_step", min_rows=1, occupancy=2),
+             "fused_stack": TcPolicy("GroupHeadMajorBF16", "head_major_tc_step", min_rows=1,
+                                     panel=True),
+             "fused_batched": TcPolicy("GroupHeadMajorBF16", "head_major_tc_step", min_rows=1,
+                                       panel=True)}
 TC_MODES = tuple(TC_POLICY)
 TC_COLS = 64               # kTcCols: weight columns a product block owns
 TC_ROWS = 64               # kTcRows: batch rows a product block applies
@@ -953,7 +958,9 @@ def fused_stack_decode(
     """The single-stream decode step through the whole stack (batch 1,
     bf16 caches). Returns (h_out (8, D), kt, vc): row 0 of h_out is the
     token's output, rows 1-7 are h_in's as they are; the fresh k1 / v1 are
-    written as bf16 into slot ``ptr`` of every layer, in place."""
+    written as bf16 into slot ``ptr`` of every layer, in place. On the card
+    row 0 alone runs the tensor-core chain where :func:`tc_path` says so,
+    else the old chain."""
     ptr = int(ptr)
     dev = _check_stack(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr, mem_len, 1, 8)
     if dev.type == "cpu":
@@ -982,7 +989,9 @@ def fused_batched_decode(
 ):
     """The batched decode step over the caches of :func:`fused_stack_decode`,
     one token per batch row. Returns (h_out (B, D), kt, vc), the caches
-    updated in place in slot ``ptr``."""
+    updated in place in slot ``ptr``. On the card it runs the tensor-core
+    chain where :func:`tc_path` says so (every B at M % 16 == 0), else the
+    old chain."""
     ptr = int(ptr)
     B = h_in.shape[0]
     dev = _check_stack(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr, mem_len, B, B)

@@ -9,7 +9,7 @@ continuous; or the multitask model's harmonize and next-word steps.
     python3 profile_decode.py --timing slab_w8 fused_batched fused_stack --batches 1 2 4 16
     python3 profile_decode.py --data-gate auto xla --seeds 0 1 2
     python3 profile_decode.py --stack --seeds 0 1 2 [--steps 256] [--repeats 2]
-    python3 profile_decode.py --edge fused_batched:3,5 fused_batched:1,5,64:520 --seeds 7
+    python3 profile_decode.py --edge fused_batched:3,5 fused_batched:1,5,64:520 --seeds 7 [--detail]
 
 Loads the 41M flagship checkpoint with the port and, each under
 ``torch.profiler``: runs ``--steps`` slab_w8 decode steps (``fused_slab_core``
@@ -60,18 +60,18 @@ rows that fail the batch phase's checks (``chip_smoke.check_continuation``:
 re-parse, grammar, and the codec's data gate, a pitch outside the piano
 range or a duration past the cap), with its message.
 
-``--stack`` runs the row-10 path of the smoke's stack phase
-(``chip_smoke.stack_path``: ``--steps`` greedy steps, 256 by default) on
-the prompts of ``chip_smoke.batch_prompts`` for each seed of ``--seeds``,
-one prompt at B = 1 and 16 at B = 16, ``--repeats`` times, driven by the
+``--stack`` runs the smoke stack phase's gate (``chip_smoke.stack_fixed_path``:
+``--steps`` steps, 256 by default) on the prompts of
+``chip_smoke.batch_prompts`` for each seed of ``--seeds``, one prompt at
+B = 1 and 16 at B = 16, ``--repeats`` times: the row-10 path driven by the
 float64 plain step (``fd.stack_plain``, the TPU kernel's function with
-float64 between its bf16 cast points): its logits choose the tokens and its
-slot writes make the caches. At every step the wrapper (fused_stack_decode
-at B = 1, fused_batched_decode otherwise) and the float32 plain step run on
-copies of the same caches, so the three are held on equal inputs; it
-prints, for each, the largest logit distance from the exact ring step over
-the smoke's bound (atol 0.08, rtol 0.02) and from the float64 step. It too
-uses only functions that every tree of the port has.
+float64 between its bf16 cast points), whose logits choose the tokens and
+whose slot writes make the caches; at every step the wrapper
+(fused_stack_decode at B = 1, fused_batched_decode otherwise) and the
+float32 plain step run on copies of the same caches. It prints the gate's
+figures (each one's logit distance from float64, the share of the gate's
+bounds, the failing steps) and the exact ring step's largest share of the
+JAX test's bound (atol 0.08, rtol 0.02) against each step.
 
 ``--edge`` runs ``chip_smoke.edge_phase`` (the kernel phase's float64 check
 at every ptr and kind of ring) for each case ``mode:B,B,...[:M]`` in turn
@@ -79,7 +79,10 @@ at every ptr and kind of ring) for each case ``mode:B,B,...[:M]`` in turn
 rng of each seed of ``--seeds``, on the chain ``fd.tc_path`` gives; a case
 that fails is reported and the next one runs. The smoke's edge phases draw
 their cases from an rng of seed 0 plus an offset, so the same cases in the
-same order redraw its inputs, in this tree or a parent's.
+same order redraw its inputs, in this tree or a parent's. With
+``--detail`` each case is compared with float64 layer by layer and slot by
+slot instead, and run again over the panel's last M % 16 slots alone
+(``case_detail``).
 
 ``--model multitask`` takes the 85M multitask flagship's shapes
 (``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
@@ -163,7 +166,8 @@ def device_ms(prof) -> dict:
 
 
 # the modes --modes takes
-PROFILED_MODES = tuple(dict.fromkeys(chip_smoke.EXPLICIT_MODES + fd.TC_MODES))
+PROFILED_MODES = tuple(m for m in dict.fromkeys(chip_smoke.EXPLICIT_MODES + fd.TC_MODES)
+                       if m not in fd.STACK_MODES)
 
 
 def attention_waves(mode, cfg, B: int, M: int):
@@ -293,82 +297,9 @@ def data_gate(learner, kernels, seeds) -> None:
                   f"{len(bad)} of 64 rows fail: {bad}", flush=True)
 
 
-def stack_fixed_path(learner, items, n_words: int) -> dict:
-    """chip_smoke.stack_path's row-10 path for the prompts ``items``, driven
-    by the float64 plain step; the wrapper and the float32 plain step run on
-    copies of its caches at every step. Returns {step: (its logits' largest
-    |d| from the exact ring step over the smoke's bound, their largest |d|
-    from the float64 step's)} for "kernel", "plain32" and "plain64"."""
-    cs = chip_smoke
-    engine, vocab = learner.engine, learner.vocab
-    params, cfg, dev = engine.params, engine.cfg, engine.device
-    M, D, B = cfg.mem_len, cfg.d_model, len(items)
-    W = min(cs._bucket(max(len(it.data) for it in items)), max(cfg.ctx_len, M))
-    toks = np.full((B, W), vocab.pad_idx, dtype=np.int64)
-    pad = np.ones((B, W), dtype=bool)
-    pos = np.zeros((B, W), dtype=np.int32)
-    for i, it in enumerate(items):
-        s = np.asarray(it.data)[-W:]
-        toks[i, W - len(s):], pad[i, W - len(s):] = s, False
-        pos[i, W - len(s):] = cs.position_enc(s, vocab)[:len(s)]
-    last_pos = torch.from_numpy(pos[:, -1].copy()).to(dev).int()
-    window = torch.from_numpy(toks).to(dev)
-    logits, cache0 = cs.txl.prefill(params, cfg, window, torch.from_numpy(pad).to(dev),
-                                    pos=torch.from_numpy(pos).to(dev), mem_len=M)
-    ring = cs.txl.ring_from_prefill(cache0, cfg)
-    exact = ring._replace(k=ring.k.clone(), v=ring.v.clone(), g=ring.g.clone())
-    wkr = cs.txl.precompute_wkr(params, cfg, M)
-    stacked, _ = engine.stacked()
-    kt = ring.k.transpose(3, 4).contiguous()                     # (L, B, H, Dh, M)
-    vc = ring.v.contiguous()                                     # (L, B, H, M, Dh)
-    wkr_t = wkr.transpose(2, 3).to(torch.bfloat16).contiguous()  # (L, H, Dh, M+1)
-    settings = cs.SamplerSettings(n_words=n_words, top_k=cs.GEN_KW["top_k"], greedy=True)
-    temps = torch.tensor(cs.GEN_KW["temperatures"], dtype=torch.float32, device=dev)
-    allowed = torch.from_numpy(cs.grammar.allowed_ins_mask(vocab, None)).to(dev)
-    top_k = torch.full((B,), settings.top_k, dtype=torch.long, device=dev)
-    top_p = torch.full((B,), cs.GEN_KW["top_p"], dtype=torch.float32, device=dev)
-    zeros = lambda dt: torch.zeros((B,), dtype=dt, device=dev)
-    st = cs.SampleState(prev_tok=window[:, -1].int(), last_pos=last_pos, start_pos=last_pos,
-                        last_xxsep=zeros(torch.bool), repeat_count=zeros(torch.int32),
-                        done=zeros(torch.bool), n_emitted=zeros(torch.int32))
-    embed32 = params["embed"].float()
-    head_b = 0.0 if params.get("head_b") is None else params["head_b"].float()
-    head_b64 = head_b.double() if torch.is_tensor(head_b) else head_b
-    h_block = torch.zeros((8, D), device=dev)
-    g, ptr, g_cur = ring.g, ring.ptr, ring.g_cur
-    worst = {k: [0.0, 0.0] for k in ("kernel", "plain32", "plain64")}
-    for i in range(n_words):
-        idx, st = cs.sample_next_token(logits, st, engine.tables, temps, top_k, top_p,
-                                       cs.GEN_KW["min_bars"], allowed, None, settings,
-                                       cs._past_80pct(i, n_words))
-        blocked = ((g_cur - g < 1) | (g_cur - g > M)).int()
-        h_in = embed32[idx.long()]
-        plain = lambda acc, k, v: fd.stack_plain(stacked, cfg, h_in, wkr_t, k, v, blocked,
-                                                 int(ptr), acc=acc)[0]
-        if B == 1:
-            h_block[0] = h_in[0]
-            h_kernel = fd.fused_stack_decode(stacked, cfg, h_block, wkr_t, kt.clone(),
-                                             vc.clone(), blocked, ptr, M)[0][:1]
-        else:
-            h_kernel = fd.fused_batched_decode(stacked, cfg, h_in, wkr_t, kt.clone(),
-                                               vc.clone(), blocked, ptr, M)[0]
-        h32 = plain(torch.float32, kt.clone(), vc.clone())
-        l64 = plain(torch.float64, kt, vc) @ embed32.double().T + head_b64  # writes the slot
-        ref, exact = cs.txl.decode_step_ring(params, cfg, idx, st.last_pos, exact, wkr)
-        ref64 = ref.double()
-        for kind, lg in (("kernel", (h_kernel @ embed32.T + head_b).double()),
-                         ("plain32", (h32 @ embed32.T + head_b).double()), ("plain64", l64)):
-            bound = cs.STACK_LOGITS_ATOL + cs.STACK_LOGITS_RTOL * ref64.abs()
-            worst[kind][0] = max(worst[kind][0], ((lg - ref64).abs() / bound).max().item())
-            worst[kind][1] = max(worst[kind][1], (lg - l64).abs().max().item())
-        logits = l64.float()
-        g[:, ptr] = g_cur
-        ptr, g_cur = (ptr + 1) % M, g_cur + 1
-    return {k: tuple(v) for k, v in worst.items()}
-
-
 def stack_paths(learner, seeds, steps: int, repeats: int) -> None:
-    """stack_fixed_path at B = 1 and 16 on each seed's prompts, ``repeats``
+    """chip_smoke.stack_fixed_path (the stack phase's gate, driven by the
+    float64 plain step) at B = 1 and 16 on each seed's prompts, ``repeats``
     times each."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
     cfg = learner.engine.cfg
@@ -376,22 +307,44 @@ def stack_paths(learner, seeds, steps: int, repeats: int) -> None:
         items = chip_smoke.batch_prompts(learner.vocab, seed, 16)
         for batch in (items[:1], items[:16]):
             B = len(batch)
-            mode = "fused_stack" if B == 1 else "fused_batched"
-            chain = ("tensor-core" if mode in fd.TC_MODES and fd.tc_path(mode, cfg, B, cfg.mem_len)
-                     else "old")
+            mode = chip_smoke.stack_mode(B)
+            chain = "tensor-core" if fd.tc_path(mode, cfg, B, cfg.mem_len) else "old"
             for r in range(repeats):
-                got = stack_fixed_path(learner, batch, steps)
-                print(f"stack path: seed {seed} B={B} repeat {r}, {steps} steps driven by the "
-                      f"float64 plain step; of the exact step's bound / max |dlogit| from the "
-                      f"float64 step: " + "; ".join(
-                          f"{k}{f' ({mode}, the {chain} chain)' if k == 'kernel' else ''} "
-                          f"{a:.4f} / {d:.4e}" for k, (a, d) in got.items()), flush=True)
+                got = chip_smoke.stack_fixed_path(learner, batch, steps)
+                ex = got["exact"]
+                print(f"stack path: seed {seed} B={B} ({mode}, the {chain} chain) repeat {r}, "
+                      f"{steps} steps driven by the float64 plain step: max |dlogit| from it "
+                      f"kernel {got['kernel_d']:.4e}, plain32 {got['plain32_d']:.4e}, "
+                      f"{got['logit_ratio']:.4f} of the gate's bound; written slot "
+                      f"{got['slot_ratio']:.4f} of its bound, two-step share "
+                      f"{got['two_steps']:.2e}; argmax flips {got['flips']}; failing steps "
+                      f"{len(got['failures'])} {got['failures'][:4]}; of the exact step's "
+                      f"bound: plain64 {ex['plain64']:.4f}, kernel {ex['kernel']:.4f}, "
+                      f"plain32 {ex['plain32']:.4f}", flush=True)
 
 
-def edge_cases(engine, cases, seeds) -> None:
+def slot_detail(mode, got, ref, kv, ptr) -> str:
+    """Layer by layer, the written slot of ``got`` against ``ref`` (step_diff's
+    units: int8 or int4 steps, bf16 panels 2^-7 of the row's largest entry):
+    K and V entries two or more steps off and the largest step; then whether
+    every other slot kept the bytes of ``kv``."""
+    parts = []
+    for name, (g, _), (r, _) in zip("KV", chip_smoke.written_slots(mode, got[1:], ptr),
+                                    chip_smoke.written_slots(mode, ref[1:], ptr)):
+        d = (g - r).abs()
+        if d.dtype == torch.float32:
+            d = d / (2.0 ** -7 * r.abs().amax(-1, keepdim=True).clamp_min(1e-30))
+        per = [(int((d[l] > 1).sum()), d[l].max().item()) for l in range(d.shape[0])]
+        parts.append(f"{name} " + " ".join(f"l{l}:{n}/{m:.2f}" for l, (n, m) in enumerate(per)))
+    untouched = chip_smoke.others_untouched(mode, got[1:], kv, ptr)
+    return "; ".join(parts) + f"; other slots identical {untouched}"
+
+
+def edge_cases(engine, cases, seeds, detail: bool = False) -> None:
     """chip_smoke.edge_phase for each of ``cases`` ("mode:B,B,...[:M]") in
     turn, drawn from one rng of each seed; a case that fails is reported
-    and the next one runs."""
+    and the next one runs. With ``detail`` the same draws go to
+    case_detail instead."""
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain versions' f32 products
     for seed in seeds:
         rng = np.random.default_rng(seed)
@@ -401,6 +354,9 @@ def edge_cases(engine, cases, seeds) -> None:
             M = int(mem_len[0]) if mem_len else None
             chain = mode in fd.TC_MODES and fd.tc_path(mode, engine.cfg, batches[0],
                                                        M or engine.cfg.mem_len)
+            if detail:
+                case_detail(engine, rng, mode, batches, M, f"seed {seed} {case}")
+                continue
             try:
                 dh, ratio = chip_smoke.edge_phase(engine, rng, engine.device, mode, batches, M,
                                                   chain)
@@ -408,6 +364,46 @@ def edge_cases(engine, cases, seeds) -> None:
                       f"bound", flush=True)
             except AssertionError as e:
                 print(f"edge: seed {seed} {case}: FAILED: {e}", flush=True)
+
+
+def case_detail(engine, rng, mode, batches, mem_len, label) -> None:
+    """chip_smoke.edge_phase's cases of ``mode`` at ``batches`` and
+    ``mem_len``, drawn from ``rng`` as it draws them, each compared with a
+    float64 run of the plain version: the float64 check's verdict, |dh_out|
+    and the two-step share of the kernel and of the float32 plain version;
+    where either has an entry two or more steps off, or the case fails,
+    both layer by layer and slot by slot (slot_detail). Each case runs
+    again with every slot blocked but the last M % 16 (the tail of a panel
+    whose M is no multiple of 16; the last 16 where it is): |dh_out| of the
+    kernel and of the float32 plain version from float64 there, the
+    attention over those slots alone."""
+    cs = chip_smoke
+    eng = cs.at_mem_len(engine, mem_len)
+    M, wkr_mt = eng.cfg.mem_len, cs.wkr_table(eng)
+    tail = M % 16 or 16
+    for B, ptr, kind, kv, blocked, h_in in cs.kernel_cases(eng, rng, engine.device, batches,
+                                                           mode):
+        tag = f"edge detail: {label} B={B} M={M} ptr={ptr} ring={kind}"
+        runs = {}
+        for name, blk in (("case", blocked), ("tail", torch.ones_like(blocked))):
+            if name == "tail":
+                blk[:, M - tail:] = 0
+            args = (mode, eng, wkr_mt, kv, blk, h_in, ptr)
+            runs[name] = (cs.run_step(*args), cs.plain_step(*args, acc=torch.float32),
+                          cs.plain_step(*args))
+        got, f32, ref = runs["case"]
+        torch.cuda.synchronize()
+        diff, pdiff = cs.step_diff(got, ref, kv, ptr, mode), cs.step_diff(f32, ref, kv, ptr, mode)
+        ok = cs.within_bounds(mode, diff, pdiff)
+        tg, tf, tr = runs["tail"]
+        tail_dh = [(x[0].double() - tr[0].double()).abs().max().item() for x in (tg, tf)]
+        print(f"{tag}: {'pass' if ok else 'FAILED'}; |dh_out| kernel {diff[0]:.3e} plain32 "
+              f"{pdiff[0]:.3e}; two-step share kernel {diff[3]:.3e} plain32 {pdiff[3]:.3e} "
+              f"(bound {cs.bounds(mode, pdiff)['two_steps']:.3e}); the last {tail} slots "
+              f"alone: |dh_out| kernel {tail_dh[0]:.3e} plain32 {tail_dh[1]:.3e}", flush=True)
+        if not ok or diff[3] > 0 or pdiff[3] > 0:
+            print(f"{tag}: kernel {slot_detail(mode, got, ref, kv, ptr)}", flush=True)
+            print(f"{tag}: plain32 {slot_detail(mode, f32, ref, kv, ptr)}", flush=True)
 
 
 def profile_multitask(steps: int, dev) -> None:
@@ -473,6 +469,9 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=1, help="with --stack: runs of each path")
     ap.add_argument("--edge", nargs="*", default=None,
                     help="cases mode:B,B,...[:M] for chip_smoke.edge_phase, one rng a seed")
+    ap.add_argument("--detail", action="store_true",
+                    help="with --edge: each case layer by layer and slot by slot against "
+                         "float64, and over the panel's tail slots alone")
     ap.add_argument("--seeds", type=int, nargs="*", default=[0])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -493,7 +492,7 @@ def main(argv=None) -> int:
     learner = MusicLearner.load(str(chip_smoke.CKPT))
     engine = learner.engine
     if args.edge is not None:
-        edge_cases(engine, args.edge, args.seeds)
+        edge_cases(engine, args.edge, args.seeds, args.detail)
         return 0
     if args.modes:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -813,13 +813,115 @@ def test_row10_kernels_against_float64(mode, batches):
 @pytest.mark.cuda
 def test_stack_path_follows_the_exact_ring_step():
     """chip_smoke.py's row-10 path on the demo checkpoint: one prompt at
-    B = 1 and 16 at B = 16, 32 greedy steps of one launch each, the logits
-    within the exact ring step's bounds at every step, the MIDI re-parsed."""
+    B = 1 and 16 at B = 16, 32 greedy steps of one launch each, the MIDI
+    re-parsed; then the stack phase's gate at every step of the path driven
+    by the float64 plain step (the logits within STACK_F64_ATOL + PLAIN_K x
+    the float32 plain step's distance, the argmax rule, the written slot,
+    rows 1-7 of the h block), the exact ring step's shares reported."""
     _card()
     import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
     learner = MusicLearner.load(DEMO)
     items = cs.batch_prompts(learner.vocab, 0, 16)
     assert cs.stack_path_phase(learner, items, 32) == {"fused_stack": 32, "fused_batched": 32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batches,extra,chain", [((3, 5), 0, True), ((1, 5, 16), 8, False)],
+                         ids=["chain_B3_B5", "old_chain_mem_len_plus_8"])
+def test_row10_edge_cases_against_float64(batches, extra, chain):
+    """fused_batched_decode's tensor-core chain below 8 rows (B = 3 and 5:
+    clusters of 4 with padded rows), and its old chain (fused_batched_step)
+    at mem_len + 8, a size the chain refuses, at the demo checkpoint's
+    widths: every case of chip_smoke.py's kernel phase held to its float64
+    check (raises on a disagreement), one launch counted a case."""
+    dev = _card()
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = MusicLearner.load(DEMO).engine
+    M = engine.cfg.mem_len + extra
+    cs.reset_launches()
+    dh, ratio = cs.edge_phase(engine, np.random.default_rng(18), dev, "fused_batched", batches,
+                              M if extra else None, chain)
+    cases = len(batches) * len(cs.kernel_ptrs("fused_batched", M)) * len(cs.RINGS)
+    assert cs.launches() == cs.only(fused_batched=cases)
+    print(f"fused_batched B in {batches} M={M}: max |dh_out| {dh:.3e}, {ratio:.3f} of its bound")
+
+
+def _row10_case(engine, B, ptr, kind, rng, dev):
+    """Row 10's inputs at B rows: the caches, blocked and h_in (B rows of
+    embedded tokens) of a ring of ``kind``, and the relative table."""
+    import chip_smoke as cs
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    kv, blocked = cs.ring_inputs(cfg, B, M, ptr, kind, rng, dev, "fused_batched")
+    h_in = engine.params["embed"].float()[torch.from_numpy(rng.integers(12, 140, B)).to(dev)]
+    return kv, blocked, h_in, cs.mode_wkr("fused_batched", cs.wkr_table(engine), cfg.n_heads)
+
+
+@pytest.mark.cuda
+def test_row10_chain_bits_repeat_and_do_not_depend_on_the_batch():
+    """On the tensor-core chain two launches of fused_batched_decode on the
+    same B = 16 inputs give the same bits, and so do two of
+    fused_stack_decode; each row of the B = 16 step (h_out and its caches)
+    equals a B = 1 fused_batched step of that row alone and, row 0, the
+    fused_stack step of it (row 0 of its h block), bit for bit: the K
+    chunks and every sum order come from the widths, never from B."""
+    dev = _card()
+    import chip_smoke as cs
+    engine = MusicLearner.load(DEMO).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    stacked, _ = engine.stacked()
+    rng = np.random.default_rng(19)
+    for ptr, kind in ((31, "part"), (M - 1, "full"), (5, "short")):
+        kv, blocked, h_in, wkr = _row10_case(engine, 16, ptr, kind, rng, dev)
+        assert fd.tc_path("fused_batched", cfg, 16, M) and fd.tc_path("fused_stack", cfg, 1, M)
+        batched = lambda h, caches, blk: fd.fused_batched_decode(
+            stacked, cfg, h, wkr, *[t.clone() for t in caches], blk, ptr, M)
+        a, b = batched(h_in, kv, blocked), batched(h_in, kv, blocked)
+        block = torch.cat([h_in[:1], torch.randn(7, cfg.d_model, device=dev)])
+        stack = lambda: fd.fused_stack_decode(stacked, cfg, block, wkr,
+                                              *[t[:, :1].clone() for t in kv], blocked[:1], ptr, M)
+        s1, s2 = stack(), stack()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), (kind, ptr)
+        assert all(torch.equal(x, y) for x, y in zip(s1, s2)), (kind, ptr)
+        assert torch.equal(s1[0][1:], block[1:])
+        assert torch.equal(s1[0][:1], a[0][:1]), (kind, ptr)
+        assert all(torch.equal(x[:, :1], y) for x, y in zip(a[1:], s1[1:])), (kind, ptr)
+        for r in (0, 5, 15):
+            one = batched(h_in[r:r + 1].contiguous(), [t[:, r:r + 1] for t in kv],
+                          blocked[r:r + 1].contiguous())
+            torch.cuda.synchronize()
+            assert torch.equal(a[0][r:r + 1], one[0]), (kind, ptr, r)
+            assert all(torch.equal(x[:, r:r + 1], y) for x, y in zip(a[1:], one[1:])), (kind, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused_stack", "fused_batched"])
+def test_row10_chain_kernels(mode):
+    """Row 10's steps on the tensor-core chain: the library counts 7 kernels
+    a layer, and under torch.profiler a step (B = 1 for fused_stack, 16 for
+    fused_batched) runs only the chain's kernels, that many a step. The
+    profiler can drop records, so a window that recorded fewer is taken
+    again, up to three windows."""
+    dev = _card()
+    import chip_smoke as cs
+    engine = MusicLearner.load(DEMO).engine
+    cfg, M = engine.cfg, engine.cfg.mem_len
+    per_step = 7 * cfg.n_layers
+    assert fd.kernels_per_step(cfg.n_layers, mode, True) == per_step
+    assert fd.planned_kernels_per_step(cfg.n_layers, mode, True) == per_step
+    B = 1 if mode == "fused_stack" else 16
+    kv, blocked, h_in, wkr = _row10_case(engine, B, 40, "part", np.random.default_rng(20), dev)
+    if mode == "fused_stack":
+        h_in = torch.cat([h_in, torch.zeros(7, cfg.d_model, device=dev)])
+    stacked, _ = engine.stacked()
+    step = lambda: cs.CORES[mode](stacked, cfg, h_in, wkr, *kv, blocked, 40, M)
+    for _ in range(3):
+        recorded, chain = cs.chain_kernels(mode, step, per_step, True, n=4)
+        if recorded == per_step:
+            break
+    assert chain == "tensor-core" and recorded == per_step
 
 
 TC_MODES = ("slab4_w8", "multirow_int8", "slab4", "slab_int8", "multirow", "slab",

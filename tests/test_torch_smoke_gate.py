@@ -1,5 +1,7 @@
-"""``chip_smoke.py``'s check of a generated continuation on the CPU, at the
-demo checkpoint's widths: ``check_continuation`` passes a row that
+"""``chip_smoke.py``'s checks on the CPU. The stack phase's gate
+(``stack_fixed_path``) at small_test_config: it passes the float32 plain
+step and refuses a step whose logits are wrong and one whose slot write is.
+The check of a generated continuation, at the demo checkpoint's widths: ``check_continuation`` passes a row that
 ``generate_batch`` draws through the all-rows step (its plain version here)
 and, with the codec's data gate on, fails one with a note outside the piano
 range and names that pitch in its message. ``generate_batch(forced=...)``
@@ -7,13 +9,18 @@ replays a row and says which tokens its filter keeps, and
 ``check_drawn_row`` passes a note outside the piano range only where that
 replay kept it."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
+from deepmusicgeneration_tpu_torch.models import txl
+from deepmusicgeneration_tpu_torch.models.config import small_test_config
+from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
 from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
-from deepmusicgeneration_tpu_torch.vocab import PIANO_RANGE
+from deepmusicgeneration_tpu_torch.vocab import PIANO_RANGE, MusicVocab
 
 DEMO = cs.CKPT.parent / "demo_genre_model"
 
@@ -127,3 +134,83 @@ def test_the_plain_step_does_not_keep_a_note_it_would_not_draw(row, engine):
     assert not kept[notes[0]]
     with pytest.raises(AssertionError, match="does not keep"):
         cs.check_drawn_row(item, pred, kept, vocab)
+
+
+# The stack phase's gate (chip_smoke.stack_fixed_path) on the CPU, at
+# small_test_config's widths: 12 steps of row 10's path driven by the float64
+# plain step, the step under test and the float32 plain step on its caches.
+GATE_STEPS = 12
+
+
+@pytest.fixture(scope="module")
+def small_learner():
+    """small_test_config with weights at a trained model's scale, so that the
+    logits and the attention respond to a fault as the flagship's do:
+    init_txl's N(0, 0.02) draws times 10 for the products, u and v, and the
+    embedding scaled to rows of the 41M checkpoint's norm (about 1.02)."""
+    vocab = MusicVocab.create()
+    cfg = small_test_config(len(vocab))
+    p = txl.init_txl(cfg, torch.Generator().manual_seed(3))
+    p["embed"] = p["embed"] * (1.02 / (0.02 * math.sqrt(cfg.d_model)))
+    p["u"], p["v"] = p["u"] * 10.0, p["v"] * 10.0
+    for lp in p["layers"]:
+        for k in ("qkv_w", "r_w", "out_w", "ff1_w", "ff2_w"):
+            lp[k] = lp[k] * 10.0
+    return MusicLearner(cfg, vocab, params=p, device=torch.device("cpu"))
+
+
+def _wkr_one_column_off(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr, M):
+    """A faulty step: the relative-position table read one column off."""
+    return fd.stack_plain(stacked, cfg, h_in, torch.roll(wkr_t, 1, -1), kt, vc, blocked, ptr)
+
+
+def _slot_one_back(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr, M):
+    """A faulty step: layer 1's fresh K/V written at ptr - 1, slot ptr left
+    as it was; h_out is the float32 plain step's."""
+    old_k, old_v = kt[1, ..., ptr].clone(), vc[1, :, :, ptr].clone()
+    out = fd.stack_plain(stacked, cfg, h_in, wkr_t, kt, vc, blocked, ptr)
+    back = (ptr - 1) % M
+    kt[1, ..., back], vc[1, :, :, back] = kt[1, ..., ptr], vc[1, :, :, ptr]
+    kt[1, ..., ptr], vc[1, :, :, ptr] = old_k, old_v
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_stack_gate_passes_the_float32_plain_step(small_learner, B):
+    """The wrappers on CPU tensors (the float32 plain step) pass the gate at
+    every step, well inside its logit and slot bounds; the exact step's
+    shares are reported."""
+    items = cs.batch_prompts(small_learner.vocab, 0, B)
+    cs.reset_launches()
+    res = cs.stack_fixed_path(small_learner, items, GATE_STEPS)
+    assert cs.launches() == cs.only()                       # CPU: the plain step
+    assert res["failures"] == []
+    assert res["logit_ratio"] < 0.5 and res["slot_ratio"] < 0.5
+    assert res["tokens"].shape == (GATE_STEPS, B)
+    assert all(0 < share < 1 for share in res["exact"].values())
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_stack_gate_refuses_a_step_with_wrong_logits(small_learner, B):
+    """The relative table read one column off: the largest |dlogit| leaves
+    its bound (STACK_F64_ATOL + PLAIN_K x the float32 plain step's) by a
+    factor of at least 4 (4.7 at B = 1, 11.9 at B = 4), at every step."""
+    items = cs.batch_prompts(small_learner.vocab, 0, B)
+    res = cs.stack_fixed_path(small_learner, items, GATE_STEPS, _wkr_one_column_off)
+    assert res["logit_ratio"] >= 4.0
+    assert len(res["failures"]) == GATE_STEPS
+    assert all("|dlogit|" in f for f in res["failures"])
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_stack_gate_refuses_a_wrong_slot_write(small_learner, B):
+    """Layer 1's slot written at ptr - 1: the logits are the float32 plain
+    step's and pass, but the written slot leaves its bound (SLOT_MAX_STEP +
+    PLAIN_K x the float32 plain step's) by a factor of at least 100 (120 at
+    both B) and another slot's bytes changed, at every step."""
+    items = cs.batch_prompts(small_learner.vocab, 0, B)
+    res = cs.stack_fixed_path(small_learner, items, GATE_STEPS, _slot_one_back)
+    assert res["logit_ratio"] < 1.0
+    assert res["slot_ratio"] >= 100.0
+    assert len(res["failures"]) == GATE_STEPS
+    assert all("written slot" in f and "another slot" in f for f in res["failures"])

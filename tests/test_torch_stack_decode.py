@@ -11,6 +11,10 @@ on a full one at ptr 0 and M - 1, where slot ``ptr`` holds the oldest token
 at distance exactly M: it is live, and both read its old row before the
 fresh one is written. The CUDA kernels are held against the plain version
 in ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+
+The JAX test's own check (tests/test_fused_decode.py, one step from
+identical caches against the exact ring step) is held on the port too: its
+wrappers (the plain step here) against the port's ``txl.decode_step_ring``.
 """
 
 import jax
@@ -23,6 +27,7 @@ from deepmusicgeneration_tpu.models import txl as jtxl
 from deepmusicgeneration_tpu.models.config import TXLConfig as JConfig
 from deepmusicgeneration_tpu.models.precision import cast_params_for_inference
 from deepmusicgeneration_tpu.ops import fused_decode as jfd
+from deepmusicgeneration_tpu_torch.models import txl as ttxl
 from deepmusicgeneration_tpu_torch.models.config import TXLConfig
 from deepmusicgeneration_tpu_torch.ops import fused_decode as tfd
 from deepmusicgeneration_tpu_torch.train.checkpoint import params_from_numpy
@@ -153,3 +158,65 @@ def test_stack_wrappers_check_layouts(model):
     with pytest.raises(TypeError, match="h_in"):
         tfd.fused_batched_decode(tst, cfg, torch.from_numpy(h4).double(), wkr, _torch(kt4),
                                  _torch(vc4), torch.from_numpy(blocked4), 3, M)
+
+
+@pytest.fixture(scope="module")
+def port_model():
+    """The setup config's weights (JAX's init at PRNGKey(0), cast for
+    inference as tests/test_fused_decode.py casts them) as the port's
+    parameters, and the port's relative table."""
+    jcfg, cfg = JConfig(**SETUP), TXLConfig(**SETUP)
+    jp = cast_params_for_inference(jtxl.init_txl(jax.random.PRNGKey(0), jcfg))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), cfg)
+    return cfg, tp, tfd.stack_txl_layers(tp), ttxl.precompute_wkr(tp, cfg, cfg.mem_len)
+
+
+def _exact_case(cfg, batched):
+    """The cache draws of tests/test_fused_decode.py: B = 1 (rng 1, a full
+    ring, ptr 5, token 100) or B = 16 (rng 3, row b's first b slots
+    invalid, ptr 7, tokens from rng). Returns (k, v (L, B, H, M, Dh) bf16,
+    g (B, M), ptr, tokens)."""
+    L, H, Dh, M = cfg.n_layers, cfg.n_heads, cfg.d_head, cfg.mem_len
+    B, ptr = (16, 7) if batched else (1, 5)
+    rng = np.random.default_rng(3 if batched else 1)
+    k = torch.from_numpy(rng.normal(scale=0.5, size=(L, B, H, M, Dh))).bfloat16()
+    v = torch.from_numpy(rng.normal(scale=0.5, size=(L, B, H, M, Dh))).bfloat16()
+    g = np.broadcast_to(np.arange(M) - M, (B, M)).copy()
+    for b in range(B):
+        g[b, :b] = ttxl.PAD_G
+    toks = rng.integers(12, 140, B) if batched else np.array([100])
+    return k, v, torch.from_numpy(g).int(), ptr, torch.from_numpy(toks).long()
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["fused_stack_B1", "fused_batched_B16"])
+def test_one_step_matches_the_exact_ring_step(port_model, batched):
+    """The JAX test's one-step check on the port: from identical caches, the
+    port's fused_stack_decode (B = 1, the token in row 0 of its h block) or
+    fused_batched_decode (B = 16), the plain step here, against the port's
+    exact txl.decode_step_ring: logits within atol 0.08, rtol 0.02 (tanh
+    against erf GELU and the kernels' bf16 cast points), the same argmax in
+    every row, and the written slots within 0.05 of the exact step's."""
+    cfg, tp, stacked, wkr = port_model
+    M = cfg.mem_len
+    k, v, g, ptr, toks = _exact_case(cfg, batched)
+    B = len(toks)
+    cache = ttxl.RingKVCache(k=k.clone(), v=v.clone(), g=g.clone(), ptr=ptr, g_cur=ptr)
+    ref_logits, ref_cache = ttxl.decode_step_ring(tp, cfg, toks, torch.zeros(B, dtype=torch.int32),
+                                                  cache, wkr)
+    emb = tp["embed"][toks].float()
+    blocked = ((ptr - g < 1) | (ptr - g > M)).int()
+    kt, wkr_t = k.transpose(3, 4).contiguous(), wkr.transpose(2, 3).bfloat16().contiguous()
+    if batched:
+        h_out, kt2, vc2 = tfd.fused_batched_decode(stacked, cfg, emb, wkr_t, kt, v.clone(),
+                                                   blocked, ptr, M)
+    else:
+        h_in = torch.zeros((8, cfg.d_model))
+        h_in[0] = emb[0]
+        h_out, kt2, vc2 = tfd.fused_stack_decode(stacked, cfg, h_in, wkr_t, kt, v.clone(),
+                                                 blocked, ptr, M)
+    logits = h_out[:B] @ tp["embed"].float().T + tp["head_b"].float()
+    np.testing.assert_allclose(logits.numpy(), ref_logits.float().numpy(), atol=0.08, rtol=0.02)
+    assert torch.equal(logits.argmax(-1), ref_logits.float().argmax(-1))
+    np.testing.assert_allclose(kt2.transpose(3, 4).float().numpy(),
+                               ref_cache.k.float().numpy(), atol=0.05)
+    np.testing.assert_allclose(vc2.float().numpy(), ref_cache.v.float().numpy(), atol=0.05)

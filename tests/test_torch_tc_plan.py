@@ -1,11 +1,13 @@
 """The plan of the tensor-core decode chain (``csrc/tc_decode.cuh``) of the
 slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar and multirow_int8
-steps at B >= 8 and of the multirow and slab_w8 steps at every B, mirrored
-in ``ops/fused_decode.py`` and held here on the CPU: the products' tiling
-and partial order, the dequantized weight tile, the attention's row
-clusters, the shared memory of each attention policy, each mode's library
-entry and minimum B against the sources, the bf16 K panel's key-dot split,
-the launch count, the scratch layout, and slab_int8's cells and the sources of its two scales.
+steps at B >= 8 and of the multirow and slab_w8 steps and row 10's
+fused_stack / fused_batched steps at every B, mirrored in
+``ops/fused_decode.py`` and held here on the CPU: the products' tiling and
+partial order, the dequantized weight tile, the attention's row clusters,
+the shared memory of each attention policy, each mode's library entry and
+minimum B against the sources, the bf16 K panel's key-dot split, the
+head-major V's address map, the launch count, the scratch layout, and
+slab_int8's cells and the sources of its two scales.
 The kernels themselves run on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
 
@@ -164,19 +166,19 @@ def test_attention_clusters_cover_each_row_and_head_once(B):
 
 # the modes whose chain serves every B (their timing against the old chain
 # set the minimum at 1), and those it serves from B = 8
-EVERY_B = ("multirow", "slab_w8")
+EVERY_B = ("multirow", "slab_w8", "fused_stack", "fused_batched")
 FROM_8 = ("slab4_w8", "slab4", "slab_int8", "slab", "slab_ar_w8", "slab_ar", "multirow_int8")
 
 
 def test_tc_path_rule():
     """The chain serves slab4_w8, slab4, slab_int8, slab, slab_ar_w8, slab_ar
-    and multirow_int8 at B >= 8, and multirow and slab_w8 at every B, at
-    the flagship's and small widths; never slab_int8_w8 or row 10's
-    fused_stack / fused_batched, nor B < 8 in the first set, nor where an
+    and multirow_int8 at B >= 8, and multirow, slab_w8 and row 10's
+    fused_stack / fused_batched at every B, at the flagship's and small
+    widths; never slab_int8_w8, nor B < 8 in the first set, nor where an
     attention block's shared memory would pass a block's: at Dh 64 every
     grouped policy's limit is M = 3376 (see test_attention_smem_by_policy);
     nor at M = 520 (not a multiple of 16), where chip_smoke.py holds the old
-    all-rows and slab_w8 chains."""
+    all-rows, slab_w8 and row-10 chains."""
     for cfg in (FLAGSHIP, SMALL):
         for mode in fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES:
             for B in (1, 2, 4, 7, 8, 24, 64):
@@ -184,7 +186,8 @@ def test_tc_path_rule():
                 assert fd.tc_path(mode, cfg, B, cfg.mem_len) == want, (mode, B)
     assert {m: p.min_rows for m, p in fd.TC_POLICY.items()} == {
         "slab4_w8": 8, "multirow_int8": 8, "slab4": 8, "slab_int8": 8, "multirow": 1,
-        "slab": 8, "slab_ar_w8": 8, "slab_ar": 8, "slab_w8": 1}
+        "slab": 8, "slab_ar_w8": 8, "slab_ar": 8, "slab_w8": 1, "fused_stack": 1,
+        "fused_batched": 1}
     assert fd.tc_path("slab_w8", FLAGSHIP, 1, 3376)
     assert not fd.tc_path("slab_w8", FLAGSHIP, 1, 3392)
     assert not fd.tc_path("slab_w8", FLAGSHIP, 1, 520)
@@ -199,6 +202,12 @@ def test_tc_path_rule():
             assert not fd.tc_path(mode, FLAGSHIP, B, 520)
         assert fd.tc_path(mode, FLAGSHIP, 8, 512) and fd.tc_path(mode, FLAGSHIP, 128, 512)
         assert not fd.tc_path(mode, FLAGSHIP, 7, 512)
+    for mode in ("fused_stack", "fused_batched"):     # row 10: the old chain at M = 520
+        for B in (1, 5, 64):
+            assert not fd.tc_path(mode, FLAGSHIP, B, 520)
+            assert fd.tc_path(mode, FLAGSHIP, B, 512)
+        assert fd.tc_path(mode, FLAGSHIP, 3, 3376)
+        assert not fd.tc_path(mode, FLAGSHIP, 3, 3392)
     for mode in ("multirow", "slab", "multirow_int8", "slab4", "slab_ar_w8", "slab_ar",
                  "slab_w8"):
         assert fd.tc_path(mode, FLAGSHIP, 8, 3376)
@@ -227,10 +236,11 @@ def test_attention_smem_by_policy(cfg):
     attention runs the policy it is mirrored with, and only the head-major
     panels' policies stage."""
     grouped = ("slab4_w8", "multirow_int8", "slab4", "multirow", "slab", "slab_ar_w8",
-               "slab_ar", "slab_w8")
+               "slab_ar", "slab_w8", "fused_stack", "fused_batched")
     want = {FLAGSHIP: {"slab4_w8": 36768, "multirow_int8": 36800, "slab4": 36768,
                        "multirow": 36800, "slab": 36768, "slab_ar_w8": 36768,
-                       "slab_ar": 36768, "slab_w8": 36768},
+                       "slab_ar": 36768, "slab_w8": 36768, "fused_stack": 36800,
+                       "fused_batched": 36800},
             SMALL: dict.fromkeys(grouped, 19296)}[cfg]
     got = {m: fd.tc_attention_smem(cfg.d_head, cfg.mem_len, m) for m in grouped}
     assert got == want
@@ -239,7 +249,8 @@ def test_attention_smem_by_policy(cfg):
         "slab4": ("GroupI4", False), "slab_int8": ("ScoresI8", False),
         "multirow": ("GroupPanelBF16", True), "slab": ("GroupSlotI8", False),
         "slab_ar_w8": ("GroupSlotI8", False), "slab_ar": ("GroupSlotI8", False),
-        "slab_w8": ("GroupSlotI8", False)}
+        "slab_w8": ("GroupSlotI8", False), "fused_stack": ("GroupHeadMajorBF16", True),
+        "fused_batched": ("GroupHeadMajorBF16", True)}
     # at Dh 64 the largest M that fits: 4 ceil4(9 M + 486) + 32 M (+ 32 for a
     # panel's stage) bytes is 231520 (231552) at M 3376, 232608 at 3392
     assert fd.tc_attention_smem(64, 3376, "slab") == 231520
@@ -290,7 +301,9 @@ def test_chain_entries_and_minimums_match_the_sources(source):
                         "slab_ar_w8": "slab_w8_tc_step", "slab_ar": "slab_tc_step",
                         "slab_w8": "slab_w8_tc_step"},
         "multirow_decode": {"multirow_int8": "multirow_int8_tc_step",
-                            "multirow": "multirow_tc_step"}}[source]
+                            "multirow": "multirow_tc_step",
+                            "fused_stack": "head_major_tc_step",
+                            "fused_batched": "head_major_tc_step"}}[source]
 
 
 def panel_bf16_key_dots(k, qu):
@@ -335,15 +348,48 @@ def test_panel_bf16_key_dot_split(Dh, M):
     assert bool(((got.double() - plain).abs() <= bound).all())
 
 
+def head_major_v_chunk(b, h, m, c, H, Dh, M):
+    """GroupHeadMajorBF16::pv's element index of 16-column chunk c of slot m
+    of (row b, head h) in a head-major V (B, H, M, Dh): ((b HD + h Dh) M +
+    m Dh + 16 c); the chunk is the 16 values from there on, two 16-byte
+    loads. HeadMajorBF16::v_index (the slot write's) for column j = h Dh + d
+    is the same map at d = 16 c + (d % 16)."""
+    return (b * H * Dh + h * Dh) * M + m * Dh + 16 * c
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+def test_head_major_v_address_map(Dh):
+    """The policy's V index, held against the strides of a contiguous
+    (B, H, M, Dh) tensor: each (row, head, slot, chunk) reads that slot's 16
+    columns of the chunk and nothing else, every element is read by exactly
+    one chunk, and each chunk starts on 32 bytes (its two 16-byte loads are
+    aligned)."""
+    B, H, M = 3, 2, 48
+    v = torch.arange(B * H * M * Dh, dtype=torch.int64).reshape(B, H, M, Dh)
+    flat = v.flatten()
+    seen = torch.zeros(flat.numel(), dtype=torch.int32)
+    st = v.stride()
+    for b in range(B):
+        for h in range(H):
+            for m in range(M):
+                for c in range(Dh // 16):
+                    at = head_major_v_chunk(b, h, m, c, H, Dh, M)
+                    assert at == b * st[0] + h * st[1] + m * st[2] + 16 * c * st[3]
+                    assert (2 * at) % 32 == 0
+                    assert torch.equal(flat[at:at + 16], v[b, h, m, 16 * c:16 * c + 16])
+                    seen[at:at + 16] += 1
+    assert torch.equal(seen, torch.ones_like(seen))
+
+
 @pytest.mark.parametrize("mode", fd.SLAB_MODES + fd.MULTIROW_MODES + fd.STACK_MODES)
 def test_launch_count_mirror(mode):
     """Kernels a wrapper launch makes, as the kernel library counts them
     (``*_kernels_per_step``; compared on the card): 7 a layer on the
     tensor-core chain (9 for slab_int8: its attention is three kernels),
     else the chain's 8 and the attention's 2 (4 in the int8-score modes);
-    at B = 7 only multirow and slab_w8 take the chain (56 kernels a step at
-    the flagship), so the others count the old chain's (80 a step for the
-    all-rows steps)."""
+    at B = 7 only multirow, slab_w8 and row 10's steps take the chain (56
+    kernels a step at the flagship), so the others count the old chain's (80
+    a step for the all-rows steps)."""
     L = FLAGSHIP.n_layers
     tc = fd.tc_path(mode, FLAGSHIP, 64, FLAGSHIP.mem_len)
     int8 = mode in fd.INT8_SCORE_MODES
