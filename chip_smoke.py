@@ -47,7 +47,11 @@ non-zero without printing a result):
    (slab_w8_step) at M = 520, B in {1, 4}, by the same check. Then
    ``flash_prefill_attention`` on five left-padded windows (B = 16 and 64,
    W = 512, the batched paths' shapes; B = 2, W = 4096; B = 1, W = 128;
-   B = 8, W = 96, a tail tile) against the float32 plain version. Then the
+   B = 8, W = 96, a tail tile; and d_head 128, B = 8, W = 200, through the
+   source's CUDA-core entry) against the float32 plain version; then at
+   each d_head of ``fp.KERNEL_HEAD_DIMS`` the causal wrappers' kernel by
+   their entry record and by ``torch.profiler`` (the wgmma kernel at 32
+   and 64). Then the
    multitask slice. mt load: the trained demo_multitask_model through the
    port's reader, and the 85M multitask flagship's shapes (10 + 10 layers,
    d 512, 8 x 64 heads, d_inner 2048, M 512, ReLU) with ``init_multitask``
@@ -70,7 +74,8 @@ non-zero without printing a result):
    one a chain kernel, off it none); the four
    s2s / nw variants at B = 1, M = 512, Le = 512, each also under
    ``torch.profiler`` over 20 wrapper calls: one CUDA kernel a call (the
-   persistent step, on its co-resident grid) and its device time a launch.
+   persistent step, on its co-resident grid) and its device time a launch;
+   the flash prefill at B in {16, 64}, W 512, and B 2, W 4096.
 6. main   — ``predict_nw_genre`` at B = 1 with the auto kernel (slab_w8, on
    the tensor-core chain) on a seeded
    prompt MIDI built with the port's codec; the slab_w8 launch count must
@@ -862,21 +867,82 @@ def flash_check(args, H):
     return d.max().item(), ratio, bool(torch.isfinite(got.float()).all())
 
 
+# flash_phase's windows (B, W, pads, d_head; None: the flagship's): the
+# batched paths' shapes, the blocked regime, one tile, a tail tile; then
+# d_head 128 at the flagship's H * Dh, which runs csrc/flash_prefill.cu's
+# kept CUDA-core entry, on a window with a tail tile
+FLASH_CASES = ((16, 512, (0, 17, 300), None), (64, 512, (0, 17, 300), None),
+               (2, 4096, (0, 1000), None), (1, 128, (0,), None), (8, 96, (0, 17, 50), None),
+               (8, 200, (0, 17, 50), 128))
+
+
 def flash_phase(cfg, dev, seed):
-    """The flash prefill kernel against its plain version; returns the
-    largest error on a real query row and the largest error over its bound."""
+    """The flash prefill kernel against its plain version in FLASH_CASES,
+    each through the entry ``fp.prefill_entry`` names for its head width;
+    returns the largest error on a real query row and the largest error
+    over its bound."""
     worst, worst_ratio = 0.0, 0.0
-    for B, W, pads in ((16, 512, (0, 17, 300)), (64, 512, (0, 17, 300)),
-                       (2, 4096, (0, 1000)), (1, 128, (0,)), (8, 96, (0, 17, 50))):
-        args = flash_inputs(B, W, pads, cfg.n_heads, cfg.d_head, dev, seed + B)
-        err, ratio, finite = flash_check(args, cfg.n_heads)
-        say(f"kernel: flash_prefill B={B} W={W} pads={pads} real rows: max|d| "
-            f"{err:.3e}, max |d| / ({FLASH_RTOL:.3e} |ref| + {FLASH_ATOL}) = "
+    HD = cfg.n_heads * cfg.d_head
+    for B, W, pads, Dh in FLASH_CASES:
+        Dh = Dh or cfg.d_head
+        H, entry = HD // Dh, fp.prefill_entry(Dh)
+        ran = fp.flash_prefill_attention.entries[entry] + 1
+        args = flash_inputs(B, W, pads, H, Dh, dev, seed + B)
+        err, ratio, finite = flash_check(args, H)
+        say(f"kernel: flash_prefill B={B} W={W} pads={pads} {H}x{Dh} ({entry} entry) real "
+            f"rows: max|d| {err:.3e}, max |d| / ({FLASH_RTOL:.3e} |ref| + {FLASH_ATOL}) = "
             f"{ratio:.3f} (must be <= 1); all rows finite={finite}")
+        if fp.flash_prefill_attention.entries[entry] != ran:
+            raise AssertionError(f"flash prefill at d_head {Dh} did not run its {entry} entry")
         if not (ratio <= 1.0 and finite):
             raise AssertionError("flash prefill kernel disagrees with its plain version")
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
     return worst, worst_ratio
+
+
+def cuda_kernel_names(fn, tries: int = 3) -> list:
+    """The names of the CUDA kernels ``torch.profiler`` records over two
+    calls of ``fn`` (after one warm-up); a window whose records the profiler
+    dropped is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages() if e.self_device_time_total > 0})
+        if names:
+            return names
+    return []
+
+
+def flash_entry_phase(dev, seed):
+    """Which kernel of csrc/flash_prefill.cu each causal wrapper launches at
+    each head width of ``fp.KERNEL_HEAD_DIMS`` (H x Dh = 512, B 8, W 200):
+    the entry the wrapper records and the only CUDA kernel
+    ``torch.profiler`` records must both be ``fp.prefill_entry``'s, the
+    wgmma kernel at d_head 32 and 64 and the CUDA-core one at 16 and 128.
+    These launches do not count as the main path's."""
+    before = launches()
+    for Dh in fp.KERNEL_HEAD_DIMS:
+        H, entry = 512 // Dh, fp.prefill_entry(Dh)
+        args = flash_inputs(8, 200, (0, 17, 50), H, Dh, dev, seed + Dh)
+        for label, wrapper, call in (
+                ("flash_prefill_attention", fp.flash_prefill_attention,
+                 lambda: fp.flash_prefill_attention(*args, H)),
+                ("flash_encoder_attention[causal]", fp.flash_encoder_attention,
+                 lambda: fp.flash_encoder_attention(*args, H, causal=True))):
+            ran = dict(wrapper.entries)
+            names = cuda_kernel_names(call)
+            ran = {k: n - ran[k] for k, n in wrapper.entries.items() if n > ran[k]}
+            say(f"kernel: {label} at {H}x{Dh}: entry {ran}, profiler: {names}")
+            if set(ran) != {entry} or not names or not all(
+                    f"flash_prefill_{entry}_kernel" in k for k in names):
+                raise AssertionError(f"{label} at d_head {Dh} did not run only its {entry} "
+                                     f"kernel: entries {ran}, profiler {names}")
+    set_launches(before)
 
 
 def window(items, pad_idx, W, dev):
@@ -1200,6 +1266,7 @@ def timing_phase(engine, wkr_mt, rng, dev, seed, modes_rng):
     times["slab_ar_w8"][128] = slab_timing(engine, wkr_mt, modes_rng, dev, "slab_ar_w8", 128,
                                            flush)
     flash = {B: flash_timing(engine.cfg, dev, B, 512, seed) for B in (16, 64)}
+    flash_timing(engine.cfg, dev, 2, 4096, seed)    # the blocked regime of the TPU kernel
     set_launches(before)
     return {"slab_w8": times["slab_w8"][1], "slab_ar_w8": times["slab_ar_w8"][16],
             "slab": times["slab"][16], "slab_ar": times["slab_ar"][16],
@@ -1278,6 +1345,12 @@ def set_launches(counts: dict) -> None:
 
 def reset_launches() -> None:
     set_launches(dict.fromkeys(launches(), 0))
+
+
+def entries_ran(wrapper, before: dict) -> str:
+    """The entries of csrc/flash_prefill.cu that ``wrapper`` launched since
+    its record read ``before``, joined by "+"."""
+    return "+".join(k for k, n in wrapper.entries.items() if n > before[k])
 
 
 def only(**nonzero) -> dict:
@@ -3276,6 +3349,7 @@ def main(argv=None) -> int:
         worse(err, mode, timed(f"kernel {mode} B in {batches} M {M or 'mem_len'}",
                                edge_phase, engine, slab_w8_rng, dev, mode, batches, M, chain))
     err["flash"] = timed("kernel flash", flash_phase, engine.cfg, dev, args.seed)
+    timed("flash entries", flash_entry_phase, dev, args.seed)
     flagship, demo = timed("mt load", mt_load_phase, dev, args.seed)
     for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),
                                                    ("demo", demo, (64, 128), 0.0)):
@@ -3287,8 +3361,10 @@ def main(argv=None) -> int:
     timing = timed("timing", timing_phase, engine, wkr_mt, rng, dev, args.seed, modes_rng)
     timing.update(timed("mt timing", mt_timing_phase, flagship, rng, dev))
     n_single = timed("main", main_path_phase, learner, args.seed, args.n_words)
+    entries = {"flash": dict(fp.flash_prefill_attention.entries)}
     batched, batch_failed = timed("batch", batched_phase, learner, items, args.seed,
                                   args.n_words)
+    entries["flash"] = entries_ran(fp.flash_prefill_attention, entries["flash"])
     n_slab = timed("continuous", continuous_phase, learner, items[16:48], args.seed)
     n_slab_ar = timed("slab_ar", slab_ar_phase, learner, items[48:], args.seed)
     n_modes = timed("modes", explicit_modes_phase, learner, items, args.seed, args.n_words)
@@ -3303,7 +3379,9 @@ def main(argv=None) -> int:
     timing.update(timed("mt train timing", mt_train_timing_phase, mt_cfg, dev, args.seed))
     n_mt_train = timed("mt train", mt_train_phase, args.seed)
     err.update(timed("mt prefill kernel", mt_prefill_kernel_phase, mt_cfg, dev, args.seed))
+    entries["mt_causal"] = dict(fp.flash_encoder_attention.entries)
     n_mt_prefill = timed("mt prefill", mt_prefill_phase, flagship, "flagship", dev, args.seed)
+    entries["mt_causal"] = entries_ran(fp.flash_encoder_attention, entries["mt_causal"])
     timing.update(timed("mt prefill timing", mt_prefill_timing_phase, mt_cfg, dev, args.seed))
     fused_rng = np.random.default_rng(args.seed + 1)
     for label, learner_mt, le_values, bias_std in (("flagship", flagship, MT_LE, 0.1),
@@ -3328,7 +3406,9 @@ def main(argv=None) -> int:
         "library_ms": None,
         # the decode steps: the chain and the CUDA kernels a step that the
         # profiler recorded in their timed step
-        **{k: timing[key][k] for k in ("chain", "kernels_a_step") if k in timing[key]}}
+        **{k: timing[key][k] for k in ("chain", "kernels_a_step") if k in timing[key]},
+        # the causal flash prefill: which entry of its source the main path ran
+        **({"entry": entries[key]} if key in entries else {})}
     say(json.dumps({"kernels": [
         entry("fused_slab_core[slab_w8]", "slab_decode.cu", "fused_decode.py:1163",
               n_single, "slab_w8"),

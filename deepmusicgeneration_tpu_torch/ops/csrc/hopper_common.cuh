@@ -1,11 +1,12 @@
-// Hopper building blocks shared by the wgmma training-attention kernels
+// Hopper building blocks shared by the wgmma attention kernels
 // (flash_train.cu: attention over [XL memory, window]; flash_mt.cu: the
-// multitask model's bidirectional and cross attention): TMA tile copies
+// multitask model's bidirectional and cross attention; flash_prefill.cu:
+// the causal inference prefill): TMA tile copies
 // counted by mbarriers, wgmma descriptors and products on swizzled TMA tiles
 // and core-matrix tiles, the accumulator layout's helpers, the tile list a
 // block walks, the shared-memory carving, the tensor-map table, and the
 // kernel that forms the biased query operands. Each .cu includes this header
-// (after flash_common.cuh) into its own anonymous namespace, so the two
+// (after flash_common.cuh) into its own anonymous namespace, so the
 // libraries share source, not symbols.
 
 #pragma once
@@ -74,6 +75,17 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int 
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same from a 3-D map (H * Dh columns, rows, batch rows): `row` counts
+// within batch row `b`, so a box past the batch row's last row is zero-filled.
+__device__ __forceinline__ void tma_tile3(void* dst, const CUtensorMap* map, int col, int row,
+                                          int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(b), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -447,37 +459,39 @@ EncodeTiled encode_tiled() {
 }
 
 // A (rows, H * Dh) bf16 matrix read in (64 rows x Dh) boxes, swizzled by the
-// box's row width (Dh * 2 bytes: 128 or 64). Encoded maps are kept in a
-// small table keyed by all they encode: a training step's tensors come back
-// at the same addresses from PyTorch's caching allocator, and an encoding
-// costs more host time than the launch.
-bool tile_map(CUtensorMap* map, const void* base, int rows, int HD, int Dh) {
+// box's row width (Dh * 2 bytes: 128 or 64); with batches > 0 a
+// (batches, rows, H * Dh) tensor read by tma_tile3 in (1 x 64 x Dh) boxes.
+// Encoded maps are kept in a small table keyed by all they encode: a
+// training step's tensors come back at the same addresses from PyTorch's
+// caching allocator, and an encoding costs more host time than the launch.
+bool tile_map(CUtensorMap* map, const void* base, int rows, int HD, int Dh, int batches = 0) {
   struct Entry {
     const void* base;
-    int rows, HD, Dh;
+    int rows, HD, Dh, batches;
     CUtensorMap map;
   };
   static Entry table[64];
   static std::mutex lock;
   const std::lock_guard<std::mutex> hold(lock);
-  const uintptr_t key = reinterpret_cast<uintptr_t>(base) ^ ((uintptr_t)rows << 3) ^ (uintptr_t)HD;
+  const uintptr_t key = reinterpret_cast<uintptr_t>(base) ^ ((uintptr_t)rows << 3) ^
+                        (uintptr_t)HD ^ ((uintptr_t)batches << 9);
   Entry& e = table[(key >> 8 ^ key >> 14) & 63];
-  if (e.base == base && e.rows == rows && e.HD == HD && e.Dh == Dh) {
+  if (e.base == base && e.rows == rows && e.HD == HD && e.Dh == Dh && e.batches == batches) {
     *map = e.map;
     return true;
   }
   const EncodeTiled enc = encode_tiled();
   if (!enc) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)HD * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)Dh, (cuuint32_t)kTile};
-  const cuuint32_t step[2] = {1, 1};
-  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-          step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows, (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)rows * HD * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)Dh, (cuuint32_t)kTile, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, batches ? 3 : 2, const_cast<void*>(base), dims,
+          strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
           Dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  e = Entry{base, rows, HD, Dh, *map};
+  e = Entry{base, rows, HD, Dh, batches, *map};
   return true;
 }
 

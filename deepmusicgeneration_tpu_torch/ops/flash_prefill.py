@@ -9,9 +9,12 @@ key-pad mask), without materializing the ``(B, H, W, W)`` scores. It
 replaces the TPU kernel of the same name in
 ``deepmusicgeneration_tpu/ops/flash_prefill.py``, both its whole-window
 (W <= 2048) and its row-blocked (2048 < W <= 8192) pallas_calls, with one
-hand-written kernel, ``csrc/flash_prefill.cu``, for any W (a tail tile
+hand-written source, ``csrc/flash_prefill.cu``, for any W (a tail tile
 covers a W that is not a multiple of 64) and d_head in
-:data:`KERNEL_HEAD_DIMS`.
+:data:`KERNEL_HEAD_DIMS`. The source has two entries, chosen by d_head
+alone (:func:`prefill_entry`): ``wgmma`` (warpgroup products on TMA tiles)
+at d_head in :data:`WGMMA_HEAD_DIMS`, ``cuda_core`` (f32 products on the
+CUDA cores) at the others.
 
 ``flash_encoder_attention`` replaces the TPU kernel of that name: with
 ``causal=False`` the multitask encoder's attention (no causal mask, the
@@ -23,7 +26,9 @@ the same kernel for both.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc on first
 use, bound with ctypes) or raises; on a CPU tensor it runs
-:func:`flash_encoder_attention_plain`, which materializes the scores.
+:func:`flash_encoder_attention_plain`, which materializes the scores. Each
+wrapper counts its launches (``.launches``) and, for the causal source, its
+launches by entry (``.entries``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,13 @@ from .rel_attention import rel_attention
 BF16 = torch.bfloat16
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # the head widths the causal kernel is built for
 ENCODER_HEAD_DIMS = (32, 64)           # those of the bidirectional kernel
+WGMMA_HEAD_DIMS = (32, 64)             # the causal source's wgmma entry; cuda_core takes the rest
+
+
+def prefill_entry(d_head: int) -> str:
+    """The entry of ``csrc/flash_prefill.cu`` that a causal launch at this
+    head width runs: ``wgmma`` or ``cuda_core``."""
+    return "wgmma" if d_head in WGMMA_HEAD_DIMS else "cuda_core"
 
 
 def flash_encoder_attention_plain(q, k, v, wkr, u_bias, v_bias, pad_mask,
@@ -74,31 +86,32 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` (flash_prefill or flash_encoder), built and bound."""
+def _fns(name: str, symbol: str):
+    """``symbol`` of ``csrc/<name>.cu`` (flash_prefill or flash_encoder), built
+    and bound (every entry takes the same arguments), and the library's
+    error-string function."""
     lib = _build.load(name)
-    fwd = getattr(lib, f"{name}_fwd")
+    fwd = getattr(lib, symbol)
     fwd.restype = ctypes.c_int
     fwd.argtypes = [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P]
     err = getattr(lib, f"{name}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [_I]
-    return lib
+    return fwd, err
 
 
-def _launch(name: str, q, k, v, wkr, u, vb, pad, H: int, scale: float):
-    lib = _lib(name)
+def _launch(name: str, symbol: str, q, k, v, wkr, u, vb, pad, H: int, scale: float):
+    fwd, error_string = _fns(name, symbol)
     B, W, HD = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"{name}_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(), u.data_ptr(),
-            vb.data_ptr(), pad.data_ptr(), out.data_ptr(), B, W, H, HD // H,
-            scale, stream)
+        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), wkr.data_ptr(), u.data_ptr(),
+                  vb.data_ptr(), pad.data_ptr(), out.data_ptr(), B, W, H, HD // H,
+                  scale, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err} "
-                           f"({getattr(lib, f'{name}_error_string')(err).decode()})")
+        raise RuntimeError(f"{symbol} kernel failed: CUDA error {err} "
+                           f"({error_string(err).decode()})")
     return out
 
 
@@ -113,10 +126,11 @@ def kernel_supports(n_heads: int, HD: int, causal: bool) -> str:
     return ""
 
 
-def _run(name: str, q, k, v, wkr, u_bias, v_bias, pad_mask, H: int, scale: bool,
-         causal: bool):
-    """Check the operands; the plain version for CPU tensors, else the launch
-    of ``csrc/<name>.cu``."""
+def _run(q, k, v, wkr, u_bias, v_bias, pad_mask, H: int, scale: bool, causal: bool):
+    """Check the operands; the plain version for CPU tensors (entry None),
+    else the launch of ``csrc/flash_prefill.cu``'s entry for these heads
+    (causal) or of ``csrc/flash_encoder.cu``. Returns (out, entry)."""
+    name = "flash_prefill" if causal else "flash_encoder"
     B, W, HD = q.shape
     if HD % H:
         raise ValueError(f"HD={HD} is not a multiple of n_heads={H}")
@@ -130,7 +144,7 @@ def _run(name: str, q, k, v, wkr, u_bias, v_bias, pad_mask, H: int, scale: bool,
         raise ValueError(f"u_bias / v_bias must hold H*Dh = {HD} values")
     if q.device.type == "cpu":
         return flash_encoder_attention_plain(q, k, v, wkr, u_bias, v_bias, pad_mask, H,
-                                             scale, causal)
+                                             scale, causal), None
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     why = kernel_supports(H, HD, causal)
@@ -147,8 +161,10 @@ def _run(name: str, q, k, v, wkr, u_bias, v_bias, pad_mask, H: int, scale: bool,
             raise ValueError(f"{what}: must be contiguous and 16-byte aligned")
         if t.device != q.device:
             raise ValueError(f"{what}: on {t.device}, expected {q.device}")
-    return _launch(name, *operands.values(), pad_mask.contiguous(), H,
-                   1.0 / math.sqrt(HD // H) if scale else 1.0)
+    entry = prefill_entry(HD // H) if causal else "bidir"
+    symbol = f"flash_prefill_{entry}_fwd" if causal else "flash_encoder_fwd"
+    return _launch(name, symbol, *operands.values(), pad_mask.contiguous(), H,
+                   1.0 / math.sqrt(HD // H) if scale else 1.0), entry
 
 
 def flash_prefill_attention(
@@ -173,14 +189,16 @@ def flash_prefill_attention(
     W = q.shape[1]
     if block_rows and W % block_rows:
         raise ValueError(f"W={W} not divisible by block_rows={block_rows}")
-    out = _run("flash_prefill", q, k, v, wkr, u_bias, v_bias, pad_mask, n_heads, scale,
-               causal=True)
-    if q.device.type == "cuda":
+    out, entry = _run(q, k, v, wkr, u_bias, v_bias, pad_mask, n_heads, scale, causal=True)
+    if entry:
         flash_prefill_attention.launches += 1
+        flash_prefill_attention.entries[entry] += 1
     return out
 
 
 flash_prefill_attention.launches = 0  # kernel launches (CUDA tensors only)
+# the same launches by the entry of csrc/flash_prefill.cu that ran
+flash_prefill_attention.entries = {"wgmma": 0, "cuda_core": 0}
 
 
 def flash_encoder_attention(
@@ -200,12 +218,15 @@ def flash_encoder_attention(
     returns (B, W, HD). ``causal=True`` is the decoder prefill's attention,
     the same function as :func:`flash_prefill_attention` (its kernel, counted
     here). Every query row is computed, padded ones too."""
-    name = "flash_prefill" if causal else "flash_encoder"
-    out = _run(name, q, k, v, wkr, u_bias, v_bias, pad_mask, n_heads, scale, causal)
-    if q.device.type == "cuda":
+    out, entry = _run(q, k, v, wkr, u_bias, v_bias, pad_mask, n_heads, scale, causal)
+    if entry:
         flash_encoder_attention.launches["causal" if causal else "bidir"] += 1
+        if causal:
+            flash_encoder_attention.entries[entry] += 1
     return out
 
 
 # kernel launches by variant (CUDA tensors only)
 flash_encoder_attention.launches = {"bidir": 0, "causal": 0}
+# the causal launches by the entry of csrc/flash_prefill.cu that ran
+flash_encoder_attention.entries = {"wgmma": 0, "cuda_core": 0}

@@ -10,6 +10,7 @@ continuous; or the multitask model's harmonize and next-word steps.
     python3 profile_decode.py --data-gate auto xla --seeds 0 1 2
     python3 profile_decode.py --stack --seeds 0 1 2 [--steps 256] [--repeats 2]
     python3 profile_decode.py --edge fused_batched:3,5 fused_batched:1,5,64:520 --seeds 7 [--detail]
+    python3 profile_decode.py --flash
 
 Loads the 41M flagship checkpoint with the port and, each under
 ``torch.profiler``: runs ``--steps`` slab_w8 decode steps (``fused_slab_core``
@@ -84,6 +85,16 @@ same order redraw its inputs, in this tree or a parent's. With
 slot instead, and run again over the panel's last M % 16 slots alone
 (``case_detail``).
 
+``--flash`` runs ``chip_smoke.flash_timing`` (the causal flash prefill's
+CUDA-event median of 100 launches, twice, its plain version's and the
+bound, no padding) at each shape of FLASH_TIMING: the genre flagship's
+heads (12 x 64) at B 16 and 64, W 512, and at B 2, W 4096 (the TPU
+kernel's blocked regime), the multitask flagship's (8 x 64) and the demo
+checkpoints' (8 x 32) at B 16, W 512; then the device time a launch by
+``torch.profiler`` over 20 launches. It loads no checkpoint and uses only
+functions every tree of the port has, so the script copied into a parent
+checkout times the two trees in turns.
+
 ``--model multitask`` takes the 85M multitask flagship's shapes
 (``init_multitask`` weights from seed 0, as ``chip_smoke.py``): first
 ``chip_smoke.py``'s mt timing and mt fused timing phases (each s2s / nw
@@ -103,6 +114,7 @@ import ctypes
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -110,6 +122,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 from deepmusicgeneration_tpu_torch.decode.continuous import ContinuousEngine
+from deepmusicgeneration_tpu_torch.ops import flash_prefill as fp
 from deepmusicgeneration_tpu_torch.ops import fused_decode as fd
 from deepmusicgeneration_tpu_torch.tasks.generate import predict_nw_genre
 from deepmusicgeneration_tpu_torch.train.learner import MusicLearner
@@ -274,6 +287,35 @@ def time_modes(learner, modes, batches, e2e: bool, dev) -> None:
     if e2e:
         items = chip_smoke.batch_prompts(learner.vocab, 0, 64)
         chip_smoke.batched_phase(learner, items, 0, 256)
+
+
+# --flash: (n_heads, d_head, B, W)
+FLASH_TIMING = ((12, 64, 16, 512), (12, 64, 64, 512), (12, 64, 2, 4096), (8, 64, 16, 512),
+                (8, 32, 16, 512))
+
+
+def time_flash(dev, launches: int = 20) -> None:
+    """chip_smoke.flash_timing at each shape of FLASH_TIMING, then the
+    kernels' device time a launch over ``launches`` launches under
+    ``torch.profiler`` (the event medians also hold the wrapper's host
+    time)."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain version's f32 products
+    for H, Dh, B, W in FLASH_TIMING:
+        print(f"flash: {H}x{Dh} heads", flush=True)
+        chip_smoke.flash_timing(types.SimpleNamespace(n_heads=H, d_head=Dh), dev, B, W, 0)
+        args = chip_smoke.flash_inputs(B, W, (0,), H, Dh, dev, 0)
+        for _ in range(3):
+            fp.flash_prefill_attention(*args, H)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fp.flash_prefill_attention(*args, H)
+            torch.cuda.synchronize()
+        by_kernel = device_ms(prof)
+        print(f"flash: B={B} W={W} {H}x{Dh} device {sum(by_kernel.values()) / launches:.4f} ms "
+              f"a launch over {launches} launches: " + ", ".join(
+                  f"{k.replace('(anonymous namespace)::', '').split('(')[0]} {ms:.3f} ms in all"
+                  for k, ms in by_kernel.items()), flush=True)
 
 
 def data_gate(learner, kernels, seeds) -> None:
@@ -473,6 +515,8 @@ def main(argv=None) -> int:
                     help="with --edge: each case layer by layer and slot by slot against "
                          "float64, and over the panel's tail slots alone")
     ap.add_argument("--seeds", type=int, nargs="*", default=[0])
+    ap.add_argument("--flash", action="store_true",
+                    help="time the causal flash prefill at the FLASH_TIMING shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -481,6 +525,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda")
+    if args.flash:
+        time_flash(dev)
+        return 0
     if args.model == "multitask":
         profile_multitask(args.steps or 64, dev)
         return 0

@@ -96,7 +96,7 @@ def test_kernel_matches_plain(name, B, ptr):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,W,pads", [(8, 256, (0, 17, 200)), (2, 4096, (0, 999)),
-                                      (1, 128, (0,))])
+                                      (1, 128, (0,)), (8, 96, (0, 17, 50))])
 def test_flash_kernel_matches_plain(B, W, pads):
     """The demo checkpoint's head layout (8 x 32) through the flash prefill
     kernel, on chip_smoke.py's peaked inputs: every entry of a real query row
@@ -109,6 +109,56 @@ def test_flash_kernel_matches_plain(B, W, pads):
     n0 = fp.flash_prefill_attention.launches
     _, ratio, finite = flash_check(args, 8)
     assert fp.flash_prefill_attention.launches == n0 + 1
+    assert finite and ratio <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Dh", [(12, 64), (8, 32)])
+def test_flash_wgmma_entry_gives_the_same_bits(H, Dh):
+    """The wgmma entry adds in a fixed order: two calls on the same inputs
+    (B 16, W 512, padded rows) give the same bits, every row."""
+    dev = _card()
+    from chip_smoke import flash_inputs
+    args = flash_inputs(16, 512, (0, 17, 300), H, Dh, dev, 3)
+    e0 = fp.flash_prefill_attention.entries["wgmma"]
+    first = fp.flash_prefill_attention(*args, H)
+    second = fp.flash_prefill_attention(*args, H)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill_attention.entries["wgmma"] == e0 + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [512, 96])
+def test_flash_row_alone_equals_its_row_in_a_batch(W):
+    """A batch row's output, padded query rows included, is the same bits
+    alone as in a batch of 16 (at W 96 its tail tile's keys past W come from
+    no other batch row)."""
+    dev = _card()
+    from chip_smoke import flash_inputs
+    q, k, v, wkr, u, vb, pad = flash_inputs(16, W, (0, 17, 50), 12, 64, dev, W)
+    batch = fp.flash_prefill_attention(q, k, v, wkr, u, vb, pad, 12)
+    for b in (0, 1, 2, 15):
+        one = fp.flash_prefill_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], wkr, u, vb,
+                                         pad[b:b + 1], 12)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], batch[b]), f"batch row {b}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Dh", [(6, 128), (48, 16)])
+def test_flash_cuda_core_entry_matches_plain(H, Dh):
+    """Head widths outside the wgmma entry's run the kept CUDA-core entry,
+    held to the float32 plain version as test_flash_kernel_matches_plain
+    (W 200: a tail tile)."""
+    dev = _card()
+    from chip_smoke import flash_check, flash_inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = flash_inputs(8, 200, (0, 17, 50), H, Dh, dev, Dh)
+    before = dict(fp.flash_prefill_attention.entries)
+    _, ratio, finite = flash_check(args, H)
+    assert fp.flash_prefill_attention.entries == {**before,
+                                                  "cuda_core": before["cuda_core"] + 1}
     assert finite and ratio <= 1.0
 
 
